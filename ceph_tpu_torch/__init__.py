@@ -1,0 +1,19 @@
+"""ceph_tpu_torch: the PyTorch/CUDA port of ceph_tpu's erasure-coding path.
+
+A package of its own beside ``ceph_tpu`` (the JAX reference): it imports
+``torch`` and numpy, never ``jax`` and nothing of ``ceph_tpu``; what it
+needs from the reference's host modules it keeps as its own copies.
+
+Subpackages:
+  gf        GF(2^8) tables and RS matrix algebra (host, numpy)
+  ops       the hand-written CUDA kernels (csrc/), their plain PyTorch
+            versions, and RSCodec
+  plugins   ErasureCodeInterface / registry with the ``torch_rs`` plugin
+  backend   ECUtil stripe layer: encode/decode over many stripes, HashInfo
+  bench     ceph_erasure_code_benchmark-compatible CLI
+
+Entry points run on the card (``device="cuda"``) unless the caller asks
+for ``"cpu"`` (the plain PyTorch versions) or ``"numpy"`` (the host
+reference codec).
+"""
+__version__ = "0.1.0"

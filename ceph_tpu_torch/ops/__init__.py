@@ -1,0 +1,8 @@
+from .rs_kernels import (gf_apply, gf_apply_stripes, gf_apply_plain,
+                         gf_apply_stripes_plain, gf_apply_bitslice,
+                         gf_apply_lookup, xor_reduce, crc32c_rows)
+from .codec import RSCodec, TECHNIQUES
+
+__all__ = ["gf_apply", "gf_apply_stripes", "gf_apply_plain",
+           "gf_apply_stripes_plain", "gf_apply_bitslice", "gf_apply_lookup",
+           "xor_reduce", "crc32c_rows", "RSCodec", "TECHNIQUES"]

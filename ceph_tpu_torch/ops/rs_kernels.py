@@ -1,0 +1,245 @@
+"""GF(2^8) matrix application on the card: the RS encode/decode primitive
+
+    out[i, :] = XOR_j  mat[i, j] * data[j, :]     (GF(2^8))
+
+with ``mat`` tiny ([m, k] for encode, [n_lost, k] for decode) and ``data``
+huge ([k, N] bytes, or [S*k, N] in the vertical stripe layout).
+
+On a CUDA tensor, :func:`gf_apply` and :func:`gf_apply_stripes` launch the
+hand-written kernel of ``csrc/gf_apply.cu`` (built at first use by
+:mod:`.cuda_build`); they never fall back to anything else.  On a CPU
+tensor they run the plain PyTorch versions kept beside them:
+
+- :func:`gf_apply_bitslice`: expand the matrix to its GF(2) bit-matrix
+  [8r, 8k], unpack the data to bit-planes, one float32 matmul (exact: 0/1
+  terms, at most 8*255 of them, far under 2^24), mod 2, repack;
+- :func:`gf_apply_lookup`: per-coefficient 256-entry product tables
+  gathered by the data bytes and XOR-reduced over j.
+
+Data layout everywhere: uint8 tensors [chunks, chunk_bytes]; a batch of
+stripes folds into the byte axis (the matrix is the same for every
+stripe, so [k, B*N] == B stripes of [k, N]).
+
+``launches`` counts kernel launches per wrapper; only a launch adds to it.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..backend.ecutil import _CRC_TABLES, crc32c_zeros_op
+from ..gf.tables import MUL_TABLE
+from . import cuda_build
+
+launches = {"gf_apply": 0, "gf_apply_stripes": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _mul_table(device: torch.device) -> torch.Tensor:
+    """The 256x256 GF(2^8) product table on ``device`` (64 KiB)."""
+    return torch.from_numpy(MUL_TABLE).to(device)
+
+
+def _as_u8(x) -> torch.Tensor:
+    """A numpy array becomes a CPU tensor; a tensor must already be uint8."""
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.uint8))
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"expected a torch.Tensor or numpy array, got "
+                        f"{type(x).__name__}")
+    if x.dtype != torch.uint8:
+        raise TypeError(f"expected uint8, got {x.dtype}")
+    return x
+
+
+# -- plain PyTorch versions ---------------------------------------------------
+
+def expand_bits_raw(mat: torch.Tensor) -> torch.Tensor:
+    """GF(2^8) matrix [r, k] -> GF(2) bits [r, bi, k, bj] (uint8 0/1):
+    bit bi of (mat[i,j] * 2^bj)."""
+    mul = _mul_table(mat.device)
+    powers = torch.tensor([1 << j for j in range(8)], device=mat.device)
+    mv = mul[mat.long()[:, :, None], powers[None, None, :]]   # [r, k, bj]
+    bi = torch.arange(8, dtype=torch.uint8, device=mat.device)
+    return (mv[:, None, :, :] >> bi[None, :, None, None]) & 1
+
+
+def _unpack_bits(data: torch.Tensor) -> torch.Tensor:
+    """uint8 [k, N] -> bit-planes [8k, N] (row 8j+bj = bit bj of chunk j)."""
+    k, n = data.shape
+    bj = torch.arange(8, dtype=torch.uint8, device=data.device)
+    return ((data[:, None, :] >> bj[None, :, None]) & 1).reshape(8 * k, n)
+
+
+def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """0/1 bit-planes [8r, N] -> uint8 [r, N]."""
+    rr, n = bits.shape
+    w = torch.tensor([1 << i for i in range(8)], dtype=torch.int32,
+                     device=bits.device)
+    return (bits.reshape(rr // 8, 8, n).to(torch.int32)
+            * w[None, :, None]).sum(dim=1).to(torch.uint8)
+
+
+def gf_apply_bitslice(mat: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """Plain version: out = mat @GF data as a GF(2) float32 matmul."""
+    r, k = mat.shape
+    B = expand_bits_raw(mat).reshape(8 * r, 8 * k).to(torch.float32)
+    x = _unpack_bits(data).to(torch.float32)                 # [8k, N]
+    # the sums must be exact integers: no TF32 on the card for this matmul,
+    # and the caller's setting is put back after it
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        acc = B @ x
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return _pack_bits(acc.to(torch.int32) & 1)
+
+
+def gf_apply_lookup(mat: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """Plain version: product-table gathers, XOR-reduced over j."""
+    tables = _mul_table(data.device)[mat.long()]             # [r, k, 256]
+    out = torch.zeros((mat.shape[0], data.shape[1]), dtype=torch.uint8,
+                      device=data.device)
+    for j in range(mat.shape[1]):
+        out ^= tables[:, j, :][:, data[j].long()]
+    return out
+
+
+def xor_reduce(data: torch.Tensor) -> torch.Tensor:
+    """XOR of all chunk rows: [k, N] -> [1, N] (the parity row of ones)."""
+    out = data[0].clone()
+    for j in range(1, data.shape[0]):
+        out ^= data[j]
+    return out[None, :]
+
+
+def gf_apply_plain(mat: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version :func:`gf_apply` takes for a CPU tensor:
+    'lookup' for tiny matrices (as the reference's auto choice), else
+    'bitslice'.  The two are bitwise equal."""
+    if mat.shape[0] * mat.shape[1] < 8:
+        return gf_apply_lookup(mat, data)
+    return gf_apply_bitslice(mat, data)
+
+
+def _fold(data: torch.Tensor, k: int, stripes: int) -> torch.Tensor:
+    """[S*k, N] vertical layout -> [k, S*N] horizontal."""
+    n = data.shape[1]
+    return data.reshape(stripes, k, n).transpose(0, 1).reshape(k, stripes * n)
+
+
+def _unfold(out: torch.Tensor, stripes: int) -> torch.Tensor:
+    """[r, S*N] horizontal -> [S*r, N] vertical layout."""
+    r = out.shape[0]
+    n = out.shape[1] // stripes
+    return out.reshape(r, stripes, n).transpose(0, 1).reshape(stripes * r, n)
+
+
+def gf_apply_stripes_plain(mat: torch.Tensor, data: torch.Tensor,
+                           stripes: int) -> torch.Tensor:
+    """Plain version of the vertical-layout apply: fold to [k, S*N], apply,
+    unfold to [S*r, N]."""
+    folded = _fold(data, mat.shape[1], stripes)
+    return _unfold(gf_apply_plain(mat, folded), stripes)
+
+
+# -- the kernel wrappers ------------------------------------------------------
+
+def _apply(name: str, mat, data, stripes: int) -> torch.Tensor:
+    """The one body behind both wrappers: data [S*k, N] -> [S*r, N].  A CPU
+    tensor runs the plain version; a CUDA tensor is checked, launches the
+    kernel and adds one to ``launches[name]``; anything else raises."""
+    mat, data = _as_u8(mat), _as_u8(data)
+    if mat.dim() != 2 or data.dim() != 2:
+        raise ValueError(f"mat and data must be 2-D, got {tuple(mat.shape)} "
+                         f"and {tuple(data.shape)}")
+    r, k = mat.shape
+    if data.shape[0] != stripes * k:
+        raise ValueError(f"{data.shape[0]} rows != {stripes} stripes x {k}")
+    if data.device.type == "cpu":
+        return gf_apply_stripes_plain(mat.cpu(), data, stripes)
+    if not data.is_cuda:
+        raise ValueError(f"{name} runs on cuda or cpu, not {data.device}")
+    if mat.device != data.device:
+        raise ValueError(f"mat on {mat.device} but data on {data.device}")
+    if not (mat.is_contiguous() and data.is_contiguous()):
+        raise ValueError("mat and data must be contiguous")
+    n = int(data.shape[1])
+    out = torch.empty((stripes * r, n), dtype=torch.uint8, device=data.device)
+    if n == 0 or stripes == 0:
+        return out
+    lib = cuda_build.load("gf_apply")
+    mul = _mul_table(data.device)
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        err = lib.gf_apply_launch(
+            mat.data_ptr(), mul.data_ptr(), data.data_ptr(), out.data_ptr(),
+            int(r), int(k), n, int(stripes), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: cudaError_t {err}")
+    launches[name] += 1
+    return out
+
+
+def gf_apply(mat, data) -> torch.Tensor:
+    """out[r, N] = mat[r, k] @GF data[k, N], uint8.  A CUDA tensor launches
+    the hand kernel; a CPU tensor (or numpy array) runs
+    :func:`gf_apply_plain`."""
+    return _apply("gf_apply", mat, data, 1)
+
+
+def gf_apply_stripes(mat, data, stripes: int) -> torch.Tensor:
+    """Vertical layout: data [S*k, Nc] -> [S*r, Nc], stripe s's rows
+    [s*k, (s+1)*k) to parity rows [s*r, (s+1)*r).  A CUDA tensor launches
+    the hand kernel; a CPU tensor runs :func:`gf_apply_stripes_plain`."""
+    return _apply("gf_apply_stripes", mat, data, int(stripes))
+
+
+# -- crc32c of rows (plain PyTorch; on the EC write path via hinfo_append) ----
+#
+# crc32c is GF(2)-linear in the data bits once the seed is factored out
+# (backend/ecutil.crc32c_zeros), so a row's crc32c(0, row) folds like a
+# reduction: per-byte crcs from one 256-entry table gather, then log2(n)
+# fold levels where adjacent 2^l-byte blocks combine as Z_{2^l}(left) ^
+# right, Z_L the 32x32 GF(2) operator advancing a register through L zero
+# bytes.  Rows pad with zeros on the LEFT (free for a zero-seeded
+# register), so every level is an exact halving.  CRCs are held in int64.
+
+@functools.lru_cache(maxsize=None)
+def _crc_t0(device: torch.device) -> torch.Tensor:
+    return torch.tensor(_CRC_TABLES[0], dtype=torch.int64, device=device)
+
+
+def _crc_apply_op(crcs: torch.Tensor, op: tuple) -> torch.Tensor:
+    """Apply a 32x32 GF(2) operator (``op[i]`` = image of register bit i)
+    to int64 crcs by masked XOR."""
+    out = torch.zeros_like(crcs)
+    for i in range(32):
+        out ^= ((crcs >> i) & 1) * op[i]
+    return out
+
+
+def crc32c_rows(rows) -> torch.Tensor:
+    """crc32c(seed=0) of each row of a uint8 [r, n] tensor -> int64 [r],
+    on the rows' device.  Seed-chained ceph semantics are the caller's host
+    combine: ``crc32c(seed, row) == crc32c_zeros(seed, n) ^ crc32c_rows(rows)[i]``."""
+    rows = _as_u8(rows)
+    r, n = rows.shape
+    c = _crc_t0(rows.device)[rows.long()]
+    pad = 1 if n <= 1 else 1 << (n - 1).bit_length()
+    if pad > n:
+        c = torch.cat([torch.zeros((r, pad - n), dtype=torch.int64,
+                                   device=rows.device), c], dim=1)
+    level = 0
+    while c.shape[1] > 1:
+        c = _crc_apply_op(c[:, 0::2], crc32c_zeros_op(1 << level)) ^ c[:, 1::2]
+        level += 1
+    return c[:, 0]

@@ -1,0 +1,144 @@
+"""The port stands alone: no JAX and nothing of ``ceph_tpu``.
+
+tests/conftest.py imports JAX into every test process, so the runtime
+check runs a fresh interpreter.  The static check walks every import of
+the port's sources and of chip_smoke.py.
+"""
+import ast
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from ceph_tpu_torch.backend import ecutil
+from ceph_tpu_torch.ops import rs_kernels
+from ceph_tpu_torch.ops.codec import RSCodec
+from ceph_tpu_torch.plugins.registry import ErasureCodePluginRegistry
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "ceph_tpu_torch")
+
+_PROBE = """
+import json, sys
+import numpy as np
+from ceph_tpu_torch.backend import ecutil
+from ceph_tpu_torch.bench import ec_bench
+from ceph_tpu_torch import convert
+from ceph_tpu_torch.plugins.registry import ErasureCodePluginRegistry
+ec = ErasureCodePluginRegistry.instance().factory(
+    "torch_rs", "", {"k": "4", "m": "2", "device": "cpu"})
+sinfo = ecutil.StripeInfo(4, ec.get_chunk_size(4 * 128))
+buf = np.random.default_rng(0).integers(0, 256, sinfo.stripe_width * 3,
+                                        dtype=np.uint8)
+shards = ecutil.encode_many(sinfo, ec, [buf])[0]
+h = ecutil.HashInfo(6)
+ecutil.hinfo_append(h, 0, shards, ec)
+out = ecutil.decode_many(sinfo, ec, [{c: v for c, v in shards.items()
+                                      if c not in (0, 5)}])
+assert out[0] == buf.tobytes()
+print(json.dumps(sorted(m for m in sys.modules
+                        if m == "jax" or m.startswith("jax.")
+                        or m == "jaxlib" or m.startswith("jaxlib.")
+                        or m == "ceph_tpu" or m.startswith("ceph_tpu."))))
+"""
+
+
+def test_port_never_loads_jax_or_the_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def _port_sources():
+    for dirpath, _dirs, files in os.walk(PORT):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def _imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_source_imports_jax_or_ceph_tpu():
+    sources = list(_port_sources())
+    assert len(sources) > 15 and all(os.path.exists(p) for p in sources)
+    bad = []
+    for path in sources:
+        for name in _imports(path):
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", "ceph_tpu"):
+                bad.append((os.path.relpath(path, ROOT), name))
+    assert bad == []
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rs_kernels.reset_launches()
+
+
+def test_cuda_codec_without_a_card_raises(no_card):
+    data = np.zeros((4, 256), np.uint8)
+    codec = RSCodec(4, 2, device="cuda")
+    for call in (lambda: codec.encode(data),
+                 lambda: codec.decode({i: data[0] for i in range(1, 5)}, [0]),
+                 lambda: codec.to_device(data)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert codec.parity_uploads == 0
+    assert rs_kernels.launches == {"gf_apply": 0, "gf_apply_stripes": 0}
+
+
+def test_plugin_on_cuda_without_a_card_raises(no_card):
+    reg = ErasureCodePluginRegistry()
+    ec = reg.factory("torch_rs", "", {"k": "4", "m": "2", "device": "cuda"})
+    with pytest.raises(RuntimeError, match="cuda"):
+        ec.encode(set(range(6)), b"\x01" * 4096)
+    # auto: under the threshold the host codec answers, at it the card
+    # is required and its absence raises
+    auto = reg.factory("torch_rs", "", {"k": "4", "m": "2", "device": "auto",
+                                        "device-threshold": "65536"})
+    assert len(auto.encode(set(range(6)), b"\x01" * 4096)) == 6
+    with pytest.raises(RuntimeError, match="cuda"):
+        auto.encode(set(range(6)), b"\x01" * 65536)
+    sinfo = ecutil.StripeInfo(4, 128)
+    shards = {c: np.zeros(128, np.uint8) for c in range(6)}
+    with pytest.raises(RuntimeError, match="cuda"):
+        ecutil.hinfo_append(ecutil.HashInfo(6), 0, shards, ec)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ecutil.encode_many(sinfo, ec, [np.zeros(512, np.uint8)])
+    assert rs_kernels.launches == {"gf_apply": 0, "gf_apply_stripes": 0}
+
+
+def test_plugin_without_a_device_key_runs_on_cuda(no_card):
+    """No ``device`` in the profile means cuda: a call far under the auto
+    threshold still goes to the card, and without one it raises."""
+    reg = ErasureCodePluginRegistry()
+    ec = reg.factory("torch_rs", "", {"k": "4", "m": "2"})
+    assert ec.get_profile()["device"] == "cuda"
+    assert ec.device_codec(4096) is ec.codec
+    with pytest.raises(RuntimeError, match="cuda"):
+        ec.encode(set(range(6)), b"\x01" * 4096)
+    enc = reg.factory("torch_rs", "", {"k": "4", "m": "2", "device": "numpy"}
+                      ).encode(set(range(6)), b"\x01" * 4096)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ec.decode(set(range(6)), {i: enc[i] for i in range(2, 6)})
+    sinfo = ecutil.StripeInfo(4, 128)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ecutil.encode_many(sinfo, ec, [np.zeros(512, np.uint8)])
+    assert rs_kernels.launches == {"gf_apply": 0, "gf_apply_stripes": 0}
