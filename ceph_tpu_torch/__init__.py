@@ -5,10 +5,12 @@ A package of its own beside ``ceph_tpu`` (the JAX reference): it imports
 needs from the reference's host modules it keeps as its own copies.
 
 Subpackages:
-  gf        GF(2^8) tables and RS matrix algebra (host, numpy)
+  gf        GF(2^8) tables and RS matrix algebra, GF(2) bitmatrix codes,
+            GF(2^16)/GF(2^32) fields (host, numpy)
   ops       the hand-written CUDA kernels (csrc/), their plain PyTorch
             versions, and RSCodec
-  plugins   ErasureCodeInterface / registry with the ``torch_rs`` plugin
+  plugins   ErasureCodeInterface / registry with the ``torch_rs``,
+            ``jerasure``, ``isa`` and ``shec`` plugins
   backend   ECUtil stripe layer: encode/decode over many stripes, HashInfo
   bench     ceph_erasure_code_benchmark-compatible CLI
 

@@ -7,6 +7,8 @@ dicts, so this module imports nothing of the JAX package:
 
 - :func:`codec_from_reference` takes a reference ``RSCodec``'s
   ``parity_mat`` and its decode-LRU entries;
+- :func:`bitmatrix_from_reference` takes a reference jerasure bitmatrix
+  plugin's ``coding`` matrix;
 - :func:`hashinfo_from_dict` takes ``HashInfo.to_dict()``.
 """
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 
 from .backend.ecutil import HashInfo
 from .ops.codec import RSCodec, _DecodeTables
+from .plugins.plugin_jerasure import ErasureCodeJerasureBitmatrix
 
 
 def codec_from_reference(parity_mat: np.ndarray, k: int, m: int,
@@ -46,6 +49,25 @@ def codec_from_reference(parity_mat: np.ndarray, k: int, m: int,
     if device != "numpy":
         codec._upload_parity()
     return codec
+
+
+def bitmatrix_from_reference(coding: np.ndarray, technique: str, k: int,
+                             m: int, w: int, packetsize: int = 2048,
+                             device: str = "cuda"
+                             ) -> ErasureCodeJerasureBitmatrix:
+    """The port's jerasure bitmatrix plugin (liberation, blaum_roth,
+    liber8tion, or a w=16/32 wide-word technique) for a reference plugin
+    whose ``coding`` bitmatrix is given.  Raises ValueError if ``coding``
+    is not this port's own construction for the profile."""
+    ec = ErasureCodeJerasureBitmatrix(technique)
+    ec.init({"technique": technique, "k": str(k), "m": str(m), "w": str(w),
+             "packetsize": str(packetsize), "device": device})
+    coding = np.asarray(coding, dtype=np.uint8)
+    if coding.shape != ec.coding.shape or \
+            not np.array_equal(coding, ec.coding):
+        raise ValueError(f"coding differs from the port's {technique} "
+                         f"construction for k={k} m={m} w={w}")
+    return ec
 
 
 def hashinfo_from_dict(d: dict) -> HashInfo:

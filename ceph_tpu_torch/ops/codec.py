@@ -36,6 +36,19 @@ DEVICES = ("cuda", "cpu", "numpy")
 DECODE_CACHE_SIZE = 2516
 
 
+def torch_device(device: str) -> torch.device:
+    """The torch device of a 'cuda' or 'cpu' codec or plugin.  'cuda' on a
+    machine with no CUDA device raises rather than run on the CPU."""
+    if device == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device=cuda but torch.cuda.is_available() is False")
+        return torch.device("cuda", torch.cuda.current_device())
+    if device == "cpu":
+        return torch.device("cpu")
+    raise ValueError(f"device={device} has no torch device")
+
+
 class _DecodeTables:
     """One signature's cached decode state: the host matrix, the source
     chunk order, and — uploaded lazily, then pinned for the LRU entry's
@@ -85,14 +98,7 @@ class RSCodec:
     def torch_device(self) -> torch.device:
         """Where this codec's tensors live; a 'cuda' codec on a machine
         with no CUDA device raises rather than run on the CPU."""
-        if self.device == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "device=cuda but torch.cuda.is_available() is False")
-            return torch.device("cuda", torch.cuda.current_device())
-        if self.device == "cpu":
-            return torch.device("cpu")
-        raise ValueError("a numpy codec has no torch device")
+        return torch_device(self.device)
 
     def to_device(self, arr: np.ndarray) -> torch.Tensor:
         """Host uint8 array -> contiguous tensor on this codec's device."""

@@ -33,6 +33,9 @@ SIGNATURES = {
     "gf_apply": {
         "gf_apply_launch": [_P, _P, _P, _P, _I, _I, _L, _L, _P],
     },
+    "xor_apply": {
+        "xor_apply_launch": [_P, _P, _P, _I, _I, _L, _P],
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -20,6 +20,11 @@ Data layout everywhere: uint8 tensors [chunks, chunk_bytes]; a batch of
 stripes folds into the byte axis (the matrix is the same for every
 stripe, so [k, B*N] == B stripes of [k, N]).
 
+:func:`xor_apply` is the GF(2) bitmatrix apply of the jerasure bitmatrix
+and wide-word codes, ``out[r] = XOR of packets[i] where W[r, i] = 1``: on a
+CUDA tensor it launches the kernel of ``csrc/xor_apply.cu``, on a CPU
+tensor it runs :func:`xor_apply_plain`.
+
 ``launches`` counts kernel launches per wrapper; only a launch adds to it.
 """
 from __future__ import annotations
@@ -33,7 +38,7 @@ from ..backend.ecutil import _CRC_TABLES, crc32c_zeros_op
 from ..gf.tables import MUL_TABLE
 from . import cuda_build
 
-launches = {"gf_apply": 0, "gf_apply_stripes": 0}
+launches = {"gf_apply": 0, "gf_apply_stripes": 0, "xor_apply": 0}
 
 
 def reset_launches() -> None:
@@ -201,6 +206,83 @@ def gf_apply_stripes(mat, data, stripes: int) -> torch.Tensor:
     [s*k, (s+1)*k) to parity rows [s*r, (s+1)*r).  A CUDA tensor launches
     the hand kernel; a CPU tensor runs :func:`gf_apply_stripes_plain`."""
     return _apply("gf_apply_stripes", mat, data, int(stripes))
+
+
+# -- GF(2) bitmatrix apply ------------------------------------------------------
+
+def _as_bits(W) -> torch.Tensor:
+    """A 0/1 matrix (numpy or tensor; bool, int8 or uint8) as a uint8
+    tensor on its device.  Bit 0 is what counts, as in the mod-2 matmul
+    of the JAX package's device path."""
+    if isinstance(W, np.ndarray):
+        W = torch.from_numpy(np.ascontiguousarray(W))
+    if not isinstance(W, torch.Tensor):
+        raise TypeError(f"expected a torch.Tensor or numpy array, got "
+                        f"{type(W).__name__}")
+    if W.dtype not in (torch.bool, torch.int8, torch.uint8):
+        raise TypeError(f"W must be bool, int8 or uint8, got {W.dtype}")
+    return W.to(torch.uint8)
+
+
+def _xor_rows(rows: torch.Tensor) -> torch.Tensor:
+    """XOR of the rows of [n >= 1, P] -> [P], folded in halves."""
+    while rows.shape[0] > 1:
+        half = rows.shape[0] // 2
+        folded = rows[:half] ^ rows[half:2 * half]
+        rows = torch.cat([folded, rows[2 * half:]]) if rows.shape[0] % 2 \
+            else folded
+    return rows[0]
+
+
+def xor_apply_plain(W: torch.Tensor, packets: torch.Tensor) -> torch.Tensor:
+    """Plain version: ``out[r]`` = XOR of the ``packets`` rows where
+    ``W[r] & 1``, a reduce over the selected rows (the bit-plane matmul of
+    the JAX package would need float planes 8x the packets' size)."""
+    sel = (_as_bits(W).to(packets.device) & 1).bool()
+    out = torch.zeros((sel.shape[0], packets.shape[1]), dtype=torch.uint8,
+                      device=packets.device)
+    for r in range(sel.shape[0]):
+        rows = packets[sel[r]]
+        if rows.shape[0]:
+            out[r] = _xor_rows(rows)
+    return out
+
+
+def xor_apply(W, packets) -> torch.Tensor:
+    """out[R, P] = W[R, K] ·GF(2) packets[K, P]: each output row is the
+    bytewise XOR of the packet rows its W row selects.  A CUDA tensor
+    launches the hand kernel and adds one to ``launches["xor_apply"]``; a
+    CPU tensor (or numpy array) runs :func:`xor_apply_plain`."""
+    W, packets = _as_bits(W), _as_u8(packets)
+    if W.dim() != 2 or packets.dim() != 2:
+        raise ValueError(f"W and packets must be 2-D, got {tuple(W.shape)} "
+                         f"and {tuple(packets.shape)}")
+    r, k = W.shape
+    if packets.shape[0] != k:
+        raise ValueError(f"W has {k} columns but packets has "
+                         f"{packets.shape[0]} rows")
+    if packets.device.type == "cpu":
+        return xor_apply_plain(W.cpu(), packets)
+    if not packets.is_cuda:
+        raise ValueError(f"xor_apply runs on cuda or cpu, not "
+                         f"{packets.device}")
+    if W.device != packets.device:
+        raise ValueError(f"W on {W.device} but packets on {packets.device}")
+    if not (W.is_contiguous() and packets.is_contiguous()):
+        raise ValueError("W and packets must be contiguous")
+    p = int(packets.shape[1])
+    out = torch.empty((r, p), dtype=torch.uint8, device=packets.device)
+    if r == 0 or p == 0:
+        return out
+    lib = cuda_build.load("xor_apply")
+    with torch.cuda.device(packets.device):
+        stream = torch.cuda.current_stream(packets.device).cuda_stream
+        err = lib.xor_apply_launch(W.data_ptr(), packets.data_ptr(),
+                                   out.data_ptr(), int(r), int(k), p, stream)
+    if err != 0:
+        raise RuntimeError(f"xor_apply failed: cudaError_t {err}")
+    launches["xor_apply"] += 1
+    return out
 
 
 # -- crc32c of rows (plain PyTorch; on the EC write path via hinfo_append) ----

@@ -16,7 +16,9 @@ from __future__ import annotations
 from typing import Mapping
 
 import numpy as np
+import torch
 
+from ..ops.codec import torch_device
 from .interface import ErasureCodeInterface, ErasureCodeProfile
 
 SIMD_ALIGN = 32          # reference AVX alignment (ErasureCode.cc:42)
@@ -55,6 +57,11 @@ class DeviceRouting:
         if self.device != "auto":
             return self.device != "numpy"
         return nbytes >= self.device_threshold
+
+    def tensor_device(self) -> torch.device:
+        """The torch device of a call :meth:`use_device` sends to tensors:
+        the CPU for device=cpu, else the card (raising without one)."""
+        return torch_device("cpu" if self.device == "cpu" else "cuda")
 
 
 class ErasureCode(ErasureCodeInterface):

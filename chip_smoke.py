@@ -6,9 +6,11 @@ Builds the hand-written CUDA kernels of ``ceph_tpu_torch/ops/csrc`` with
 ``nvcc``, holds each against its plain PyTorch version on the card, then
 drives the port end to end:
 
-1. build     -- nvcc build time, card name and power limit;
+1. build     -- nvcc build time of every source, card name and power
+                limit;
 2. kernels   -- every kernel against its plain version, bitwise, over a
-                grid of (r, k), ragged widths and stripe counts;
+                grid of shapes, ragged widths, stripe counts and an
+                unaligned view;
 3. ecutil    -- the torch_rs plugin through the port's registry (k=8, m=4,
                 reed_sol_van, 4 KiB stripe unit) under ecutil.encode_many,
                 hinfo_append and decode_many over 64 objects of 4 MiB,
@@ -16,7 +18,13 @@ drives the port end to end:
 4. headline  -- rs_kernels.gf_apply_stripes over 64 x 1 MiB stripes
                 (Cauchy RS(8,4), erasures {0, 9}) in the vertical layout,
                 timed with CUDA events;
-5. ec_bench  -- the ceph_erasure_code_benchmark CLI, encode and decode.
+5. jerasure  -- the jerasure plugin on the xor_apply kernel under
+                ecutil.encode_many, hinfo_append and decode_many over 64
+                objects of 4 MiB, for liber8tion k=8 and reed_sol_van k=8
+                m=4 w=16, checked against the port's numpy path; then the
+                isa and shec plugins on the gf_apply kernel over 8 objects;
+6. ec_bench  -- the ceph_erasure_code_benchmark CLI: torch_rs encode and
+                decode, the default invocation, a liber8tion encode.
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero.  Before the last line it prints the kernel table as one JSON
@@ -82,6 +90,21 @@ def bytes_bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def sm_clock_max_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def xor_ops_bound_ms(byte_xors: int, sms: int, clock_mhz: float) -> float:
+    """Byte-XORs at the card's int32 logic rate: per SM 64 int32 lanes of 4
+    bytes each, two XORs per LOP3, at the maximum SM clock."""
+    rate = sms * 64 * 4 * 2 * clock_mhz * 1e6
+    return byte_xors / rate * 1e3
+
+
 def rand_u8(gen: torch.Generator, shape, device) -> torch.Tensor:
     return torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8,
                          device=device)
@@ -98,13 +121,31 @@ def phase_build(cuda_build) -> dict:
             "per_source": {n: v["seconds"] for n, v in info.items()}}
 
 
-def phase_kernels(K, dev) -> dict:
+def phase_kernels(K, dev, decode_bitmatrices) -> dict:
     """Each kernel against its plain version, bitwise, over the grid."""
     gen = torch.Generator(device=dev).manual_seed(1)
     shapes = [(r, k) for r in (1, 2, 4) for k in (2, 8, 20)]
     shapes += [(64, 128), (8, 200)]          # > 48 KB tables; k sliced
-    worst = {"gf_apply": 0, "gf_apply_stripes": 0}
+    worst = {"gf_apply": 0, "gf_apply_stripes": 0, "xor_apply": 0}
     cases = 0
+    # xor_apply: random 0/1 W from RAID-6 w=2..w=32 widths, and the dense
+    # decode matrices of the jerasure phase's profiles
+    bitmats = [torch.randint(0, 2, rk, generator=gen, dtype=torch.uint8,
+                             device=dev)
+               for rk in ((2, 6), (14, 28), (16, 64), (64, 128), (128, 256))]
+    bitmats += [torch.from_numpy(D).to(dev) for D in decode_bitmatrices]
+    for W in bitmats:
+        for p in (1, 127, 1000, 131072):
+            packets = rand_u8(gen, (W.shape[1], p), dev)
+            err = max_abs_err(K.xor_apply(W, packets),
+                              K.xor_apply_plain(W, packets))
+            worst["xor_apply"] = max(worst["xor_apply"], err)
+            cases += 1
+    base = rand_u8(gen, (64 * 4096 + 5,), dev)
+    view = base[5:].view(64, 4096)           # 16-byte loads not legal
+    worst["xor_apply"] = max(worst["xor_apply"], max_abs_err(
+        K.xor_apply(bitmats[2], view), K.xor_apply_plain(bitmats[2], view)))
+    cases += 1
     for r, k in shapes:
         mat = rand_u8(gen, (r, k), dev)
         for n in (1, 127, 1000, 131072):
@@ -134,6 +175,62 @@ def phase_kernels(K, dev) -> dict:
             "launches": dict(K.launches)}
 
 
+def _run_stripe_path(K, ecutil, ec, host, sinfo, bufs, lost_sets,
+                     kernel: str) -> dict:
+    """encode_many, hinfo_append and decode_many through ``ec`` with the
+    launch counts zeroed just before and read just after; then the round
+    trip and shards/HashInfo against the ``host`` (numpy) plugin.  Returns
+    the report and the shards."""
+    n = ec.get_chunk_count()
+    # warm the plugin's matrices on the card first, so the counted run is
+    # the steady state a serving process sees
+    ecutil.encode_many(sinfo, ec, bufs[:1])
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    shards = ecutil.encode_many(sinfo, ec, bufs)
+    t_enc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hinfos = []
+    for obj in shards:
+        h = ecutil.HashInfo(n)
+        ecutil.hinfo_append(h, 0, obj, ec)
+        hinfos.append(h)
+    t_crc = time.perf_counter() - t0
+    decoded, t_dec = {}, {}
+    for lost in lost_sets:
+        batches = [{c: v for c, v in obj.items() if c not in lost}
+                   for obj in shards]
+        t0 = time.perf_counter()
+        decoded[tuple(lost)] = ecutil.decode_many(sinfo, ec, batches)
+        t_dec[str(lost)] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(K.launches)
+    if launches[kernel] < 1 + len(lost_sets):
+        raise AssertionError(f"{ec.get_profile()} did not launch {kernel} "
+                             f"on every call: {launches}")
+    for lost, outs in decoded.items():
+        for buf, out in zip(bufs, outs):
+            if out != buf.tobytes():
+                raise AssertionError(f"decode_many lost bytes for {lost}")
+    want = ecutil.encode_many(sinfo, host, bufs)
+    for got_obj, want_obj in zip(shards, want):
+        for c in range(n):
+            if not np.array_equal(got_obj[c], want_obj[c]):
+                raise AssertionError(f"shard {c} differs from numpy path")
+    for obj, h in zip(shards, hinfos):
+        hh = ecutil.HashInfo(n)
+        ecutil.hinfo_append(hh, 0, obj, host)
+        if hh.to_dict() != h.to_dict():
+            raise AssertionError("HashInfo differs from numpy path")
+    total = sum(len(b) for b in bufs)
+    return {"objects": len(bufs), "chunk_size": sinfo.chunk_size,
+            "launches": launches, "encode_many_s": t_enc,
+            "hinfo_append_s": t_crc, "decode_many_s": t_dec,
+            "encode_many_MiBps": total / MIB / t_enc,
+            "round_trip": True, "matches_numpy_path": True}, shards
+
+
 def phase_ecutil(K, ecutil, registry_cls, dev, objects: int = 64,
                  obj_bytes: int = 4 * MIB) -> tuple[dict, dict]:
     """torch_rs -> ecutil.encode_many / hinfo_append / decode_many."""
@@ -147,50 +244,9 @@ def phase_ecutil(K, ecutil, registry_cls, dev, objects: int = 64,
     rng = np.random.default_rng(0)
     bufs = [rng.integers(0, 256, obj_bytes, dtype=np.uint8)
             for _ in range(objects)]
-    lost_sets = ([0, 9], [1, 3, 8, 11])
-
-    # the path proper, counted: warm the codec's tables first so the
-    # counted run is the steady state a serving process sees
-    ecutil.encode_many(sinfo, ec, bufs[:1])
-    torch.cuda.synchronize()
-    K.reset_launches()
-    t0 = time.perf_counter()
-    shards = ecutil.encode_many(sinfo, ec, bufs)
-    t_enc = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    hinfos = []
-    for obj in shards:
-        h = ecutil.HashInfo(k + m)
-        ecutil.hinfo_append(h, 0, obj, ec)
-        hinfos.append(h)
-    t_crc = time.perf_counter() - t0
-    decoded, t_dec = {}, {}
-    for lost in lost_sets:
-        batches = [{c: v for c, v in obj.items() if c not in lost}
-                   for obj in shards]
-        t0 = time.perf_counter()
-        decoded[tuple(lost)] = ecutil.decode_many(sinfo, ec, batches)
-        t_dec[str(lost)] = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    launches = dict(K.launches)
-    if launches["gf_apply"] < 1 + len(lost_sets):
-        raise AssertionError(f"main path did not launch gf_apply: {launches}")
-
-    # checks: round trip, and shards/HashInfo equal to the numpy path
-    for lost, outs in decoded.items():
-        for buf, out in zip(bufs, outs):
-            if out != buf.tobytes():
-                raise AssertionError(f"decode_many lost bytes for {lost}")
-    want = ecutil.encode_many(sinfo, host, bufs)
-    for got_obj, want_obj in zip(shards, want):
-        for c in range(k + m):
-            if not np.array_equal(got_obj[c], want_obj[c]):
-                raise AssertionError(f"shard {c} differs from numpy path")
-    for obj, h in zip(shards, hinfos):
-        hh = ecutil.HashInfo(k + m)
-        ecutil.hinfo_append(hh, 0, obj, host)
-        if hh.to_dict() != h.to_dict():
-            raise AssertionError("HashInfo differs from numpy path")
+    stripe, shards = _run_stripe_path(K, ecutil, ec, host, sinfo, bufs,
+                                      ([0, 9], [1, 3, 8, 11]), "gf_apply")
+    launches = stripe["launches"]
 
     # pieces of the encode call, timed alone: the host->card copy of the
     # packed [k, S*c] stream, the card->host copy of the parity, and one
@@ -211,17 +267,9 @@ def phase_ecutil(K, ecutil, registry_cls, dev, objects: int = 64,
     rows = ec.codec.to_device(np.stack([shards[0][c] for c in range(k + m)]))
     crc_ms = cuda_ms(lambda: K.crc32c_rows(rows), 5, warmup=1)
 
-    total = objects * obj_bytes
-    report = {
-        "objects": objects, "object_bytes": obj_bytes,
-        "stripe_unit": unit, "launches": launches,
-        "encode_many_s": t_enc, "hinfo_append_s": t_crc,
-        "decode_many_s": t_dec,
-        "encode_many_MiBps": total / MIB / t_enc,
-        "h2d_packed_s": t_h2d, "d2h_parity_s": t_d2h,
-        "crc32c_rows_one_object_ms": crc_ms,
-        "round_trip": True, "matches_numpy_path": True,
-    }
+    report = {**stripe, "object_bytes": obj_bytes, "stripe_unit": unit,
+              "h2d_packed_s": t_h2d, "d2h_parity_s": t_d2h,
+              "crc32c_rows_one_object_ms": crc_ms}
 
     # the gf_apply kernel at the shape this path gives it: [k, S*c]
     err = max_abs_err(K.gf_apply(mat, data), K.gf_apply_plain(mat, data))
@@ -315,30 +363,141 @@ def phase_headline(K, codec_cls, gfref, dev, batch: int = 64,
     return report, row
 
 
+# the jerasure phase's two profiles: (a) the widest RAID-6 bitmatrix code,
+# (b) a wide-word code; each with the erasure sets its decode runs
+JERASURE_PROFILES = {
+    "liber8tion": ({"technique": "liber8tion", "k": "8"},
+                   ([0, 9], [3, 5])),
+    "reed_sol_van_w16": ({"technique": "reed_sol_van", "k": "8", "m": "4",
+                          "w": "16"},
+                         ([0, 9], [1, 3, 8, 11])),
+}
+
+
+def jerasure_decode_bitmatrices(registry_cls, bm) -> list[np.ndarray]:
+    """Dense decode matrices of the jerasure phase's profiles: liber8tion
+    {0, 1} lost [16, 64], reed_sol_van w=16 {1, 3, 8, 11} lost [64, 128]."""
+    out = []
+    for (profile, _), lost in zip(JERASURE_PROFILES.values(),
+                                  ([0, 1], [1, 3, 8, 11])):
+        ec = registry_cls().factory("jerasure", "",
+                                    profile | {"device": "numpy"})
+        out.append(bm.decode_bitmatrix(ec.coding, ec.k, ec.w, lost)[0])
+    return out
+
+
+def phase_jerasure(K, ecutil, registry_cls, dev, objects: int = 64,
+                   obj_bytes: int = 4 * MIB) -> tuple[dict, dict]:
+    """jerasure bitmatrix codes (xor_apply) and the isa and shec plugins
+    (gf_apply) through the port's registry and ecutil."""
+    unit = 4096
+    rng = np.random.default_rng(2)
+    bufs = [rng.integers(0, 256, obj_bytes, dtype=np.uint8)
+            for _ in range(objects)]
+    report, shapes = {}, []
+    launches = 0
+    for name, (profile, lost_sets) in JERASURE_PROFILES.items():
+        registry = registry_cls.instance()
+        ec = registry.factory("jerasure", "", profile | {"device": "cuda"})
+        host = registry.factory("jerasure", "", profile | {"device": "numpy"})
+        k = ec.get_data_chunk_count()
+        # the 4 KiB stripe unit rounds up to the plugin's w*packetsize
+        sinfo = ecutil.StripeInfo(k, ec.get_chunk_size(k * unit))
+        assert sinfo.chunk_size == max(unit, ec.get_alignment())
+        report[name], _ = _run_stripe_path(K, ecutil, ec, host, sinfo,
+                                           bufs, lost_sets, "xor_apply")
+        launches += report[name]["launches"]["xor_apply"]
+        # the kernel at this profile's encode shape: W [m*w, k*w] on the
+        # packets of all objects' data shards [k*w, 64*4 MiB/(k*w)]
+        W = torch.from_numpy(ec.coding).to(dev)
+        p = objects * obj_bytes // (k * ec.w)
+        shapes.append((name, W, rand_u8(torch.Generator(device=dev)
+                                        .manual_seed(3), (k * ec.w, p), dev)))
+        del host
+    for name, profile, lost in (
+            ("isa", {"k": "8", "m": "4", "technique": "reed_sol_van"},
+             [0, 9]),
+            ("shec", {"k": "8", "m": "4", "c": "3"}, [0, 9])):
+        registry = registry_cls.instance()
+        ec = registry.factory(name, "", profile | {"device": "cuda"})
+        host = registry.factory(name, "", profile | {"device": "numpy"})
+        sinfo = ecutil.StripeInfo(8, ec.get_chunk_size(8 * unit))
+        report[name], _ = _run_stripe_path(K, ecutil, ec, host, sinfo,
+                                           bufs[:8], [lost], "gf_apply")
+    return report, xor_apply_row(K, dev, shapes, launches)
+
+
+def xor_apply_row(K, dev, shapes, launches: int) -> dict:
+    """The xor_apply kernel line: bitwise against its plain version and
+    timed with CUDA events at each profile's encode shape; the first
+    shape's numbers are the row's own, each shape's are under "shapes"."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = sm_clock_max_mhz()
+    per_shape, err = [], 0
+    for name, W, packets in shapes:
+        r, k = W.shape
+        p = packets.shape[1]
+        e = max_abs_err(K.xor_apply(W, packets), K.xor_apply_plain(W, packets))
+        err = max(err, e)
+        nnz = int(W.sum().item())
+        bytes_ms = bytes_bound_ms((k + r) * p)
+        ops_ms = xor_ops_bound_ms(nnz * p, sms, clock)
+        per_shape.append({
+            "profile": name, "shape": [r, k, p], "nnz": nnz,
+            "max_abs_err": e,
+            "ms": cuda_ms(lambda: K.xor_apply(W, packets), 20),
+            "plain_ms": cuda_ms(lambda: K.xor_apply_plain(W, packets), 3,
+                                warmup=1),
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
+    if err:
+        raise AssertionError(f"xor_apply disagrees at the path's shapes: "
+                             f"{err}")
+    first = per_shape[0]
+    return {"name": "xor_apply", "route": "cuda",
+            "source": "ceph_tpu_torch/ops/csrc/xor_apply.cu",
+            "replaces": "ceph_tpu/ops/pallas_kernels.py:207",
+            "path": "jerasure", "shape": first["shape"],
+            "launches": launches, "max_abs_err": err,
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": None, "sms": sms, "sm_clock_max_mhz": clock,
+            "shapes": per_shape}
+
+
 _BENCH_LINE = re.compile(r"^(\d+\.\d{6})\t(\d+)$")
 
 
 def phase_ec_bench() -> dict:
-    base = [sys.executable, "-m", "ceph_tpu_torch.bench.ec_bench",
-            "--plugin", "torch_rs", "--size", "1048576", "-P", "k=8",
-            "-P", "m=4", "--batch", "64", "--device-resident",
-            "--iterations", "5"]
+    cli = [sys.executable, "-m", "ceph_tpu_torch.bench.ec_bench",
+           "--size", "1048576", "--iterations", "5"]
+    batched = cli + ["--plugin", "torch_rs", "-P", "k=8", "-P", "m=4",
+                     "--batch", "64", "--device-resident"]
+    runs = {
+        "encode": (batched + ["--workload", "encode"], 64),
+        "decode": (batched + ["--workload", "decode", "--erased", "0",
+                              "--erased", "9"], 64),
+        # no --plugin: jerasure reed_sol_van k=7 m=3 on the card
+        "default": (cli, 1),
+        "liber8tion_encode": (cli + ["--plugin", "jerasure", "-P",
+                                     "technique=liber8tion", "-P", "k=8"],
+                              1),
+    }
     out = {}
-    for workload, extra in (("encode", []),
-                            ("decode", ["--erased", "0", "--erased", "9"])):
-        proc = subprocess.run(base + ["--workload", workload] + extra,
-                              cwd=HERE, capture_output=True, text=True,
-                              timeout=300)
+    for name, (argv, stripes) in runs.items():
+        proc = subprocess.run(argv, cwd=HERE, capture_output=True,
+                              text=True, timeout=300)
         if proc.returncode != 0:
-            raise RuntimeError(f"ec_bench {workload} failed:\n{proc.stderr}")
+            raise RuntimeError(f"ec_bench {name} failed:\n{proc.stderr}")
         lines = proc.stdout.strip().splitlines()
         match = _BENCH_LINE.match(lines[-1]) if lines else None
         if len(lines) != 1 or not match:
-            raise AssertionError(f"ec_bench {workload} output: {lines}")
+            raise AssertionError(f"ec_bench {name} output: {lines}")
         seconds, kib = float(match.group(1)), int(match.group(2))
-        if kib != 5 * 64 * 1024 or seconds <= 0:
-            raise AssertionError(f"ec_bench {workload}: {lines[0]!r}")
-        out[workload] = {"line": lines[0], "MiBps": kib / 1024 / seconds}
+        if kib != 5 * stripes * 1024 or seconds <= 0:
+            raise AssertionError(f"ec_bench {name}: {lines[0]!r}")
+        out[name] = {"line": lines[0], "MiBps": kib / 1024 / seconds}
     return out
 
 
@@ -353,6 +512,7 @@ def main() -> int:
         raise RuntimeError(f"ceph_tpu_torch imported from "
                            f"{ceph_tpu_torch.__file__}, not from {HERE}")
     from ceph_tpu_torch.backend import ecutil
+    from ceph_tpu_torch.gf import bitmatrix as bm
     from ceph_tpu_torch.gf import ref as gfref
     from ceph_tpu_torch.ops import cuda_build
     from ceph_tpu_torch.ops import rs_kernels as K
@@ -367,14 +527,17 @@ def main() -> int:
 
     emit("build", **phase_build(cuda_build), gpu=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
-    emit("kernels", **phase_kernels(K, dev))
+    emit("kernels", **phase_kernels(
+        K, dev, jerasure_decode_bitmatrices(ErasureCodePluginRegistry, bm)))
     ecu, row_apply = phase_ecutil(K, ecutil, ErasureCodePluginRegistry, dev)
     emit("ecutil", **ecu, gpu=smi)
     head, row_stripes = phase_headline(K, RSCodec, gfref, dev)
     emit("headline", **head, gpu=smi)
+    jer, row_xor = phase_jerasure(K, ecutil, ErasureCodePluginRegistry, dev)
+    emit("jerasure", **jer, gpu=smi)
     emit("ec_bench", **phase_ec_bench(), gpu=smi)
 
-    print(json.dumps({"kernels": [row_apply, row_stripes]}))
+    print(json.dumps({"kernels": [row_apply, row_stripes, row_xor]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -40,6 +40,24 @@ ecutil.hinfo_append(h, 0, shards, ec)
 out = ecutil.decode_many(sinfo, ec, [{c: v for c, v in shards.items()
                                       if c not in (0, 5)}])
 assert out[0] == buf.tobytes()
+reg = ErasureCodePluginRegistry.instance()
+for name, profile in (
+        ("jerasure", {"technique": "liber8tion", "k": "4",
+                      "packetsize": "16"}),
+        ("jerasure", {"technique": "reed_sol_van", "k": "4", "m": "2",
+                      "w": "16", "packetsize": "8"}),
+        ("isa", {"k": "4", "m": "2"}),
+        ("shec", {"k": "4", "m": "3", "c": "2"})):
+    ec = reg.factory(name, "", profile | {"device": "cpu"})
+    n = ec.get_chunk_count()
+    sinfo = ecutil.StripeInfo(4, ec.get_chunk_size(4 * 128))
+    buf = np.random.default_rng(1).integers(0, 256, sinfo.stripe_width * 2,
+                                            dtype=np.uint8)
+    shards = ecutil.encode_many(sinfo, ec, [buf])[0]
+    ecutil.hinfo_append(ecutil.HashInfo(n), 0, shards, ec)
+    out = ecutil.decode_many(sinfo, ec, [{c: v for c, v in shards.items()
+                                          if c not in (0, n - 1)}])
+    assert out[0] == buf.tobytes(), (name, profile)
 print(json.dumps(sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m == "jaxlib" or m.startswith("jaxlib.")
@@ -101,7 +119,8 @@ def test_cuda_codec_without_a_card_raises(no_card):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
     assert codec.parity_uploads == 0
-    assert rs_kernels.launches == {"gf_apply": 0, "gf_apply_stripes": 0}
+    assert rs_kernels.launches == {"gf_apply": 0, "gf_apply_stripes": 0,
+                                   "xor_apply": 0}
 
 
 def test_plugin_on_cuda_without_a_card_raises(no_card):
@@ -122,7 +141,8 @@ def test_plugin_on_cuda_without_a_card_raises(no_card):
         ecutil.hinfo_append(ecutil.HashInfo(6), 0, shards, ec)
     with pytest.raises(RuntimeError, match="cuda"):
         ecutil.encode_many(sinfo, ec, [np.zeros(512, np.uint8)])
-    assert rs_kernels.launches == {"gf_apply": 0, "gf_apply_stripes": 0}
+    assert rs_kernels.launches == {"gf_apply": 0, "gf_apply_stripes": 0,
+                                   "xor_apply": 0}
 
 
 def test_plugin_without_a_device_key_runs_on_cuda(no_card):
@@ -141,4 +161,52 @@ def test_plugin_without_a_device_key_runs_on_cuda(no_card):
     sinfo = ecutil.StripeInfo(4, 128)
     with pytest.raises(RuntimeError, match="cuda"):
         ecutil.encode_many(sinfo, ec, [np.zeros(512, np.uint8)])
-    assert rs_kernels.launches == {"gf_apply": 0, "gf_apply_stripes": 0}
+    assert rs_kernels.launches == {"gf_apply": 0, "gf_apply_stripes": 0,
+                                   "xor_apply": 0}
+
+
+@pytest.mark.parametrize("name,profile", [
+    ("jerasure", {"technique": "liber8tion", "k": "4", "packetsize": "16"}),
+    ("jerasure", {"technique": "reed_sol_van", "k": "4", "m": "2",
+                  "w": "16", "packetsize": "8"}),
+    ("jerasure", {"technique": "cauchy_good", "k": "4", "m": "2"}),
+    ("isa", {"k": "4", "m": "2"}),
+    ("shec", {"k": "4", "m": "3", "c": "2"}),
+])
+def test_new_plugins_without_a_device_key_need_the_card(no_card, name,
+                                                        profile):
+    """jerasure, isa and shec with no ``device`` key run on cuda: without
+    a card encode and decode raise, nothing falls back, no launch counts."""
+    reg = ErasureCodePluginRegistry()
+    ec = reg.factory(name, "", profile)
+    assert ec.get_profile()["device"] == "cuda"
+    n = ec.get_chunk_count()
+    data = b"\x05" * 3000
+    with pytest.raises(RuntimeError, match="cuda"):
+        ec.encode(set(range(n)), data)
+    enc = reg.factory(name, "", profile | {"device": "numpy"}
+                      ).encode(set(range(n)), data)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ec.decode(set(range(n)), {i: enc[i] for i in range(1, n)})
+    sinfo = ecutil.StripeInfo(4, ec.get_chunk_size(4 * 128))
+    with pytest.raises(RuntimeError, match="cuda"):
+        ecutil.encode_many(sinfo, ec,
+                           [np.zeros(sinfo.stripe_width, np.uint8)])
+    assert rs_kernels.launches == {"gf_apply": 0, "gf_apply_stripes": 0,
+                                   "xor_apply": 0}
+
+
+def test_ec_bench_default_plugin_runs():
+    """With no --plugin, ec_bench takes jerasure (the reference CLI's
+    default), which the port now has."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run(
+        [sys.executable, "-m", "ceph_tpu_torch.bench.ec_bench", "-P",
+         "device=cpu", "--size", "65536", "--iterations", "1"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert len(lines) == 1
+    seconds, kib = lines[0].split("\t")
+    assert float(seconds) > 0 and kib == "64"

@@ -199,7 +199,9 @@ def test_cpu_tensors_never_count_a_launch():
     mat, data = _rand(rng, (2, 4)), _rand(rng, (8, 64))
     trk.gf_apply(mat, data[:4])
     trk.gf_apply_stripes(mat, data, 2)
-    assert trk.launches == {"gf_apply": 0, "gf_apply_stripes": 0}
+    trk.xor_apply(_rand(rng, (3, 8)) & 1, data)
+    assert trk.launches == {"gf_apply": 0, "gf_apply_stripes": 0,
+                            "xor_apply": 0}
 
 
 def test_wrapper_rejects_bad_inputs():
