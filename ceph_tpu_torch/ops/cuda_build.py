@@ -36,6 +36,10 @@ SIGNATURES = {
     "xor_apply": {
         "xor_apply_launch": [_P, _P, _P, _I, _I, _L, _P],
     },
+    "sweep_kernels": {
+        "bitplane_apply_launch": [_P, _P, _P, _I, _I, _L, _I, _L, _I, _P],
+        "copy_rows_launch": [_P, _P, _I, _I, _L, _L, _P],
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

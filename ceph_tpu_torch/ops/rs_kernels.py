@@ -76,6 +76,15 @@ def expand_bits_raw(mat: torch.Tensor) -> torch.Tensor:
     return (mv[:, None, :, :] >> bi[None, :, None, None]) & 1
 
 
+def expand_bits_plane_major(mat: torch.Tensor) -> torch.Tensor:
+    """GF(2^8) matrix [r, k] -> GF(2) bit-matrix [8r, 8k] (uint8 0/1),
+    plane-major: B[bi*r + i, bj*k + j] = bit bi of (mat[i, j] * 2^bj).
+    A data bit's row is bj*k + j here, not the chunk-major 8j + bj of
+    :func:`_unpack_bits`."""
+    r, k = mat.shape
+    return expand_bits_raw(mat).permute(1, 0, 3, 2).reshape(8 * r, 8 * k)
+
+
 def _unpack_bits(data: torch.Tensor) -> torch.Tensor:
     """uint8 [k, N] -> bit-planes [8k, N] (row 8j+bj = bit bj of chunk j)."""
     k, n = data.shape

@@ -1,0 +1,1 @@
+"""Command-line tools of the port, each run with ``python -m``."""

@@ -24,7 +24,14 @@ drives the port end to end:
                 m=4 w=16, checked against the port's numpy path; then the
                 isa and shec plugins on the gf_apply kernel over 8 objects;
 6. ec_bench  -- the ceph_erasure_code_benchmark CLI: torch_rs encode and
-                decode, the default invocation, a liber8tion encode.
+                decode, the default invocation, a liber8tion encode;
+7. sweep     -- the kernel sweep (ceph_tpu_torch.tools.kernel_sweep) in
+                process at full size, Cauchy RS(8,4) over [8, 8 Mi]: copy
+                ceiling, tensor-core bit-plane apply in int8 and bf16,
+                block-diagonal stacks of 2 and 4 tiles, bitslice and
+                gf_apply; every row must be a number.  Then the same tool
+                once as a subprocess with --quick, and the three sweep
+                kernels timed at [4, 8] x [8, 8 Mi].
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero.  Before the last line it prints the kernel table as one JSON
@@ -35,6 +42,7 @@ the package beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -46,21 +54,15 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM device-memory rate (NVIDIA data sheet), for the bytes bound
+# H100 SXM device-memory rate and dense tensor-core peaks (NVIDIA data
+# sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
+TENSOR_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12}
 MIB = 1 << 20
 
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -121,7 +123,51 @@ def phase_build(cuda_build) -> dict:
             "per_source": {n: v["seconds"] for n, v in info.items()}}
 
 
-def phase_kernels(K, dev, decode_bitmatrices) -> dict:
+def sweep_kernel_grid(SK, K, dev, gen) -> tuple[dict, int]:
+    """The sweep kernels against their plain versions, bitwise: (r, k) x N
+    x tile_n x acc x groups, the copy, and an unaligned view each."""
+    worst = {"bitplane_apply": 0, "bitplane_apply_bd": 0, "copy_rows": 0}
+    cases = 0
+
+    def check(name, got, want):
+        nonlocal cases
+        worst[name] = max(worst[name], max_abs_err(got, want))
+        cases += 1
+
+    for r, k in ((1, 2), (2, 6), (4, 8), (8, 16)):
+        bmat = K.expand_bits_plane_major(rand_u8(gen, (r, k), dev))
+        bds = {g: torch.block_diag(*[bmat] * g) for g in (2, 4)}
+        for n in (1, 127, 1000, 131072, 8192 * 4 * 3):
+            data = rand_u8(gen, (k, n), dev)
+            want = SK.bitplane_apply_plain(bmat, data, r, k)
+            for tile in (2048, 8192):
+                for acc in ("int8", "bf16"):
+                    check("bitplane_apply",
+                          SK.bitplane_apply(bmat, data, r, k, acc, tile), want)
+                    for g, bd in bds.items():
+                        check("bitplane_apply_bd",
+                              SK.bitplane_apply_bd(bd, data, r, k, g, acc,
+                                                   tile),
+                              SK.bitplane_apply_bd_plain(bd, data, r, k, g,
+                                                         tile))
+                check("copy_rows", SK.copy_rows(data, r, tile),
+                      SK.copy_rows_plain(data, r))
+    # a contiguous view that is not 16-byte aligned takes the byte paths
+    base = rand_u8(gen, (8 * 4096 + 3,), dev)
+    view = base[3:].view(8, 4096)
+    bmat = K.expand_bits_plane_major(rand_u8(gen, (4, 8), dev))
+    bd = torch.block_diag(*[bmat] * 4)
+    for acc in ("int8", "bf16"):
+        check("bitplane_apply", SK.bitplane_apply(bmat, view, 4, 8, acc, 2048),
+              SK.bitplane_apply_plain(bmat, view, 4, 8))
+        check("bitplane_apply_bd",
+              SK.bitplane_apply_bd(bd, view, 4, 8, 4, acc, 256),
+              SK.bitplane_apply_bd_plain(bd, view, 4, 8, 4, 256))
+    check("copy_rows", SK.copy_rows(view, 4, 2048), SK.copy_rows_plain(view, 4))
+    return worst, cases
+
+
+def phase_kernels(K, SK, dev, decode_bitmatrices) -> dict:
     """Each kernel against its plain version, bitwise, over the grid."""
     gen = torch.Generator(device=dev).manual_seed(1)
     shapes = [(r, k) for r in (1, 2, 4) for k in (2, 8, 20)]
@@ -167,12 +213,14 @@ def phase_kernels(K, dev, decode_bitmatrices) -> dict:
     mat = rand_u8(gen, (4, 8), dev)
     worst["gf_apply"] = max(worst["gf_apply"], max_abs_err(
         K.gf_apply(mat, view), K.gf_apply_plain(mat, view)))
+    sweep_worst, sweep_cases = sweep_kernel_grid(SK, K, dev, gen)
+    worst |= sweep_worst
     torch.cuda.synchronize()
     if any(worst.values()):
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{worst}")
-    return {"cases": cases + 1, "max_abs_err": worst,
-            "launches": dict(K.launches)}
+    return {"cases": cases + 1 + sweep_cases, "max_abs_err": worst,
+            "launches": dict(K.launches) | dict(SK.launches)}
 
 
 def _run_stripe_path(K, ecutil, ec, host, sinfo, bufs, lost_sets,
@@ -501,6 +549,154 @@ def phase_ec_bench() -> dict:
     return out
 
 
+_SWEEP_LINE = re.compile(r"^(\S.{33}) +(\d+) MiB/s$")
+SWEEP_SOURCE = "ceph_tpu_torch/ops/csrc/sweep_kernels.cu"
+NO_LIBRARY = "no PyTorch call computes a GF(2^8) matrix apply"
+
+
+def sweep_quick_subprocess() -> dict:
+    """``python -m ceph_tpu_torch.tools.kernel_sweep --quick`` once; every
+    row must print a rate."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "ceph_tpu_torch.tools.kernel_sweep",
+         "--quick"], cwd=HERE, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"kernel_sweep --quick failed:\n{proc.stdout}"
+                           f"{proc.stderr}")
+    lines = proc.stdout.strip().splitlines()
+    if not lines or not lines[0].startswith("device="):
+        raise AssertionError(f"kernel_sweep --quick header: {lines[:1]}")
+    rows = {}
+    for line in lines[1:]:
+        match = _SWEEP_LINE.match(line)
+        if not match:
+            raise AssertionError(f"kernel_sweep --quick row: {line!r}")
+        rows[match.group(1).strip()] = int(match.group(2))
+    if len(rows) != 13 or min(rows.values()) <= 0:
+        raise AssertionError(f"kernel_sweep --quick rows: {rows}")
+    return rows
+
+
+def copy_rows_sass_loads(cuda_build) -> dict | None:
+    """Global loads in the SASS of each copy_rows_kernel instantiation, or
+    None where the toolkit has no cuobjdump."""
+    tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass",
+                           cuda_build.library_path("sweep_kernels")],
+                          capture_output=True, text=True, timeout=120).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+        elif name and "copy_rows_kernel" in name and "LDG" in line:
+            counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def phase_sweep(K, SK, KS, cuda_build, dev) -> tuple[dict, list]:
+    """The kernel sweep at full size with the counts zeroed before and read
+    after, the --quick CLI once, then the three sweep kernels timed at the
+    sweep's shape against their plain versions and bounds."""
+    SK.reset_launches()
+    K.reset_launches()
+    lines = []
+    rates = KS.sweep(quick=False, out=lines.append)
+    torch.cuda.synchronize()
+    launches = dict(SK.launches)
+    bad = [n for n, v in rates.items() if v is None or not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"sweep rows without a number: {bad}\n"
+                             + "\n".join(lines))
+    if min(launches.values()) < 1 or K.launches["gf_apply"] < 1:
+        raise AssertionError(f"sweep did not launch every kernel: "
+                             f"{launches}, {dict(K.launches)}")
+    quick = sweep_quick_subprocess()
+
+    r, k, n = KS.M, KS.K, KS.N
+    rng = np.random.default_rng(0)
+    data = torch.from_numpy(rng.integers(0, 256, size=(k, n),
+                                         dtype=np.uint8)).to(dev)
+    mat = torch.from_numpy(KS.cauchy1(k, r)).to(dev)
+    bmat = K.expand_bits_plane_major(mat)
+    bytes_ms = bytes_bound_ms((k + r) * n)
+
+    def variant(fn, plain_out, acc=None, groups=1, **labels):
+        """Bitwise check, CUDA-event time and bound of one launch; ``acc``
+        None is the copy, which does no operations."""
+        err = max_abs_err(fn(), plain_out)
+        ops_ms = 0.0
+        if acc:     # the [G*8r, G*8k] x [G*8k, N/G] product
+            ops_ms = (2 * groups * 8 * r * groups * 8 * k * (n // groups)
+                      / TENSOR_OPS_PER_S[acc] * 1e3)
+            labels |= {"acc": acc, "groups": groups}
+        bound = max(bytes_ms, ops_ms)
+        ms = cuda_ms(fn, 20)
+        return {**labels, "max_abs_err": err, "ms": ms,
+                "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": bound,
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bound_share": bound / ms}
+
+    def row(name, replaces, variants, plain_ms):
+        err = max(v["max_abs_err"] for v in variants)
+        if err:
+            raise AssertionError(f"{name} disagrees at the sweep's shape: "
+                                 f"{variants}")
+        first = variants[0]
+        return {"name": name, "route": "cuda", "source": SWEEP_SOURCE,
+                "replaces": replaces, "path": "sweep", "shape": [r, k, n],
+                "launches": launches[name], "max_abs_err": err,
+                "ms": first["ms"], "plain_ms": plain_ms,
+                "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+                "library_ms": None, "library": NO_LIBRARY,
+                "variants": variants}
+
+    want = SK.bitplane_apply_plain(bmat, data, r, k)
+    plain_v1 = cuda_ms(lambda: SK.bitplane_apply_plain(bmat, data, r, k), 3,
+                       warmup=1)
+    row_v1 = row("bitplane_apply", "tools/kernel_sweep.py:84", [
+        variant(lambda: SK.bitplane_apply(bmat, data, r, k, acc, 8192), want,
+                acc, tile_n=8192) for acc in ("int8", "bf16")], plain_v1)
+    bds = {g: torch.block_diag(*[bmat] * g) for g in (2, 4)}
+    plain_bd = cuda_ms(lambda: SK.bitplane_apply_bd_plain(
+        bds[4], data, r, k, 4, 8192), 3, warmup=1)
+    row_bd = row("bitplane_apply_bd", "tools/kernel_sweep.py:142", [
+        variant(lambda: SK.bitplane_apply_bd(bds[g], data, r, k, g, acc, t),
+                want, acc, g, tile_n=t)
+        for g, acc, t in ((4, "int8", 8192), (2, "int8", 8192),
+                          (4, "bf16", 4096))], plain_bd)
+    del want
+
+    row_copy = row("copy_rows", "tools/kernel_sweep.py:164", [
+        variant(lambda: SK.copy_rows(data, r, t), data[:r], tile_n=t)
+        for t in (8192, 32768)],
+        cuda_ms(lambda: SK.copy_rows_plain(data, r), 20))
+    # the loads of rows r..k-1 stay: the time grows with k at fixed r
+    k4_ms = cuda_ms(lambda: SK.copy_rows(data[:r], r, 8192), 20)
+    row_copy["library_ms"] = cuda_ms(lambda: data[:r].clone(), 20)
+    row_copy["library"] = (f"data[:{r}].clone(): the same result, its "
+                           f"own traffic 2*r*N bytes")
+    ceiling_ms = row_copy["ms"]
+    gf_ms = cuda_ms(lambda: K.gf_apply(mat, data), 20)
+    report = {
+        "shape": [r, k, n], "rows": rates, "lines": lines,
+        "launches": launches, "quick_rows": quick,
+        "copy_k_scaling": {"k8_ms": ceiling_ms, "k4_ms": k4_ms,
+                           "ratio": ceiling_ms / k4_ms,
+                           "bytes_ratio": (k + r) / (r + r)},
+        "copy_rows_sass_ldg": copy_rows_sass_loads(cuda_build),
+        "copy_ceiling_TBps": (k + r) * n / (ceiling_ms / 1e3) / 1e12,
+        "copy_ceiling_share_of_datasheet": bytes_ms / ceiling_ms,
+        "gf_apply_ms": gf_ms,
+        "gf_apply_share_of_datasheet": bytes_ms / gf_ms,
+        "gf_apply_share_of_copy_ceiling": ceiling_ms / gf_ms,
+    }
+    del data, bds
+    torch.cuda.empty_cache()
+    return report, [row_copy, row_v1, row_bd]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -516,19 +712,22 @@ def main() -> int:
     from ceph_tpu_torch.gf import ref as gfref
     from ceph_tpu_torch.ops import cuda_build
     from ceph_tpu_torch.ops import rs_kernels as K
+    from ceph_tpu_torch.ops import sweep_kernels as SK
     from ceph_tpu_torch.ops.codec import RSCodec
     from ceph_tpu_torch.plugins.registry import ErasureCodePluginRegistry
+    from ceph_tpu_torch.tools import kernel_sweep as KS
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    smi = nvidia_smi_line()
+    smi = KS.nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
 
     emit("build", **phase_build(cuda_build), gpu=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
     emit("kernels", **phase_kernels(
-        K, dev, jerasure_decode_bitmatrices(ErasureCodePluginRegistry, bm)))
+        K, SK, dev, jerasure_decode_bitmatrices(ErasureCodePluginRegistry,
+                                                bm)))
     ecu, row_apply = phase_ecutil(K, ecutil, ErasureCodePluginRegistry, dev)
     emit("ecutil", **ecu, gpu=smi)
     head, row_stripes = phase_headline(K, RSCodec, gfref, dev)
@@ -536,8 +735,11 @@ def main() -> int:
     jer, row_xor = phase_jerasure(K, ecutil, ErasureCodePluginRegistry, dev)
     emit("jerasure", **jer, gpu=smi)
     emit("ec_bench", **phase_ec_bench(), gpu=smi)
+    sweep, rows_sweep = phase_sweep(K, SK, KS, cuda_build, dev)
+    emit("sweep", **sweep, gpu=smi)
 
-    print(json.dumps({"kernels": [row_apply, row_stripes, row_xor]}))
+    print(json.dumps({"kernels": [row_apply, row_stripes, row_xor,
+                                  *rows_sweep]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -65,11 +65,16 @@ print(json.dumps(sorted(m for m in sys.modules
 """
 
 
-def test_port_never_loads_jax_or_the_jax_package():
+def _port_env():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
-    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=300)
+    return env
+
+
+def test_port_never_loads_jax_or_the_jax_package():
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
+                          env=_port_env(), capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
@@ -196,15 +201,41 @@ def test_new_plugins_without_a_device_key_need_the_card(no_card, name,
                                    "xor_apply": 0}
 
 
+_SWEEP_PROBE = """
+import json, sys
+from ceph_tpu_torch.tools import kernel_sweep
+rc = kernel_sweep.main(["--quick"])
+print(json.dumps({"rc": rc, "loaded": sorted(
+    m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
+                                                  "ceph_tpu"))}))
+"""
+
+
+def test_kernel_sweep_imports_without_jax_and_needs_a_card():
+    """The sweep tool loads nothing of JAX; without a card main exits 2
+    and sweeps nothing (the CLI too, with nothing on stdout)."""
+    proc = subprocess.run([sys.executable, "-c", _SWEEP_PROBE], cwd=ROOT,
+                          env=_port_env(), capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {
+        "rc": 2, "loaded": []}
+    assert "cuda" in proc.stderr
+    cli = subprocess.run(
+        [sys.executable, "-m", "ceph_tpu_torch.tools.kernel_sweep",
+         "--quick"], cwd=ROOT, env=_port_env(), capture_output=True,
+        text=True, timeout=300)
+    assert cli.returncode == 2 and cli.stdout == ""
+
+
 def test_ec_bench_default_plugin_runs():
     """With no --plugin, ec_bench takes jerasure (the reference CLI's
     default), which the port now has."""
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = ROOT
     proc = subprocess.run(
         [sys.executable, "-m", "ceph_tpu_torch.bench.ec_bench", "-P",
          "device=cpu", "--size", "65536", "--iterations", "1"],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        cwd=ROOT, env=_port_env(), capture_output=True, text=True,
+        timeout=300)
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.strip().splitlines()
     assert len(lines) == 1
