@@ -32,9 +32,11 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "gf_apply": {
         "gf_apply_launch": [_P, _P, _P, _P, _I, _I, _L, _L, _P],
+        "gf_apply_variant_launch": [_P, _P, _P, _P, _I, _I, _L, _L, _I, _I,
+                                    _I, _P],
     },
     "xor_apply": {
-        "xor_apply_launch": [_P, _P, _P, _I, _I, _L, _P],
+        "xor_apply_launch": [_P, _P, _P, _I, _I, _L, _I, _P],
     },
     "sweep_kernels": {
         "bitplane_apply_launch": [_P, _P, _P, _I, _I, _L, _I, _L, _I, _P],

@@ -25,6 +25,12 @@ and wide-word codes, ``out[r] = XOR of packets[i] where W[r, i] = 1``: on a
 CUDA tensor it launches the kernel of ``csrc/xor_apply.cu``, on a CPU
 tensor it runs :func:`xor_apply_plain`.
 
+The kernels' host-visible pieces are plain functions here, for the tests:
+:func:`packed_nibble_tables` (the lookup tables ``gf_apply.cu`` builds in
+shared memory), :func:`xor_nibble_index` and :func:`xor_form` (the W
+nibbles that select ``xor_apply.cu``'s XOR combinations, and the density
+rule that picks its form).
+
 ``launches`` counts kernel launches per wrapper; only a launch adds to it.
 """
 from __future__ import annotations
@@ -144,6 +150,29 @@ def gf_apply_plain(mat: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     return gf_apply_bitslice(mat, data)
 
 
+def packed_nibble_tables(mat) -> torch.Tensor:
+    """The kernel's lookup tables for ``mat`` [r, k], without the per-lane
+    copies: 32-bit words [ceil(r/4), k, 2, 16], where [g, j, 0, e] packs
+    mat[4g+q, j] * e and [g, j, 1, e] packs mat[4g+q, j] * (e << 4) into
+    byte q (rows past r are zero).  For a data byte b of row j,
+    ``T[g, j, 0, b & 15] ^ T[g, j, 1, b >> 4]`` holds in byte q the product
+    of b with output row 4g+q's coefficient.  The words are held in int64
+    (values below 2^32).  ``csrc/gf_apply.cu`` builds the same words in
+    shared memory, each repeated for the 32 lanes of a warp."""
+    mat = _as_u8(mat)
+    r, k = mat.shape
+    groups = -(-r // 4)
+    padded = torch.zeros((groups * 4, k), dtype=torch.int64,
+                         device=mat.device)
+    padded[:r] = mat.long()
+    e = torch.arange(16, device=mat.device)
+    rows = _mul_table(mat.device).long()[padded]     # [4G, k, 256]
+    prods = torch.stack([rows[..., e], rows[..., e << 4]], dim=2)
+    shifts = torch.tensor([0, 8, 16, 24], device=mat.device)
+    return (prods.view(groups, 4, k, 2, 16)
+            << shifts[None, :, None, None, None]).sum(dim=1)
+
+
 def _fold(data: torch.Tensor, k: int, stripes: int) -> torch.Tensor:
     """[S*k, N] vertical layout -> [k, S*N] horizontal."""
     n = data.shape[1]
@@ -257,11 +286,56 @@ def xor_apply_plain(W: torch.Tensor, packets: torch.Tensor) -> torch.Tensor:
     return out
 
 
+XOR_FORMS = {"auto": 0, "direct": 1, "tables": 2}
+XOR_GROUP = 4              # input rows per XOR-combination group
+XOR_BUILD_COST = 8         # the rule's price of building one group
+
+
+def xor_nibble_index(W) -> torch.Tensor:
+    """uint8 [R, ceil(K/4)]: entry [r, g] = sum_b (W[r, 4g+b] & 1) << b,
+    the selector of output row r's XOR combination of input group g (zero
+    past K), with torch ops on W's device."""
+    bits = _as_bits(W) & 1
+    r, k = bits.shape
+    groups = -(-k // XOR_GROUP)
+    padded = torch.zeros((r, groups * XOR_GROUP), dtype=torch.uint8,
+                         device=bits.device)
+    padded[:, :k] = bits
+    weights = torch.tensor([1 << b for b in range(XOR_GROUP)],
+                           dtype=torch.uint8, device=bits.device)
+    return (padded.view(r, groups, XOR_GROUP) * weights).sum(
+        dim=2, dtype=torch.uint8)
+
+
+def xor_form(W) -> str:
+    """The density rule ``csrc/xor_apply.cu`` applies on the card:
+    "tables" when nnz(W) > nonzero nibbles + 8 * ceil(K/4) (the loads and
+    XORs the combinations save pay for building 16 of them per group; the
+    price 8 was fitted on the H100), else "direct".  Past R*K = 256 Ki the
+    kernel keeps no index of W in shared memory and runs direct."""
+    bits = _as_bits(W) & 1
+    nibbles = xor_nibble_index(bits)
+    nnz = int(bits.sum())
+    cost = int((nibbles != 0).sum()) + XOR_BUILD_COST * nibbles.shape[1]
+    return "tables" if nnz > cost else "direct"
+
+
 def xor_apply(W, packets) -> torch.Tensor:
     """out[R, P] = W[R, K] ·GF(2) packets[K, P]: each output row is the
     bytewise XOR of the packet rows its W row selects.  A CUDA tensor
     launches the hand kernel and adds one to ``launches["xor_apply"]``; a
     CPU tensor (or numpy array) runs :func:`xor_apply_plain`."""
+    return xor_apply_form(W, packets, "auto")
+
+
+def xor_apply_form(W, packets, form: str) -> torch.Tensor:
+    """:func:`xor_apply` with the kernel's form named: "auto" (the rule of
+    :func:`xor_form`, what :func:`xor_apply` runs), "direct" or "tables".
+    The form changes how the kernel computes, never what: a CPU tensor
+    runs :func:`xor_apply_plain` whatever the form."""
+    if form not in XOR_FORMS:
+        raise ValueError(f"form must be one of {sorted(XOR_FORMS)}, got "
+                         f"{form!r}")
     W, packets = _as_bits(W), _as_u8(packets)
     if W.dim() != 2 or packets.dim() != 2:
         raise ValueError(f"W and packets must be 2-D, got {tuple(W.shape)} "
@@ -287,7 +361,8 @@ def xor_apply(W, packets) -> torch.Tensor:
     with torch.cuda.device(packets.device):
         stream = torch.cuda.current_stream(packets.device).cuda_stream
         err = lib.xor_apply_launch(W.data_ptr(), packets.data_ptr(),
-                                   out.data_ptr(), int(r), int(k), p, stream)
+                                   out.data_ptr(), int(r), int(k), p,
+                                   XOR_FORMS[form], stream)
     if err != 0:
         raise RuntimeError(f"xor_apply failed: cudaError_t {err}")
     launches["xor_apply"] += 1

@@ -1,0 +1,222 @@
+"""Time the GF kernels at every shape the port's paths launch them at.
+
+    python ceph_tpu_torch/tools/path_shapes.py [--root DIR]
+
+For each launch of ``chip_smoke.py``'s main paths, on ``cuda:0``:
+
+- ecutil: ``torch_rs`` RS(8,4) reed_sol_van over 64 objects of 4 MiB,
+  ``gf_apply`` on [8, 32 Mi]: encode [4, 8], decode of {0, 9} [2, 8] and
+  of {1, 3, 8, 11} [4, 8];
+- headline: Cauchy RS(8,4), 64 stripes of 1 MiB, ``gf_apply_stripes`` on
+  [64*8, 128 Ki]: encode [4, 8], decode of {0, 9} [2, 8];
+- jerasure: ``xor_apply`` on the packets of 64 objects of 4 MiB,
+  liber8tion k=8 (W [16, 64], packets [64, 4 Mi]; decodes {0, 9} and
+  {3, 5}) and reed_sol_van k=8 m=4 w=16 (W [64, 128], packets
+  [128, 2 Mi]; decodes {0, 9} and {1, 3, 8, 11}).
+
+Each shape gets the kernel's time (CUDA events, the best of 3 means over
+20 launches, after 2), its bitwise difference from the plain version and
+the plain version's time (3 calls after 1), the bytes bound at
+3.35 TB/s (and for ``xor_apply`` the XOR bound), the copy ceiling
+(``sweep_kernels.copy_rows`` moving the same bytes, in the same run) and
+the kernel's shares of both.  Where the package has
+``rs_kernels.xor_apply_form``, both ``xor_apply`` forms are timed too.
+One JSON line per shape.
+
+``--root DIR`` times the ``ceph_tpu_torch`` package found in DIR (for
+example an unpacked earlier commit) with this file's shapes and clock, so
+two versions of the kernels can be compared on one card in one run.
+Run it as a file, not with ``-m``, so that the package is imported from
+the root named.  Without a CUDA device it exits 2.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import os
+import subprocess
+import sys
+import types
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+MIB = 1 << 20
+OBJECTS, OBJ_BYTES = 64, 4 * MIB   # the ecutil and jerasure paths
+STRIPES, STRIPE_BYTES = 64, MIB    # the headline
+JERASURE = {
+    "liber8tion": ({"technique": "liber8tion", "k": "8"}, ([0, 9], [3, 5])),
+    "reed_sol_van_w16": ({"technique": "reed_sol_van", "k": "8", "m": "4",
+                          "w": "16"}, ([0, 9], [1, 3, 8, 11])),
+}
+
+
+def load_package(root: str | None = None) -> types.SimpleNamespace:
+    """The modules this tool uses, from the ``ceph_tpu_torch`` in ``root``
+    (default: the checkout holding this file)."""
+    root = root or os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    sys.path.insert(0, os.path.abspath(root))
+    names = {"rs_kernels": "ops.rs_kernels", "sweep_kernels":
+             "ops.sweep_kernels", "codec": "ops.codec", "registry":
+             "plugins.registry", "bitmatrix": "gf.bitmatrix"}
+    return types.SimpleNamespace(**{
+        key: importlib.import_module(f"ceph_tpu_torch.{mod}")
+        for key, mod in names.items()})
+
+
+def launch_shapes(pkg) -> list[dict]:
+    """Every kernel launch of the paths: kernel, path, label, matrix (numpy),
+    data rows and columns, stripes."""
+    out = []
+    registry = pkg.registry.ErasureCodePluginRegistry()
+    ec = registry.factory("torch_rs", "", {"k": "8", "m": "4",
+                                           "technique": "reed_sol_van",
+                                           "device": "numpy"})
+    n = OBJECTS * OBJ_BYTES // 8
+    out.append(dict(kernel="gf_apply", path="ecutil", label="encode",
+                    mat=ec.codec.parity_mat, rows=8, cols=n, stripes=1))
+    for lost in ([0, 9], [1, 3, 8, 11]):
+        out.append(dict(kernel="gf_apply", path="ecutil",
+                        label=f"decode {lost}",
+                        mat=ec.codec.decode_matrix(lost)[0], rows=8, cols=n,
+                        stripes=1))
+    codec = pkg.codec.RSCodec(8, 4, technique="cauchy", device="numpy")
+    for label, mat in (("encode", codec.parity_mat),
+                       ("decode [0, 9]", codec.decode_matrix([0, 9])[0])):
+        out.append(dict(kernel="gf_apply_stripes", path="headline",
+                        label=label, mat=mat, rows=STRIPES * 8,
+                        cols=STRIPE_BYTES // 8, stripes=STRIPES))
+    for name, (profile, lost_sets) in JERASURE.items():
+        ec = registry.factory("jerasure", "", profile | {"device": "numpy"})
+        k, n_chunks = ec.get_data_chunk_count(), ec.get_chunk_count()
+        p = OBJECTS * OBJ_BYTES // (k * ec.w)
+        out.append(dict(kernel="xor_apply", path=f"jerasure {name}",
+                        label="encode", mat=ec.coding, rows=k * ec.w,
+                        cols=p, stripes=1))
+        for lost in lost_sets:
+            avail = [c for c in range(n_chunks) if c not in lost]
+            D = pkg.bitmatrix.decode_bitmatrix(ec.coding, k, ec.w, lost,
+                                               available=avail)[0]
+            out.append(dict(kernel="xor_apply", path=f"jerasure {name}",
+                            label=f"decode {lost}", mat=D, rows=k * ec.w,
+                            cols=p, stripes=1))
+    for s in out:
+        s["mat"] = np.ascontiguousarray(s["mat"], dtype=np.uint8)
+    return out
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 2, rounds: int = 3) -> float:
+    """Milliseconds of ``fn``: the best of ``rounds`` means over ``iters``
+    calls, CUDA events (the best, so that a stray slow round does not
+    count against one kernel and not the other)."""
+    for _ in range(warmup):
+        fn()
+    best = float("inf")
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    return best
+
+
+def xor_ops_ms(byte_xors: int, sms: int, clock_mhz: float) -> float:
+    """Byte-XORs at the card's int32 logic rate: per SM 64 int32 lanes of 4
+    bytes each, two XORs per LOP3, at the maximum SM clock."""
+    return byte_xors / (sms * 64 * 4 * 2 * clock_mhz * 1e6) * 1e3
+
+
+def sm_clock_max_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def measure(pkg, shape: dict, dev, seed: int = 3) -> dict:
+    """Time one launch shape; the kernel's output is held against its plain
+    version first."""
+    K, SK = pkg.rs_kernels, pkg.sweep_kernels
+    mat = torch.from_numpy(shape["mat"]).to(dev)
+    r, k = mat.shape
+    s = shape["stripes"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    data = torch.randint(0, 256, (shape["rows"], shape["cols"]),
+                         generator=gen, dtype=torch.uint8, device=dev)
+    if shape["kernel"] == "gf_apply":
+        run = lambda: K.gf_apply(mat, data)                   # noqa: E731
+        plain = lambda: K.gf_apply_plain(mat, data)           # noqa: E731
+    elif shape["kernel"] == "gf_apply_stripes":
+        run = lambda: K.gf_apply_stripes(mat, data, s)        # noqa: E731
+        plain = lambda: K.gf_apply_stripes_plain(mat, data, s)  # noqa: E731
+    else:
+        run = lambda: K.xor_apply(mat, data)                  # noqa: E731
+        plain = lambda: K.xor_apply_plain(mat, data)          # noqa: E731
+    got, want = run(), plain()
+    err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max())
+    del got, want
+    rows_out = s * r
+    ms = cuda_ms(run)
+    plain_ms = cuda_ms(plain, 3, warmup=1, rounds=1)
+    # the copy moving the same bytes: [S*k, N] read as [k, S*N], r rows out
+    flat = data.view(k, -1)
+    copy_ms = cuda_ms(lambda: SK.copy_rows(flat, r, 8192))
+    n = shape["cols"]
+    bytes_ms = (shape["rows"] + rows_out) * n / HBM_BYTES_PER_S * 1e3
+    row = {"kernel": shape["kernel"], "path": shape["path"],
+           "label": shape["label"], "shape": [r, k, n] + ([s] if s > 1
+                                                         else []),
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bytes_ms": bytes_ms,
+           "bound_ms": bytes_ms, "bound_by": "bytes", "copy_ms": copy_ms}
+    if shape["kernel"] == "xor_apply":
+        props = torch.cuda.get_device_properties(dev)
+        nnz = int(mat.sum())
+        ops_ms = xor_ops_ms(nnz * n, props.multi_processor_count,
+                            sm_clock_max_mhz())
+        row |= {"nnz": nnz, "ops_ms": ops_ms,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        if hasattr(K, "xor_apply_form"):
+            row["form"] = K.xor_form(shape["mat"])
+            for form in ("direct", "tables"):
+                row[f"{form}_ms"] = cuda_ms(
+                    lambda f=form: K.xor_apply_form(mat, data, f))
+    row["share_of_bound"] = row["bound_ms"] / ms
+    row["share_of_copy"] = copy_ms / ms
+    del data
+    torch.cuda.empty_cache()
+    return row
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="path_shapes")
+    ap.add_argument("--root", default=None,
+                    help="directory holding the ceph_tpu_torch package to "
+                         "time (default: this checkout)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("path_shapes: torch.cuda.is_available() is False; the kernels "
+              "run only on a CUDA card", file=sys.stderr)
+        return 2
+    pkg = load_package(args.root)
+    dev = torch.device("cuda", 0)
+    bad = []
+    for shape in launch_shapes(pkg):
+        row = measure(pkg, shape, dev)
+        bad += [row] if row["max_abs_err"] else []
+        print(json.dumps(row), flush=True)
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,8 +9,9 @@ drives the port end to end:
 1. build     -- nvcc build time of every source, card name and power
                 limit;
 2. kernels   -- every kernel against its plain version, bitwise, over a
-                grid of shapes, ragged widths, stripe counts and an
-                unaligned view;
+                grid of shapes (output rows past 4, k past 128), ragged
+                widths, stripe counts and unaligned views; xor_apply in
+                the density rule's form and in both forms named;
 3. ecutil    -- the torch_rs plugin through the port's registry (k=8, m=4,
                 reed_sol_van, 4 KiB stripe unit) under ecutil.encode_many,
                 hinfo_append and decode_many over 64 objects of 4 MiB,
@@ -23,15 +24,21 @@ drives the port end to end:
                 objects of 4 MiB, for liber8tion k=8 and reed_sol_van k=8
                 m=4 w=16, checked against the port's numpy path; then the
                 isa and shec plugins on the gf_apply kernel over 8 objects;
-6. ec_bench  -- the ceph_erasure_code_benchmark CLI: torch_rs encode and
+6. shapes    -- gf_apply, gf_apply_stripes and xor_apply at every shape
+                phases 3-5 launch them at (ceph_tpu_torch/tools/
+                path_shapes.py): bitwise against the plain version, CUDA
+                events, bound, and the copy ceiling moving the same bytes;
+7. ec_bench  -- the ceph_erasure_code_benchmark CLI: torch_rs encode and
                 decode, the default invocation, a liber8tion encode;
-7. sweep     -- the kernel sweep (ceph_tpu_torch.tools.kernel_sweep) in
+8. sweep     -- the kernel sweep (ceph_tpu_torch.tools.kernel_sweep) in
                 process at full size, Cauchy RS(8,4) over [8, 8 Mi]: copy
                 ceiling, tensor-core bit-plane apply in int8 and bf16,
                 block-diagonal stacks of 2 and 4 tiles, bitslice and
                 gf_apply; every row must be a number.  Then the same tool
-                once as a subprocess with --quick, and the three sweep
-                kernels timed at [4, 8] x [8, 8 Mi].
+                once as a subprocess with --quick, the gf_apply launch
+                variants once (ceph_tpu_torch.tools.sweep_stripes
+                --quick), and the three sweep kernels timed at [4, 8] x
+                [8, 8 Mi].
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero.  Before the last line it prints the kernel table as one JSON
@@ -59,6 +66,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 TENSOR_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12}
 MIB = 1 << 20
+NO_LIBRARY = ("no PyTorch call computes a GF(2^8) matrix apply or a GF(2) "
+              "XOR matmul")
 
 
 def emit(phase: str, **fields) -> None:
@@ -90,21 +99,6 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 
 def bytes_bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
-
-
-def sm_clock_max_mhz() -> float:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    return float(out.strip().splitlines()[0])
-
-
-def xor_ops_bound_ms(byte_xors: int, sms: int, clock_mhz: float) -> float:
-    """Byte-XORs at the card's int32 logic rate: per SM 64 int32 lanes of 4
-    bytes each, two XORs per LOP3, at the maximum SM clock."""
-    rate = sms * 64 * 4 * 2 * clock_mhz * 1e6
-    return byte_xors / rate * 1e3
 
 
 def rand_u8(gen: torch.Generator, shape, device) -> torch.Tensor:
@@ -172,54 +166,68 @@ def phase_kernels(K, SK, dev, decode_bitmatrices) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     shapes = [(r, k) for r in (1, 2, 4) for k in (2, 8, 20)]
     shapes += [(64, 128), (8, 200)]          # > 48 KB tables; k sliced
-    worst = {"gf_apply": 0, "gf_apply_stripes": 0, "xor_apply": 0}
+    # the packed tables' row groups past 4 rows, and sliced tables at k > 128
+    shapes += [(5, 8), (8, 20), (4, 252)]
+    worst = {"gf_apply": 0, "gf_apply_stripes": 0, "xor_apply": 0,
+             "xor_apply_direct": 0, "xor_apply_tables": 0}
     cases = 0
+
+    def check(name, got, want):
+        nonlocal cases
+        worst[name] = max(worst[name], max_abs_err(got, want))
+        cases += 1
+
     # xor_apply: random 0/1 W from RAID-6 w=2..w=32 widths, and the dense
-    # decode matrices of the jerasure phase's profiles
+    # decode matrices of the jerasure phase's profiles; every W in the
+    # density rule's form and in both forms named
     bitmats = [torch.randint(0, 2, rk, generator=gen, dtype=torch.uint8,
                              device=dev)
                for rk in ((2, 6), (14, 28), (16, 64), (64, 128), (128, 256))]
     bitmats += [torch.from_numpy(D).to(dev) for D in decode_bitmatrices]
-    for W in bitmats:
-        for p in (1, 127, 1000, 131072):
+    # two passes of 128 output rows; no input rows
+    bitmats += [torch.randint(0, 2, rk, generator=gen, dtype=torch.uint8,
+                              device=dev) for rk in ((200, 40), (3, 0))]
+    for i, W in enumerate(bitmats):
+        for p in (1, 127, 1000, 131072) + ((512 * 7 + 16,) if i >= 5 else ()):
             packets = rand_u8(gen, (W.shape[1], p), dev)
-            err = max_abs_err(K.xor_apply(W, packets),
-                              K.xor_apply_plain(W, packets))
-            worst["xor_apply"] = max(worst["xor_apply"], err)
-            cases += 1
+            want = K.xor_apply_plain(W, packets)
+            check("xor_apply", K.xor_apply(W, packets), want)
+            for form in ("direct", "tables"):
+                check(f"xor_apply_{form}",
+                      K.xor_apply_form(W, packets, form), want)
     base = rand_u8(gen, (64 * 4096 + 5,), dev)
     view = base[5:].view(64, 4096)           # 16-byte loads not legal
-    worst["xor_apply"] = max(worst["xor_apply"], max_abs_err(
-        K.xor_apply(bitmats[2], view), K.xor_apply_plain(bitmats[2], view)))
-    cases += 1
+    want = K.xor_apply_plain(bitmats[2], view)
+    check("xor_apply", K.xor_apply(bitmats[2], view), want)
+    for form in ("direct", "tables"):
+        check(f"xor_apply_{form}", K.xor_apply_form(bitmats[2], view, form),
+              want)
     for r, k in shapes:
         mat = rand_u8(gen, (r, k), dev)
         for n in (1, 127, 1000, 131072):
             data = rand_u8(gen, (k, n), dev)
-            err = max_abs_err(K.gf_apply(mat, data), K.gf_apply_plain(mat, data))
-            worst["gf_apply"] = max(worst["gf_apply"], err)
-            cases += 1
+            check("gf_apply", K.gf_apply(mat, data),
+                  K.gf_apply_plain(mat, data))
             for stripes in (1, 3, 64):
                 if r * k > 100 and stripes * n > 3 * 131072:
                     continue                 # the plain version's memory
                 vert = rand_u8(gen, (stripes * k, n), dev)
-                err = max_abs_err(K.gf_apply_stripes(mat, vert, stripes),
-                                  K.gf_apply_stripes_plain(mat, vert, stripes))
-                worst["gf_apply_stripes"] = max(worst["gf_apply_stripes"], err)
-                cases += 1
+                check("gf_apply_stripes", K.gf_apply_stripes(mat, vert,
+                                                             stripes),
+                      K.gf_apply_stripes_plain(mat, vert, stripes))
     # a contiguous view that is not 16-byte aligned takes the byte path
     base = rand_u8(gen, (8 * 4096 + 3,), dev)
     view = base[3:].view(8, 4096)
-    mat = rand_u8(gen, (4, 8), dev)
-    worst["gf_apply"] = max(worst["gf_apply"], max_abs_err(
-        K.gf_apply(mat, view), K.gf_apply_plain(mat, view)))
+    for r in (4, 6):
+        mat = rand_u8(gen, (r, 8), dev)
+        check("gf_apply", K.gf_apply(mat, view), K.gf_apply_plain(mat, view))
     sweep_worst, sweep_cases = sweep_kernel_grid(SK, K, dev, gen)
     worst |= sweep_worst
     torch.cuda.synchronize()
     if any(worst.values()):
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{worst}")
-    return {"cases": cases + 1 + sweep_cases, "max_abs_err": worst,
+    return {"cases": cases + sweep_cases, "max_abs_err": worst,
             "launches": dict(K.launches) | dict(SK.launches)}
 
 
@@ -279,9 +287,10 @@ def _run_stripe_path(K, ecutil, ec, host, sinfo, bufs, lost_sets,
             "round_trip": True, "matches_numpy_path": True}, shards
 
 
-def phase_ecutil(K, ecutil, registry_cls, dev, objects: int = 64,
-                 obj_bytes: int = 4 * MIB) -> tuple[dict, dict]:
-    """torch_rs -> ecutil.encode_many / hinfo_append / decode_many."""
+def phase_ecutil(K, ecutil, registry_cls, objects: int = 64,
+                 obj_bytes: int = 4 * MIB) -> tuple[dict, int]:
+    """torch_rs -> ecutil.encode_many / hinfo_append / decode_many; the
+    report and the gf_apply launches of the path."""
     k, m, unit = 8, 4, 4096
     profile = {"k": str(k), "m": str(m), "technique": "reed_sol_van"}
     registry = registry_cls.instance()
@@ -318,30 +327,16 @@ def phase_ecutil(K, ecutil, registry_cls, dev, objects: int = 64,
     report = {**stripe, "object_bytes": obj_bytes, "stripe_unit": unit,
               "h2d_packed_s": t_h2d, "d2h_parity_s": t_d2h,
               "crc32c_rows_one_object_ms": crc_ms}
-
-    # the gf_apply kernel at the shape this path gives it: [k, S*c]
-    err = max_abs_err(K.gf_apply(mat, data), K.gf_apply_plain(mat, data))
-    if err:
-        raise AssertionError(f"gf_apply disagrees at [{k}, {n}]: {err}")
-    ms = cuda_ms(lambda: K.gf_apply(mat, data), 20)
-    plain_ms = cuda_ms(lambda: K.gf_apply_plain(mat, data), 3, warmup=1)
-    row = {"name": "gf_apply", "route": "cuda",
-           "source": "ceph_tpu_torch/ops/csrc/gf_apply.cu",
-           "replaces": "ceph_tpu/ops/pallas_kernels.py:156",
-           "path": "ecutil", "shape": [m, k, n],
-           "launches": launches["gf_apply"], "max_abs_err": err,
-           "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bytes_bound_ms((k + m) * n), "bound_by": "bytes",
-           "library_ms": None}
     del data, parity, rows
     torch.cuda.empty_cache()
-    return report, row
+    return report, launches["gf_apply"]
 
 
-def phase_headline(K, codec_cls, gfref, dev, batch: int = 64,
-                   stripe_bytes: int = MIB) -> tuple[dict, dict]:
+def phase_headline(K, codec_cls, gfref, batch: int = 64,
+                   stripe_bytes: int = MIB) -> tuple[dict, int]:
     """bench.py's shape: Cauchy RS(8,4), 64 x 1 MiB stripes, vertical
-    layout [64*k, 128 KiB], encode and decode of erasures {0, 9}."""
+    layout [64*k, 128 KiB], encode and decode of erasures {0, 9}; the
+    report and the gf_apply_stripes launches."""
     k, m, erasures = 8, 4, [0, 9]
     n = stripe_bytes // k
     rng = np.random.default_rng(0)
@@ -375,16 +370,9 @@ def phase_headline(K, codec_cls, gfref, dev, batch: int = 64,
                                                  host[s * k:(s + 1) * k])):
             raise AssertionError(f"headline parity differs at stripe {s}")
 
-    err = max(max_abs_err(parity, K.gf_apply_stripes_plain(pmat, data, batch)),
-              max_abs_err(rec, K.gf_apply_stripes_plain(dmat, survivors,
-                                                        batch)))
-    if err:
-        raise AssertionError(f"gf_apply_stripes disagrees: {err}")
     iters = 50
     enc_ms = cuda_ms(lambda: K.gf_apply_stripes(pmat, data, batch), iters)
     dec_ms = cuda_ms(lambda: K.gf_apply_stripes(dmat, data, batch), iters)
-    plain_ms = cuda_ms(lambda: K.gf_apply_stripes_plain(pmat, data, batch),
-                       3, warmup=1)
     payload_mib = batch * k * n / MIB
     enc_mibs = payload_mib / (enc_ms / 1e3)
     dec_mibs = payload_mib / (dec_ms / 1e3)
@@ -398,17 +386,9 @@ def phase_headline(K, codec_cls, gfref, dev, batch: int = 64,
         "combined_MiBps": 2.0 / (1.0 / enc_mibs + 1.0 / dec_mibs),
         "encode_bound_share": enc_bound / enc_ms,
         "decode_bound_share": dec_bound / dec_ms,
-        "plain_encode_ms": plain_ms,
-        "library": "no PyTorch call computes a GF(2^8) matrix apply",
+        "library": NO_LIBRARY,
     }
-    row = {"name": "gf_apply_stripes", "route": "cuda",
-           "source": "ceph_tpu_torch/ops/csrc/gf_apply.cu",
-           "replaces": "ceph_tpu/ops/pallas_kernels.py:80",
-           "path": "headline", "shape": [m, k, n, batch],
-           "launches": launches["gf_apply_stripes"], "max_abs_err": err,
-           "ms": enc_ms, "plain_ms": plain_ms, "bound_ms": enc_bound,
-           "bound_by": "bytes", "library_ms": None}
-    return report, row
+    return report, launches["gf_apply_stripes"]
 
 
 # the jerasure phase's two profiles: (a) the widest RAID-6 bitmatrix code,
@@ -434,15 +414,16 @@ def jerasure_decode_bitmatrices(registry_cls, bm) -> list[np.ndarray]:
     return out
 
 
-def phase_jerasure(K, ecutil, registry_cls, dev, objects: int = 64,
-                   obj_bytes: int = 4 * MIB) -> tuple[dict, dict]:
+def phase_jerasure(K, ecutil, registry_cls, objects: int = 64,
+                   obj_bytes: int = 4 * MIB) -> tuple[dict, int]:
     """jerasure bitmatrix codes (xor_apply) and the isa and shec plugins
-    (gf_apply) through the port's registry and ecutil."""
+    (gf_apply) through the port's registry and ecutil; the report and the
+    xor_apply launches of the two jerasure profiles."""
     unit = 4096
     rng = np.random.default_rng(2)
     bufs = [rng.integers(0, 256, obj_bytes, dtype=np.uint8)
             for _ in range(objects)]
-    report, shapes = {}, []
+    report = {}
     launches = 0
     for name, (profile, lost_sets) in JERASURE_PROFILES.items():
         registry = registry_cls.instance()
@@ -455,12 +436,6 @@ def phase_jerasure(K, ecutil, registry_cls, dev, objects: int = 64,
         report[name], _ = _run_stripe_path(K, ecutil, ec, host, sinfo,
                                            bufs, lost_sets, "xor_apply")
         launches += report[name]["launches"]["xor_apply"]
-        # the kernel at this profile's encode shape: W [m*w, k*w] on the
-        # packets of all objects' data shards [k*w, 64*4 MiB/(k*w)]
-        W = torch.from_numpy(ec.coding).to(dev)
-        p = objects * obj_bytes // (k * ec.w)
-        shapes.append((name, W, rand_u8(torch.Generator(device=dev)
-                                        .manual_seed(3), (k * ec.w, p), dev)))
         del host
     for name, profile, lost in (
             ("isa", {"k": "8", "m": "4", "technique": "reed_sol_van"},
@@ -472,46 +447,36 @@ def phase_jerasure(K, ecutil, registry_cls, dev, objects: int = 64,
         sinfo = ecutil.StripeInfo(8, ec.get_chunk_size(8 * unit))
         report[name], _ = _run_stripe_path(K, ecutil, ec, host, sinfo,
                                            bufs[:8], [lost], "gf_apply")
-    return report, xor_apply_row(K, dev, shapes, launches)
+    return report, launches
 
 
-def xor_apply_row(K, dev, shapes, launches: int) -> dict:
-    """The xor_apply kernel line: bitwise against its plain version and
-    timed with CUDA events at each profile's encode shape; the first
-    shape's numbers are the row's own, each shape's are under "shapes"."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    clock = sm_clock_max_mhz()
-    per_shape, err = [], 0
-    for name, W, packets in shapes:
-        r, k = W.shape
-        p = packets.shape[1]
-        e = max_abs_err(K.xor_apply(W, packets), K.xor_apply_plain(W, packets))
-        err = max(err, e)
-        nnz = int(W.sum().item())
-        bytes_ms = bytes_bound_ms((k + r) * p)
-        ops_ms = xor_ops_bound_ms(nnz * p, sms, clock)
-        per_shape.append({
-            "profile": name, "shape": [r, k, p], "nnz": nnz,
-            "max_abs_err": e,
-            "ms": cuda_ms(lambda: K.xor_apply(W, packets), 20),
-            "plain_ms": cuda_ms(lambda: K.xor_apply_plain(W, packets), 3,
-                                warmup=1),
-            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
-    if err:
-        raise AssertionError(f"xor_apply disagrees at the path's shapes: "
-                             f"{err}")
-    first = per_shape[0]
-    return {"name": "xor_apply", "route": "cuda",
-            "source": "ceph_tpu_torch/ops/csrc/xor_apply.cu",
-            "replaces": "ceph_tpu/ops/pallas_kernels.py:207",
-            "path": "jerasure", "shape": first["shape"],
-            "launches": launches, "max_abs_err": err,
+def phase_shapes(PS, dev) -> list[dict]:
+    """Every redesigned kernel at every shape its path launches it at
+    (ceph_tpu_torch/tools/path_shapes.py): bitwise against its plain
+    version, CUDA-event time, bound, and the copy ceiling moving the same
+    bytes in this run."""
+    pkg = PS.load_package(HERE)
+    rows = [PS.measure(pkg, shape, dev) for shape in PS.launch_shapes(pkg)]
+    bad = [r for r in rows if r["max_abs_err"]]
+    if bad:
+        raise AssertionError(f"kernel disagrees at a path shape: {bad}")
+    return rows
+
+
+def kernel_row(name: str, source: str, replaces: str, path: str,
+               launches: int, shape_rows: list[dict]) -> dict:
+    """One kernel's line from its path's shape rows; the first (the
+    encode) gives the row's own numbers, every shape is under "shapes"."""
+    first = shape_rows[0]
+    return {"name": name, "route": "cuda",
+            "source": f"ceph_tpu_torch/ops/csrc/{source}",
+            "replaces": replaces, "path": path, "shape": first["shape"],
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in shape_rows),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
-            "library_ms": None, "sms": sms, "sm_clock_max_mhz": clock,
-            "shapes": per_shape}
+            "library_ms": None, "library": NO_LIBRARY,
+            "shapes": shape_rows}
 
 
 _BENCH_LINE = re.compile(r"^(\d+\.\d{6})\t(\d+)$")
@@ -551,7 +516,6 @@ def phase_ec_bench() -> dict:
 
 _SWEEP_LINE = re.compile(r"^(\S.{33}) +(\d+) MiB/s$")
 SWEEP_SOURCE = "ceph_tpu_torch/ops/csrc/sweep_kernels.cu"
-NO_LIBRARY = "no PyTorch call computes a GF(2^8) matrix apply"
 
 
 def sweep_quick_subprocess() -> dict:
@@ -574,6 +538,34 @@ def sweep_quick_subprocess() -> dict:
         rows[match.group(1).strip()] = int(match.group(2))
     if len(rows) != 13 or min(rows.values()) <= 0:
         raise AssertionError(f"kernel_sweep --quick rows: {rows}")
+    return rows
+
+
+_STRIPES_LINE = re.compile(r"^(default|stages=\d+ runs=\d+ blocks/sm=\d+): "
+                           r"encode +(\d+) decode +(\d+) MiB/s$")
+
+
+def sweep_stripes_subprocess() -> dict:
+    """``python -m ceph_tpu_torch.tools.sweep_stripes --quick`` once: the
+    gf_apply kernel's launch variants at the headline shape; every line
+    must print both rates."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "ceph_tpu_torch.tools.sweep_stripes",
+         "--quick"], cwd=HERE, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"sweep_stripes --quick failed:\n{proc.stdout}"
+                           f"{proc.stderr}")
+    lines = proc.stdout.strip().splitlines()
+    if not lines or not lines[0].startswith("device="):
+        raise AssertionError(f"sweep_stripes --quick header: {lines[:1]}")
+    rows = {}
+    for line in lines[1:]:
+        match = _STRIPES_LINE.match(line)
+        if not match:
+            raise AssertionError(f"sweep_stripes --quick row: {line!r}")
+        rows[match.group(1)] = [int(match.group(2)), int(match.group(3))]
+    if len(rows) != 4 or min(min(v) for v in rows.values()) <= 0:
+        raise AssertionError(f"sweep_stripes --quick rows: {rows}")
     return rows
 
 
@@ -613,6 +605,7 @@ def phase_sweep(K, SK, KS, cuda_build, dev) -> tuple[dict, list]:
         raise AssertionError(f"sweep did not launch every kernel: "
                              f"{launches}, {dict(K.launches)}")
     quick = sweep_quick_subprocess()
+    stripes_quick = sweep_stripes_subprocess()
 
     r, k, n = KS.M, KS.K, KS.N
     rng = np.random.default_rng(0)
@@ -682,6 +675,7 @@ def phase_sweep(K, SK, KS, cuda_build, dev) -> tuple[dict, list]:
     report = {
         "shape": [r, k, n], "rows": rates, "lines": lines,
         "launches": launches, "quick_rows": quick,
+        "sweep_stripes_quick_MiBps": stripes_quick,
         "copy_k_scaling": {"k8_ms": ceiling_ms, "k4_ms": k4_ms,
                            "ratio": ceiling_ms / k4_ms,
                            "bytes_ratio": (k + r) / (r + r)},
@@ -716,6 +710,7 @@ def main() -> int:
     from ceph_tpu_torch.ops.codec import RSCodec
     from ceph_tpu_torch.plugins.registry import ErasureCodePluginRegistry
     from ceph_tpu_torch.tools import kernel_sweep as KS
+    from ceph_tpu_torch.tools import path_shapes as PS
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -728,18 +723,32 @@ def main() -> int:
     emit("kernels", **phase_kernels(
         K, SK, dev, jerasure_decode_bitmatrices(ErasureCodePluginRegistry,
                                                 bm)))
-    ecu, row_apply = phase_ecutil(K, ecutil, ErasureCodePluginRegistry, dev)
+    ecu, n_apply = phase_ecutil(K, ecutil, ErasureCodePluginRegistry)
     emit("ecutil", **ecu, gpu=smi)
-    head, row_stripes = phase_headline(K, RSCodec, gfref, dev)
+    head, n_stripes = phase_headline(K, RSCodec, gfref)
     emit("headline", **head, gpu=smi)
-    jer, row_xor = phase_jerasure(K, ecutil, ErasureCodePluginRegistry, dev)
+    jer, n_xor = phase_jerasure(K, ecutil, ErasureCodePluginRegistry)
     emit("jerasure", **jer, gpu=smi)
+    shapes = phase_shapes(PS, dev)
+    emit("shapes", rows=shapes, gpu=smi)
     emit("ec_bench", **phase_ec_bench(), gpu=smi)
     sweep, rows_sweep = phase_sweep(K, SK, KS, cuda_build, dev)
     emit("sweep", **sweep, gpu=smi)
 
-    print(json.dumps({"kernels": [row_apply, row_stripes, row_xor,
-                                  *rows_sweep]}))
+    def on(kernel):
+        return [r for r in shapes if r["kernel"] == kernel]
+
+    print(json.dumps({"kernels": [
+        kernel_row("gf_apply", "gf_apply.cu",
+                   "ceph_tpu/ops/pallas_kernels.py:156",
+                   "ecutil", n_apply, on("gf_apply")),
+        kernel_row("gf_apply_stripes", "gf_apply.cu",
+                   "ceph_tpu/ops/pallas_kernels.py:80",
+                   "headline", n_stripes, on("gf_apply_stripes")),
+        kernel_row("xor_apply", "xor_apply.cu",
+                   "ceph_tpu/ops/pallas_kernels.py:207",
+                   "jerasure", n_xor, on("xor_apply")),
+        *rows_sweep]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
