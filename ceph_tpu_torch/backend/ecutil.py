@@ -6,6 +6,9 @@ for a whole multi-stripe buffer by laying stripes out as contiguous
 per-shard chunk streams, and :func:`encode_many`/:func:`decode_many` make
 one call for many buffers.  RS parity is positionwise, so batching across
 stripes is a pure relayout: bit-identical output, large device launches.
+:func:`encode_many_pipelined`/:func:`decode_many_pipelined` submit the
+same relayouts to ``ops.pipeline.CodecPipeline`` (async, on a CUDA
+stream) with bit-identical results.
 
 Host crc32c is pure Python for short buffers and a vectorised numpy form
 (lanes of bytes, then a log-depth combine) for long ones; the native
@@ -357,12 +360,15 @@ def _from_shard_major(shards: np.ndarray, chunk_size: int) -> np.ndarray:
 
 
 def _pack_shard_major(arrs: list[np.ndarray], k: int,
-                      chunk_size: int) -> np.ndarray:
+                      chunk_size: int, out: np.ndarray | None = None
+                      ) -> np.ndarray:
     """Single-copy shard-major pack of MANY logical buffers: each
     buffer's [S, k, c] stripe view lands transposed DIRECTLY into one
-    contiguous [k, total] output, one strided ``copyto`` per buffer."""
+    contiguous [k, total] output, one strided ``copyto`` per buffer.
+    ``out`` (for example pinned memory) receives the pack when given."""
     total = sum(len(b) for b in arrs) // k
-    out = np.empty((k, total), dtype=np.uint8)
+    if out is None:
+        out = np.empty((k, total), dtype=np.uint8)
     off = 0
     for b in arrs:
         ln = len(b) // k
@@ -473,6 +479,128 @@ def hinfo_append(hinfo: HashInfo, old_size: int,
                                    for s, c in zip(shards, crc0)}, nbytes)
                 return
     hinfo.append(old_size, chunks)
+
+
+# -- pipelined forms (ops/pipeline.py) ----------------------------------------
+# The SAME batched relayouts routed through ops.pipeline.CodecPipeline: the
+# host pack runs while earlier batches are in flight on the card, and the
+# wait happens only at the pipeline's completion boundary.  They engage
+# only when the plugin exposes a tensor codec (``device_codec``) for a call
+# of this size; when the profile routes the call to the numpy host codec
+# they return None and the caller keeps the synchronous path.  A failure
+# on the card fails the future: no batch is served on the host instead.
+
+def encode_many_pipelined(sinfo: StripeInfo, ec_impl,
+                          bufs: list[bytes | np.ndarray], pipeline,
+                          owner: str | None = None):
+    """Async :func:`encode_many`: returns a ``PipelineFuture`` resolving
+    to the identical per-buffer ``{chunk: bytes}`` list, or None when the
+    codec has no device path.  The pack (shard-major relayout) goes
+    straight into pinned memory and overlaps in-flight card work; parity
+    lands at the completion boundary."""
+    if not bufs:
+        return None
+    k = ec_impl.get_data_chunk_count()
+    n = ec_impl.get_chunk_count()
+    arrs = [_stripe_aligned(sinfo, data) for data in bufs]
+    codec = _device_codec(ec_impl, sum(len(b) for b in arrs))
+    if codec is None:
+        return None
+    shard_lens = [(len(b) // sinfo.stripe_width) * sinfo.chunk_size
+                  for b in arrs]
+
+    def pack():
+        out = pipeline.host_empty(codec, (k, sum(shard_lens)))
+        return _pack_shard_major(arrs, k, sinfo.chunk_size, out=out)
+
+    def dispatch(data_shards):
+        return pipeline.dispatch_encode(codec, data_shards,
+                                        sinfo.chunk_size)
+
+    def unpack(data_shards, parity):
+        out: list[dict[int, np.ndarray]] = []
+        off = 0
+        for ln in shard_lens:
+            chunks = {ec_impl.chunk_index(i): data_shards[i, off:off + ln]
+                      for i in range(k)}
+            for j in range(n - k):
+                chunks[ec_impl.chunk_index(k + j)] = parity[j, off:off + ln]
+            out.append(chunks)
+            off += ln
+        return out
+
+    return pipeline.submit(pack, dispatch, unpack, kind="encode",
+                           owner=owner, ops=len(bufs))
+
+
+def decode_many_pipelined(sinfo: StripeInfo, ec_impl,
+                          batches: list[dict[int, np.ndarray]],
+                          pipeline, owner: str | None = None):
+    """Async :func:`decode_many`: one pipeline item per distinct
+    available-chunk signature.  Returns ``[(idxs, future), ...]`` where
+    each future resolves to the logical bytes for those batch indices, or
+    None when the codec has no device path."""
+    if not batches:
+        return None
+    total_bytes = sum(sum(_as_u8(v).nbytes for v in chunks.values())
+                      for chunks in batches)
+    codec = _device_codec(ec_impl, total_bytes)
+    if codec is None:
+        return None
+    by_sig: dict[frozenset, list[int]] = {}
+    for i, chunks in enumerate(batches):
+        by_sig.setdefault(frozenset(chunks), []).append(i)
+    pending = []
+    for sig, idxs in sorted(by_sig.items(), key=lambda kv: kv[1][0]):
+        pending.append((list(idxs),
+                        _submit_decode_group(sinfo, ec_impl, codec, batches,
+                                             sig, idxs, pipeline, owner)))
+    return pending
+
+
+def _submit_decode_group(sinfo, ec_impl, codec, batches, sig, idxs,
+                         pipeline, owner: str | None = None):
+    """One signature group's pack/dispatch/unpack trio, submitted."""
+    k = ec_impl.get_data_chunk_count()
+
+    def pack():
+        concat, lens = _group_streams([batches[i] for i in idxs], sig)
+        # wire ids are PHYSICAL; the codec's rows are LOGICAL
+        avail_l, _ = ec_impl.remap_for_decode(concat, [])
+        erasures_l = [i for i in range(k) if i not in avail_l]
+        stack = None
+        if erasures_l:
+            _D, src = codec.decode_matrix(erasures_l,
+                                          available=list(avail_l))
+            rows = [avail_l[s] for s in src]
+            stack = np.stack(rows, out=pipeline.host_empty(
+                codec, (len(rows), len(rows[0]))))
+        return avail_l, erasures_l, stack, lens
+
+    def dispatch(packed):
+        avail_l, erasures_l, stack, _lens = packed
+        if not erasures_l:
+            return None                  # all data rows survived: host-only
+        return pipeline.dispatch_decode(codec, stack, erasures_l,
+                                        list(avail_l))
+
+    def unpack(packed, rec):
+        avail_l, erasures_l, _stack, lens = packed
+        rows = {e: rec[i] for i, e in enumerate(erasures_l)} \
+            if erasures_l else {}
+        data = np.stack([avail_l[i] if i in avail_l else rows[i]
+                         for i in range(k)])
+        out: list[bytes] = []
+        off = 0
+        for ln in lens:
+            out.append(_from_shard_major(
+                np.ascontiguousarray(data[:, off:off + ln]),
+                sinfo.chunk_size).tobytes())
+            off += ln
+        return out
+
+    return pipeline.submit(pack, dispatch, unpack, kind="decode",
+                           owner=owner, ops=len(idxs))
 
 
 def decode(sinfo: StripeInfo, ec_impl,

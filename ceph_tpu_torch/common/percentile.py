@@ -1,0 +1,46 @@
+"""Nearest-rank percentile: the ONE rank definition every surface uses.
+
+A copy of ``ceph_tpu.common.percentile``: the port keeps its own copy,
+so it needs nothing of the JAX package.
+Bench p99 and trace p99 are compared against each other, so both read
+the rank from here.
+"""
+from __future__ import annotations
+
+import math
+
+
+def nearest_rank(sorted_vals, q: float) -> float:
+    """Nearest-rank percentile over a PRE-SORTED sequence (q in
+    [0, 100]).  The empirical-distribution definition (rank =
+    ceil(q/100 * n), 1-based): p100 is the max, p0 clamps to the min,
+    and no interpolation ever invents a value that was not observed."""
+    if not sorted_vals:
+        return 0.0
+    rank = max(1, math.ceil(q / 100.0 * len(sorted_vals)))
+    return sorted_vals[min(rank, len(sorted_vals)) - 1]
+
+
+def percentile(values, q: float) -> float:
+    """Convenience over an UNSORTED sequence (sorts a copy)."""
+    return nearest_rank(sorted(values), q)
+
+
+def weighted_nearest_rank(sorted_pairs, q: float) -> float:
+    """Nearest-rank percentile over PRE-SORTED ``(value, weight)`` pairs
+    (q in [0, 100]).  Each observation stands for ``weight`` ops (the
+    tracer's head-sampling 1/rate de-bias): the rank walks cumulative
+    weight instead of cumulative count, and with all weights 1.0 the
+    result matches :func:`nearest_rank` exactly."""
+    if not sorted_pairs:
+        return 0.0
+    total = sum(w for _v, w in sorted_pairs)
+    if total <= 0.0:
+        return 0.0
+    target = max(q, 1e-12) / 100.0 * total
+    acc = 0.0
+    for v, w in sorted_pairs:
+        acc += w
+        if acc >= target - 1e-9:
+            return v
+    return sorted_pairs[-1][0]

@@ -1,0 +1,265 @@
+"""Perf counters: typed metric registry with builder + JSON dump.
+
+Mirror of the reference's PerfCounters machinery (reference:
+src/common/perf_counters.h — ``PerfCountersBuilder`` :59-116 with
+``add_u64_counter``/``add_u64_avg``/``add_time_avg``/histogram adders
+:83-99; per-subsystem collections registered in the CephContext and dumped
+over the admin socket as ``perf dump``).  Averages store (sum, count) pairs
+and dump as {avgcount, sum, avgtime} exactly like the reference so existing
+``perf dump`` consumers parse them.
+
+A copy of ``ceph_tpu.common.perf_counters``: the port keeps its own
+copy, so it needs nothing of the JAX package.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass, field
+
+PERFCOUNTER_U64 = "u64"
+PERFCOUNTER_COUNTER = "counter"
+PERFCOUNTER_AVG = "avg"
+PERFCOUNTER_TIME_AVG = "time_avg"
+PERFCOUNTER_HISTOGRAM = "histogram"
+
+
+@dataclass
+class _Metric:
+    kind: str
+    description: str = ""
+    value: float = 0
+    sum: float = 0.0
+    count: int = 0
+    buckets: list[float] = field(default_factory=list)   # histogram bounds
+    bucket_counts: list[int] = field(default_factory=list)
+
+
+class PerfCounters:
+    """One subsystem's counters (e.g. 'osd', 'ec_backend').
+
+    Monotonic accumulation (``inc`` on counter/avg kinds, ``tinc``,
+    ``hinc``) shards into per-thread cells: the owning thread mutates
+    its cell without the lock (single writer + GIL), and read surfaces
+    (:meth:`get`, :meth:`dump`) fold base + cells under the lock.  This
+    removes the instrument-lock contention class on reactor/worker hot
+    paths without changing any dump shape.  Gauges keep the
+    locked base path: ``set``/``dec`` (and ``inc`` on a plain u64) are
+    read-modify-write on one authoritative value, which a shard cannot
+    provide — and they are control-plane-rate, not per-op-rate."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._metrics: dict[str, _Metric] = {}
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        # thread ident -> that thread's {key: [value, sum, count,
+        # bucket_counts|None]} cells.  Registered under _lock; folded
+        # (non-destructively) by readers under _lock.
+        self._cells: dict[int, dict] = {}
+
+    # -- per-thread cells ---------------------------------------------------
+
+    def _cell(self, key: str) -> list:
+        cells = getattr(self._local, "cells", None)
+        if cells is None:
+            cells = self._local.cells = {}
+            ident = threading.get_ident()
+            with self._lock:
+                old = self._cells.get(ident)
+                if old is not None:
+                    # a dead thread's ident was reused: bank its deltas
+                    # into the base before the new owner takes the slot
+                    self._absorb_locked(old)
+                self._cells[ident] = cells
+        c = cells.get(key)
+        if c is None:
+            c = cells[key] = [0, 0.0, 0, None]
+        return c
+
+    def _absorb_locked(self, cells: dict) -> None:
+        """Fold one thread's cell deltas into the base metrics and zero
+        them (under ``self._lock``, for a cell map whose owner is gone)."""
+        for key, c in cells.items():
+            m = self._metrics.get(key)
+            if m is None:
+                continue
+            m.value += c[0]
+            m.sum += c[1]
+            m.count += c[2]
+            if c[3] is not None:
+                for i, n in enumerate(c[3]):
+                    m.bucket_counts[i] += n
+            cells[key] = [0, 0.0, 0, None]
+
+    def _folded_locked(self, m: _Metric, key: str):
+        """(value, sum, count, bucket_counts) with every live cell's
+        deltas folded in — read-only, under ``self._lock``."""
+        value, total, count = m.value, m.sum, m.count
+        bc = list(m.bucket_counts) if m.bucket_counts else []
+        for cells in self._cells.values():
+            c = cells.get(key)
+            if c is None:
+                continue
+            value += c[0]
+            total += c[1]
+            count += c[2]
+            if c[3] is not None:
+                for i, n in enumerate(c[3]):
+                    bc[i] += n
+        return value, total, count, bc
+
+    # -- updates -----------------------------------------------------------
+
+    def inc(self, key: str, amount: int = 1) -> None:
+        m = self._metrics[key]
+        if m.kind == PERFCOUNTER_AVG:
+            c = self._cell(key)
+            c[1] += amount
+            c[2] += 1
+        elif m.kind == PERFCOUNTER_COUNTER:
+            self._cell(key)[0] += amount
+        else:
+            # plain u64 gauges share the locked path with set/dec
+            with self._lock:
+                m.value += amount
+
+    def dec(self, key: str, amount: int = 1) -> None:
+        with self._lock:
+            self._metrics[key].value -= amount
+
+    def set(self, key: str, value) -> None:
+        with self._lock:
+            self._metrics[key].value = value
+
+    def get(self, key: str) -> float:
+        """Current value of a plain counter/gauge (cell deltas folded)."""
+        with self._lock:
+            m = self._metrics[key]
+            return self._folded_locked(m, key)[0]
+
+    def tinc(self, key: str, seconds: float) -> None:
+        """Add one timed sample (the reference's utime_t tinc)."""
+        c = self._cell(key)
+        c[1] += seconds
+        c[2] += 1
+
+    def hinc(self, key: str, value: float) -> None:
+        m = self._metrics[key]
+        c = self._cell(key)
+        if c[3] is None:
+            c[3] = [0] * (len(m.buckets) + 1)
+        for i, bound in enumerate(m.buckets):
+            if value <= bound:
+                c[3][i] += 1
+                break
+        else:
+            c[3][-1] += 1
+        c[1] += value
+        c[2] += 1
+
+    class _Timer:
+        def __init__(self, pc, key):
+            self.pc, self.key = pc, key
+
+        def __enter__(self):
+            self.t0 = time.perf_counter()
+            return self
+
+        def __exit__(self, *exc):
+            self.pc.tinc(self.key, time.perf_counter() - self.t0)
+            return False
+
+    def time(self, key: str) -> "_Timer":
+        return self._Timer(self, key)
+
+    # -- dump --------------------------------------------------------------
+
+    def dump(self) -> dict:
+        out = {}
+        with self._lock:
+            for key, m in self._metrics.items():
+                value, total, count, bc = self._folded_locked(m, key)
+                if m.kind in (PERFCOUNTER_AVG, PERFCOUNTER_TIME_AVG):
+                    entry = {"avgcount": count, "sum": total}
+                    if count:
+                        entry["avgtime" if m.kind == PERFCOUNTER_TIME_AVG
+                              else "avgvalue"] = total / count
+                    out[key] = entry
+                elif m.kind == PERFCOUNTER_HISTOGRAM:
+                    out[key] = {"sum": total, "count": count,
+                                "buckets": dict(zip(
+                                    [str(b) for b in m.buckets] + ["inf"],
+                                    bc))}
+                else:
+                    out[key] = value
+        return out
+
+
+class PerfCountersBuilder:
+    """(perf_counters.h:59-116)."""
+
+    def __init__(self, name: str):
+        self._pc = PerfCounters(name)
+
+    def add_u64(self, key: str, description: str = "") -> "PerfCountersBuilder":
+        self._pc._metrics[key] = _Metric(PERFCOUNTER_U64, description)
+        return self
+
+    def add_u64_counter(self, key: str,
+                        description: str = "") -> "PerfCountersBuilder":
+        self._pc._metrics[key] = _Metric(PERFCOUNTER_COUNTER, description)
+        return self
+
+    def add_u64_avg(self, key: str,
+                    description: str = "") -> "PerfCountersBuilder":
+        self._pc._metrics[key] = _Metric(PERFCOUNTER_AVG, description)
+        return self
+
+    def add_time_avg(self, key: str,
+                     description: str = "") -> "PerfCountersBuilder":
+        self._pc._metrics[key] = _Metric(PERFCOUNTER_TIME_AVG, description)
+        return self
+
+    def add_histogram(self, key: str, buckets: list[float],
+                      description: str = "") -> "PerfCountersBuilder":
+        m = _Metric(PERFCOUNTER_HISTOGRAM, description,
+                    buckets=list(buckets))
+        m.bucket_counts = [0] * (len(buckets) + 1)
+        self._pc._metrics[key] = m
+        return self
+
+    def create_perf_counters(self) -> PerfCounters:
+        return self._pc
+
+
+class PerfCountersCollection:
+    """Process-wide registry dumped as one JSON doc (perf dump)."""
+
+    def __init__(self):
+        self._loggers: dict[str, PerfCounters] = {}
+        self._lock = threading.Lock()
+
+    def add(self, pc: PerfCounters) -> None:
+        with self._lock:
+            self._loggers[pc.name] = pc
+
+    def remove(self, name: str) -> None:
+        with self._lock:
+            self._loggers.pop(name, None)
+
+    def get(self, name: str) -> PerfCounters | None:
+        with self._lock:
+            return self._loggers.get(name)
+
+    def snapshot(self) -> dict[str, PerfCounters]:
+        """Locked copy of the registry — the safe way to iterate
+        collections while other threads register/remove them (health
+        checks, exporters, `top`)."""
+        with self._lock:
+            return dict(self._loggers)
+
+    def perf_dump(self) -> dict:
+        with self._lock:
+            loggers = dict(self._loggers)
+        return {name: pc.dump() for name, pc in sorted(loggers.items())}

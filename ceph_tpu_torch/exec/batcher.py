@@ -1,0 +1,205 @@
+"""Batch futures + the batch-forming math for the op coalescer.
+
+The serving half of the device codec: `ecutil.encode_many` can already fuse
+MANY ops into ONE device dispatch, but only when a caller hands it an
+explicit batch.  This module turns CONCURRENT single-op submissions into
+those batches:
+
+- :class:`BatchFuture` — the completion handle an async submitter gets
+  back (the role the reference's ``Context``/``C_OSD_*`` completion
+  callbacks play on ECBackend's write path), with
+  ``result()/done()/add_done_callback()`` shaped like
+  ``concurrent.futures``.
+- :func:`group_ops` — partition a dequeued batch by codec identity
+  (ops from different pools must not fuse: different k/m/chunk layout).
+- :func:`dispatch_batch` — run one formed batch through the pipelined
+  forms of ``ecutil.encode_many`` / ``ecutil.decode_many``, or through
+  the synchronous forms under tracer spans when the codec routes the
+  call to the numpy host codec.
+
+From ``ceph_tpu.exec.batcher``, less its power-of-two size buckets
+(``bucket_pad_stripes``).  There they bound the shapes the jitted device
+path recompiles for; a CUDA kernel takes any shape, so the port sends a
+batch at its own size and the card moves no zero stripes.  The results
+are bitwise the same.
+"""
+from __future__ import annotations
+
+import threading
+
+from ..backend import ecutil
+from ..common.tracer import trace_span
+
+ENCODE = "encode"
+DECODE = "decode"
+
+
+class BatchFuture:
+    """Completion handle for one submitted op (concurrent.futures shape)."""
+
+    __slots__ = ("kind", "payload", "sinfo", "ec_impl", "op_class",
+                 "cost_bytes", "t_submit", "t_submit_wall", "t_dispatch",
+                 "t_done", "eager", "trace", "_event", "_result",
+                 "_error", "_callbacks", "_lock")
+
+    def __init__(self, kind: str, payload, sinfo, ec_impl, op_class: str,
+                 cost_bytes: int, t_submit: float, t_submit_wall: float,
+                 eager: bool = False, trace=None):
+        self.kind = kind
+        self.payload = payload
+        self.sinfo = sinfo
+        self.ec_impl = ec_impl
+        self.op_class = op_class
+        self.cost_bytes = cost_bytes
+        self.t_submit = t_submit
+        self.t_submit_wall = t_submit_wall
+        self.t_dispatch = 0.0
+        self.t_done = 0.0
+        # eager: a submitter is BLOCKED on this op (sync encode()/
+        # decode()); the coalescer dispatches what has arrived instead
+        # of waiting out the deadline for hypothetical companions
+        self.eager = eager
+        # the submitter's TraceContext (if any): the engine stamps the
+        # op's batch-formation wait into that trace at dispatch time,
+        # so the critical-path ledger can attribute `batch_delay`
+        self.trace = trace
+        self._event = threading.Event()
+        self._result = None
+        self._error: BaseException | None = None
+        self._callbacks: list = []
+        self._lock = threading.Lock()
+
+    # -- consumer side -------------------------------------------------------
+
+    def done(self) -> bool:
+        return self._event.is_set()
+
+    def result(self, timeout: float | None = None):
+        if not self._event.wait(timeout):
+            raise TimeoutError(
+                f"serving op not complete within {timeout}s")
+        if self._error is not None:
+            raise self._error
+        return self._result
+
+    def exception(self, timeout: float | None = None):
+        if not self._event.wait(timeout):
+            raise TimeoutError(
+                f"serving op not complete within {timeout}s")
+        return self._error
+
+    def add_done_callback(self, fn) -> None:
+        """``fn(future)`` on completion; runs immediately when already
+        done (concurrent.futures semantics), else on the finisher."""
+        with self._lock:
+            if not self._event.is_set():
+                self._callbacks.append(fn)
+                return
+        fn(self)
+
+    # -- engine side ---------------------------------------------------------
+
+    def _finish(self, result=None, error: BaseException | None = None):
+        with self._lock:
+            self._result = result
+            self._error = error
+            self._event.set()
+            callbacks, self._callbacks = self._callbacks, []
+        for fn in callbacks:
+            fn(self)
+
+
+def group_ops(ops: list[BatchFuture]) -> list[list[BatchFuture]]:
+    """Partition by (codec, stripe geometry, kind) — only ops sharing the
+    codec can share a device dispatch; decode ops additionally need the
+    same available-chunk set to share a decode matrix, which
+    ``ecutil.decode_many`` subdivides itself."""
+    groups: dict[tuple, list[BatchFuture]] = {}
+    for op in ops:
+        key = (id(op.ec_impl), op.sinfo.k, op.sinfo.chunk_size, op.kind)
+        groups.setdefault(key, []).append(op)
+    return list(groups.values())
+
+
+def _land_results(ops: list[BatchFuture]):
+    """A pipeline-future done-callback that copies the future's value (one
+    result per op, in order) — or its error, shared — onto the ops."""
+    def land(fut):
+        if fut.error is not None:
+            for op in ops:
+                op._error = fut.error
+        else:
+            for op, result in zip(ops, fut.value):
+                op._result = result
+    return land
+
+
+def _encode_group(group: list[BatchFuture], pipeline=None
+                  ) -> list[tuple[list[BatchFuture], object]]:
+    sinfo, ec = group[0].sinfo, group[0].ec_impl
+    bufs = [op.payload for op in group]
+    if pipeline is not None:
+        fut = ecutil.encode_many_pipelined(sinfo, ec, bufs, pipeline,
+                                           owner="serving")
+        if fut is not None:
+            fut.add_done_callback(_land_results(group))
+            return [(group, fut)]
+    with trace_span("serving.batch_encode", owner="serving",
+                    ops=len(group),
+                    stripes=sum(len(b) for b in bufs) // sinfo.stripe_width):
+        encoded = ecutil.encode_many(sinfo, ec, bufs)
+    for op, chunks in zip(group, encoded):
+        op._result = chunks
+    return [(group, None)]
+
+
+def _decode_group(group: list[BatchFuture], pipeline=None
+                  ) -> list[tuple[list[BatchFuture], object]]:
+    sinfo, ec = group[0].sinfo, group[0].ec_impl
+    if pipeline is not None:
+        pending = ecutil.decode_many_pipelined(
+            sinfo, ec, [op.payload for op in group], pipeline,
+            owner="serving")
+        if pending is not None:
+            out = []
+            for idxs, fut in pending:
+                sub = [group[i] for i in idxs]
+                fut.add_done_callback(_land_results(sub))
+                out.append((sub, fut))
+            return out
+    with trace_span("serving.batch_decode", owner="serving",
+                    ops=len(group)):
+        decoded = ecutil.decode_many(sinfo, ec,
+                                     [op.payload for op in group])
+    for op, data in zip(group, decoded):
+        op._result = data
+    return [(group, None)]
+
+
+def dispatch_batch(ops: list[BatchFuture], pipeline=None
+                   ) -> list[tuple[list[BatchFuture], object]]:
+    """Run one formed batch: fused per codec group; results (or a shared
+    error) land on each future's ``_result``/``_error`` — the ENGINE
+    completes them (throttle release + finisher callbacks stay with the
+    component that owns those resources).
+
+    Returns ``[(ops, pipeline_future | None), ...]``: None means the
+    group ran synchronously and its results are already landed; a future
+    means the group is IN FLIGHT on the device pipeline — results land
+    via a done-callback at the pipeline's completion boundary, and the
+    engine must defer each op's completion until then."""
+    pending: list[tuple[list[BatchFuture], object]] = []
+    for group in group_ops(ops):
+        try:
+            if group[0].kind == ENCODE:
+                pending.extend(_encode_group(group, pipeline))
+            else:
+                pending.extend(_decode_group(group, pipeline))
+        except BaseException as e:             # noqa: BLE001 — one bad op
+            # (unaligned buffer, codec error) fails its GROUP, never the
+            # coalescer thread; per-op granularity would re-dispatch the
+            # good ops but a group shares one device call — fail together
+            for op in group:
+                op._error = e
+            pending.append((group, None))
+    return pending

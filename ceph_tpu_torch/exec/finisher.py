@@ -1,0 +1,130 @@
+"""Finisher: ordered completion-callback execution off the hot path.
+
+Analog of the reference's ``Finisher`` (reference: src/common/Finisher.{h,cc}
+— a dedicated thread draining ``finisher_queue`` in submission order, with
+``queue_len``/``complete_latency`` perf counters :18-30).  The coalescer
+thread must never run user completion callbacks inline: a slow callback
+would stall every other op in the batch (and a callback that resubmits —
+the closed-loop workload generator does exactly this — would deadlock
+against a full admission throttle).
+
+Runs threaded (``start``) or inline-on-demand (``drain`` — the
+deterministic single-thread mode tests use).  The queue is explicitly
+bounded; ``queue`` blocks when full (backpressure propagates to the
+dispatcher rather than growing memory).
+
+A copy of ``ceph_tpu.exec.finisher``: the port keeps its own copy, so it
+needs nothing of the JAX package.
+"""
+from __future__ import annotations
+
+import threading
+from collections import deque
+
+FINISHER_QUEUE_BOUND = 65536      # callbacks; far above any sane in-flight
+
+
+class Finisher:
+    def __init__(self, name: str = "fin", bound: int = FINISHER_QUEUE_BOUND):
+        self.name = name
+        self.bound = bound
+        self._queue: deque = deque(maxlen=bound)   # guarded: never at maxlen
+        self._lock = threading.Lock()
+        self._nonempty = threading.Condition(self._lock)
+        self._nonfull = threading.Condition(self._lock)
+        self._idle = threading.Condition(self._lock)
+        self._in_progress = 0
+        self._stopping = False
+        self._thread: threading.Thread | None = None
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def start(self) -> "Finisher":
+        if self._thread is None or not self._thread.is_alive():
+            self._stopping = False
+            self._thread = threading.Thread(
+                target=self._loop, name=f"finisher-{self.name}", daemon=True)
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        """Drain everything queued, then stop the thread (Finisher::stop
+        waits for the queue to empty)."""
+        with self._lock:
+            self._stopping = True
+            self._nonempty.notify_all()
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        self.drain()          # anything queued after the thread exited
+
+    # -- submission ----------------------------------------------------------
+
+    def queue(self, fn, *args) -> None:
+        with self._lock:
+            while len(self._queue) >= self.bound and not self._stopping:
+                self._nonfull.wait()
+            if len(self._queue) >= self.bound:
+                # stopping AND full: appending would make the bounded
+                # deque silently EVICT the oldest pending completion
+                # (hanging its future, leaking its throttle units) —
+                # run this one inline on the submitter instead
+                item = (fn, args)
+            else:
+                self._queue.append((fn, args))
+                self._nonempty.notify()
+                return
+        self._run_one(item)
+
+    def queue_len(self) -> int:
+        with self._lock:
+            return len(self._queue) + self._in_progress
+
+    # -- execution -----------------------------------------------------------
+
+    def _run_one(self, item) -> None:
+        fn, args = item
+        try:
+            fn(*args)
+        except Exception:                  # noqa: BLE001 — a callback
+            # crashing must not take down the completion thread; the
+            # reference asserts instead, but a serving loop has to keep
+            # completing the other ops in flight
+            import traceback
+            traceback.print_exc()
+
+    def _loop(self) -> None:
+        while True:
+            with self._lock:
+                while not self._queue and not self._stopping:
+                    self._nonempty.wait()
+                if not self._queue and self._stopping:
+                    return
+                item = self._queue.popleft()
+                self._in_progress += 1
+                self._nonfull.notify()
+            self._run_one(item)
+            with self._lock:
+                self._in_progress -= 1
+                if not self._queue and not self._in_progress:
+                    self._idle.notify_all()
+
+    def drain(self) -> int:
+        """Inline mode: run everything queued on the CALLING thread.
+        Returns the number of callbacks executed."""
+        ran = 0
+        while True:
+            with self._lock:
+                if not self._queue:
+                    return ran
+                item = self._queue.popleft()
+                self._nonfull.notify()
+            self._run_one(item)
+            ran += 1
+
+    def wait_for_empty(self, timeout: float | None = None) -> bool:
+        with self._lock:
+            if self._thread is None:
+                pass                        # inline mode: caller drains
+            return self._idle.wait_for(
+                lambda: not self._queue and not self._in_progress, timeout)

@@ -140,6 +140,11 @@ class RSCodec:
             self.parity_uploads += 1
         return self._parity_dev
 
+    def parity_matrix_device(self) -> torch.Tensor:
+        """The parity matrix [m, k] on this codec's device, uploaded once
+        (``parity_uploads`` counts it)."""
+        return self._upload_parity()
+
     def encode_device(self, data: torch.Tensor) -> torch.Tensor:
         """Device-to-device encode (no host transfer): [k, N] -> [m, N]."""
         return rs_kernels.gf_apply(self._upload_parity(), data)

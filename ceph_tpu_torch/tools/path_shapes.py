@@ -7,6 +7,10 @@ For each launch of ``chip_smoke.py``'s main paths, on ``cuda:0``:
 - ecutil: ``torch_rs`` RS(8,4) reed_sol_van over 64 objects of 4 MiB,
   ``gf_apply`` on [8, 32 Mi]: encode [4, 8], decode of {0, 9} [2, 8] and
   of {1, 3, 8, 11} [4, 8];
+- serving: the same codec under the serving engine, one full batch of
+  16 ops of 4 MiB (the 64 MiB throttle at concurrency 16), ``gf_apply``
+  on [8, 8 Mi]: encode [4, 8], the degraded read of {0, 9} from chunks
+  1-8 [1, 8];
 - headline: Cauchy RS(8,4), 64 stripes of 1 MiB, ``gf_apply_stripes`` on
   [64*8, 128 Ki]: encode [4, 8], decode of {0, 9} [2, 8];
 - jerasure: ``xor_apply`` on the packets of 64 objects of 4 MiB,
@@ -45,6 +49,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 MIB = 1 << 20
 OBJECTS, OBJ_BYTES = 64, 4 * MIB   # the ecutil and jerasure paths
+SERVING_BATCH = 16                 # ops of OBJ_BYTES per serving batch
 STRIPES, STRIPE_BYTES = 64, MIB    # the headline
 JERASURE = {
     "liber8tion": ({"technique": "liber8tion", "k": "8"}, ([0, 9], [3, 5])),
@@ -83,6 +88,13 @@ def launch_shapes(pkg) -> list[dict]:
                         label=f"decode {lost}",
                         mat=ec.codec.decode_matrix(lost)[0], rows=8, cols=n,
                         stripes=1))
+    n = SERVING_BATCH * OBJ_BYTES // 8
+    out.append(dict(kernel="gf_apply", path="serving", label="encode",
+                    mat=ec.codec.parity_mat, rows=8, cols=n, stripes=1))
+    out.append(dict(kernel="gf_apply", path="serving",
+                    label="decode [0, 9] from 1-8",
+                    mat=ec.codec.decode_matrix([0], list(range(1, 9)))[0],
+                    rows=8, cols=n, stripes=1))
     codec = pkg.codec.RSCodec(8, 4, technique="cauchy", device="numpy")
     for label, mat in (("encode", codec.parity_mat),
                        ("decode [0, 9]", codec.decode_matrix([0, 9])[0])):

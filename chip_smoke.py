@@ -16,21 +16,32 @@ drives the port end to end:
                 reed_sol_van, 4 KiB stripe unit) under ecutil.encode_many,
                 hinfo_append and decode_many over 64 objects of 4 MiB,
                 checked against the port's numpy path;
-4. headline  -- rs_kernels.gf_apply_stripes over 64 x 1 MiB stripes
+4. serving   -- the serving path at RBD-on-EC size: ServingEngine (option
+                defaults: depth-4 CUDA codec pipeline, 64-op batches, 2 ms
+                deadline, 64 MiB throttle) over torch_rs k=8 m=4 with no
+                device key, 4 KiB stripe unit, 4 MiB objects, closed_loop
+                at concurrency 16: (a) 256 encodes and 256 degraded reads
+                ({0, 9} lost), every op checked, gf_apply launches equal
+                to the device batches, no pipeline error; (b) pipeline
+                depth 0 (synchronous) against depth 4; (c) 4 KiB ops,
+                k=4 m=2, batched against unbatched (bench.py's serving
+                comparison), 8192 ops an arm, three times, every 16th op
+                checked;
+5. headline  -- rs_kernels.gf_apply_stripes over 64 x 1 MiB stripes
                 (Cauchy RS(8,4), erasures {0, 9}) in the vertical layout,
                 timed with CUDA events;
-5. jerasure  -- the jerasure plugin on the xor_apply kernel under
+6. jerasure  -- the jerasure plugin on the xor_apply kernel under
                 ecutil.encode_many, hinfo_append and decode_many over 64
                 objects of 4 MiB, for liber8tion k=8 and reed_sol_van k=8
                 m=4 w=16, checked against the port's numpy path; then the
                 isa and shec plugins on the gf_apply kernel over 8 objects;
-6. shapes    -- gf_apply, gf_apply_stripes and xor_apply at every shape
-                phases 3-5 launch them at (ceph_tpu_torch/tools/
+7. shapes    -- gf_apply, gf_apply_stripes and xor_apply at every shape
+                phases 3-6 launch them at (ceph_tpu_torch/tools/
                 path_shapes.py): bitwise against the plain version, CUDA
                 events, bound, and the copy ceiling moving the same bytes;
-7. ec_bench  -- the ceph_erasure_code_benchmark CLI: torch_rs encode and
+8. ec_bench  -- the ceph_erasure_code_benchmark CLI: torch_rs encode and
                 decode, the default invocation, a liber8tion encode;
-8. sweep     -- the kernel sweep (ceph_tpu_torch.tools.kernel_sweep) in
+9. sweep     -- the kernel sweep (ceph_tpu_torch.tools.kernel_sweep) in
                 process at full size, Cauchy RS(8,4) over [8, 8 Mi]: copy
                 ceiling, tensor-core bit-plane apply in int8 and bf16,
                 block-diagonal stacks of 2 and 4 tiles, bitslice and
@@ -54,6 +65,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -106,7 +118,7 @@ def rand_u8(gen: torch.Generator, shape, device) -> torch.Tensor:
                          device=device)
 
 
-# -- phases ---------------------------------------------------------------------
+# -- phases -------------------------------------------------------------------
 
 def phase_build(cuda_build) -> dict:
     t0 = time.perf_counter()
@@ -691,6 +703,341 @@ def phase_sweep(K, SK, KS, cuda_build, dev) -> tuple[dict, list]:
     return report, [row_copy, row_v1, row_bd]
 
 
+# -- phase serving ------------------------------------------------------------
+
+def event_wait_releases_gil(ms: float = 50.0) -> dict:
+    """Does ``torch.cuda.Event.synchronize`` let other Python threads run?
+    A spinning thread counts while the main thread waits on an event
+    behind ``ms`` of ``torch.cuda._sleep`` on a side stream; if the wait
+    held the GIL the count could not move."""
+    cycles = int(ms * 1e-3 * 1.98e9)        # the H100's boost clock
+    count, stop = [0], threading.Event()
+
+    def spin():
+        while not stop.is_set():
+            count[0] += 1
+    th = threading.Thread(target=spin, daemon=True)
+    th.start()
+    time.sleep(0.01)
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(cycles)
+        event = torch.cuda.Event()
+        event.record(stream)
+    before = count[0]
+    t0 = time.perf_counter()
+    event.synchronize()
+    waited = time.perf_counter() - t0
+    during = count[0] - before
+    t0 = time.perf_counter()
+    before = count[0]
+    time.sleep(waited)
+    asleep = count[0] - before
+    stop.set()
+    th.join()
+    return {"waited_ms": waited * 1e3, "other_thread_steps": during,
+            "steps_in_same_sleep": asleep,
+            "releases_gil": during > 0.1 * asleep}
+
+
+def _perf_delta(before: dict, after: dict, keys) -> dict:
+    out = {}
+    for key in keys:
+        a, b = after[key], before.get(key)
+        if isinstance(a, dict) and "avgcount" in a:
+            n = a["avgcount"] - b["avgcount"]
+            total = a["sum"] - b["sum"]
+            out[key] = {"count": n, "sum_s": total,
+                        "mean_ms": total / n * 1e3 if n else None}
+        elif isinstance(a, dict):
+            out[key] = {k: a["buckets"][k] - b["buckets"][k]
+                        for k in a["buckets"]}
+        else:
+            out[key] = a - b
+    return out
+
+
+PIPE_KEYS = ("submitted", "completed", "errors", "pack_time",
+             "dispatch_time", "complete_time", "inflight_depth")
+ENGINE_KEYS = ("batches", "ops_coalesced", "ops_failed", "queue_wait_time")
+
+
+def serve_run(K, workload, eng, kind: str, n_ops: int, concurrency: int,
+              payloads: list, check) -> dict:
+    """One closed loop of ``n_ops`` through ``eng`` with the launch counts
+    zeroed just before and read just after; every op's result goes
+    through ``check(payload_index, op_number, result)`` on the finisher
+    thread as it completes (nothing is kept, as a server sends chunks on
+    and drops them).  Fails on a wrong result, a failed op, a pipeline
+    error or a launch count that is not the device batches."""
+    index = {id(p): i for i, p in enumerate(payloads)}
+    submit = eng.submit_encode if kind == "encode" else eng.submit_decode
+    lock = threading.Lock()
+    state = {"n": 0, "checked": 0, "bad": [], "check_s": 0.0}
+
+    def verify(i, n):
+        def cb(fut):
+            t0 = time.perf_counter()
+            try:
+                check(i, n, fut.result(0))
+                bad = None
+            except Exception as e:         # noqa: BLE001 — reported below
+                bad = f"op {n}: {e!r}"
+            with lock:
+                state["checked"] += bad is None
+                if bad is not None:
+                    state["bad"].append(bad)
+                state["check_s"] += time.perf_counter() - t0
+        return cb
+
+    def recording(payload, **kw):
+        with lock:
+            n = state["n"]
+            state["n"] += 1
+        fut = submit(payload, **kw)
+        fut.add_done_callback(verify(index[id(payload)], n))
+        return fut
+
+    setattr(eng, f"submit_{kind}", recording)
+    pipe0 = eng.pipeline.perf.dump()
+    eng0 = eng.perf.dump()
+    torch.cuda.synchronize()
+    K.reset_launches()
+    try:
+        res = workload.closed_loop(eng, n_ops, concurrency, payloads,
+                                   kind=kind, timeout=600.0)
+    finally:
+        del eng.__dict__[f"submit_{kind}"]
+    eng.flush()
+    torch.cuda.synchronize()
+    launches = K.launches["gf_apply"]
+    report = {**res, "MiBps": n_ops * res["op_bytes"] / MIB
+              / res["elapsed_s"],
+              "engine": _perf_delta(eng0, eng.perf.dump(), ENGINE_KEYS),
+              "gf_apply_launches": launches, "checked": state["checked"],
+              "check_s_on_finisher": state["check_s"]}
+    pipe = _perf_delta(pipe0, eng.pipeline.perf.dump(), PIPE_KEYS)
+    report["pipeline"] = pipe
+    device_batches = pipe["submitted"]
+    if pipe["errors"] or pipe["completed"] != device_batches:
+        raise AssertionError(f"serving {kind}: errors on the card: {pipe}")
+    if state["bad"] or state["checked"] != n_ops \
+            or report["engine"]["ops_failed"]:
+        raise AssertionError(f"serving {kind}: {state['checked']} of "
+                             f"{n_ops} checked, {state['bad'][:3]}")
+    if launches != device_batches:
+        raise AssertionError(f"serving {kind}: {launches} gf_apply "
+                             f"launches for {device_batches} device "
+                             f"batches")
+    return report
+
+
+def batch_copy_ms(k: int, m: int, n: int) -> dict:
+    """The pinned copies of one full batch alone, CUDA events: [k, n] to
+    the card and [m, n] back."""
+    pin_in = torch.empty((k, n), dtype=torch.uint8, pin_memory=True)
+    card = torch.empty((k, n), dtype=torch.uint8, device="cuda")
+    pin_out = torch.empty((m, n), dtype=torch.uint8, pin_memory=True)
+    return {"h2d_bytes": k * n, "d2h_bytes": m * n,
+            "h2d_ms": cuda_ms(lambda: card.copy_(pin_in, non_blocking=True),
+                              5),
+            "d2h_ms": cuda_ms(lambda: pin_out.copy_(card[:m],
+                                                    non_blocking=True), 5)}
+
+
+def small_op_serving(K, ecutil, registry, engine_cls, context_cls,
+                     workload, n_ops: int = 8192, reps: int = 3) -> dict:
+    """(c) bench.py's serving_section on the card: 4 KiB ops, torch_rs
+    k=4 m=2 with no device key, concurrency 64, batched against one op
+    per dispatch through ``compare_batched_unbatched``, ``n_ops`` an arm
+    (a window of seconds) ``reps`` times for the spread.  Every 16th op's
+    chunks are held against the numpy codec; launches must equal the
+    device batches of each repetition."""
+    small = registry.factory("torch_rs", "", {"k": "4", "m": "2",
+                                              "technique": "reed_sol_van"})
+    host = registry.factory("torch_rs", "", {"k": "4", "m": "2",
+                                             "technique": "reed_sol_van",
+                                             "device": "numpy"})
+    sinfo = ecutil.StripeInfo(4, 1024)
+    pays = workload.make_payloads(4096)     # what the comparison submits
+    want = {p.tobytes(): w for p, w in
+            zip(pays, ecutil.encode_many(sinfo, host, pays))}
+    lock = threading.Lock()
+    seen = {"n": 0, "checked": 0, "bad": []}
+
+    class CheckedEngine(engine_cls):
+        def submit_encode(self, buf, **kw):
+            fut = super().submit_encode(buf, **kw)
+            with lock:
+                seen["n"] += 1
+                n = seen["n"]
+            if n % 16 == 0:
+                ref = want[np.asarray(buf).tobytes()]
+
+                def check(f):
+                    try:
+                        got = f.result(0)
+                        ok = all(np.array_equal(got[c], ref[c])
+                                 for c in range(6))
+                    except Exception:         # noqa: BLE001 — counted
+                        ok = False
+                    with lock:
+                        seen["checked"] += ok
+                        if not ok:
+                            seen["bad"].append(n)
+                fut.add_done_callback(check)
+            return fut
+
+    runs = []
+    workload.ServingEngine = CheckedEngine
+    try:
+        for _ in range(reps):
+            cct, captured = context_cls(), {}
+            add = cct.perf.add
+
+            def capture(pc, _add=add, _captured=captured):
+                _captured[pc.name] = pc
+                _add(pc)
+            cct.perf.add = capture
+            torch.cuda.synchronize()
+            K.reset_launches()
+            cmp = workload.compare_batched_unbatched(
+                small, sinfo, n_ops=n_ops, concurrency=64, op_bytes=4096,
+                warmup_ops=64, cct=cct, timeout=240.0)
+            torch.cuda.synchronize()
+            labels = ("batched", "unbatched")
+            pipes = [captured[f"bench.{label}.pipeline"] for label in labels]
+            engines = [captured[f"bench.{label}"] for label in labels]
+            dispatched = sum(p.get("submitted") for p in pipes)
+            if any(p.get("errors") for p in pipes) or \
+                    any(e.get("ops_failed") for e in engines):
+                raise AssertionError("small-op serving failed on the card")
+            if K.launches["gf_apply"] != dispatched:
+                raise AssertionError(
+                    f"small ops: {K.launches['gf_apply']} launches for "
+                    f"{dispatched} device batches")
+            runs.append({"batched": cmp["batched"],
+                         "unbatched": cmp["unbatched"],
+                         "speedup": cmp["speedup"],
+                         "gf_apply_launches": K.launches["gf_apply"],
+                         "device_batches": dispatched})
+    finally:
+        workload.ServingEngine = engine_cls
+    if seen["bad"] or seen["checked"] != seen["n"] // 16:
+        raise AssertionError(f"small ops: {seen['checked']} of "
+                             f"{seen['n'] // 16} checked, {seen['bad'][:3]}")
+    speedups = sorted(r["speedup"] for r in runs)
+    ops_s = {label: sorted(r[label]["ops_s"] for r in runs)
+             for label in ("batched", "unbatched")}
+    mid = len(runs) // 2
+    return {"n_ops": n_ops, "reps": reps, "runs": runs,
+            "ops_checked": seen["checked"],
+            "speedup": {"min": speedups[0], "median": speedups[mid],
+                        "max": speedups[-1],
+                        "spread": (speedups[-1] - speedups[0])
+                        / speedups[mid]},
+            "ops_s": {label: {"min": v[0], "median": v[mid], "max": v[-1]}
+                      for label, v in ops_s.items()}}
+
+
+def phase_serving(K, ecutil, registry_cls, ops: int = 256,
+                  concurrency: int = 16, obj_bytes: int = 4 * MIB
+                  ) -> tuple[dict, int]:
+    """The serving path at RBD-on-EC size: torch_rs k=8 m=4 reed_sol_van
+    with no device key (the card), 4 KiB stripe unit, 4 MiB objects, a
+    ServingEngine with the option defaults under closed_loop at
+    concurrency 16; (a) 256 encodes and 256 degraded reads ({0, 9} lost)
+    at pipeline depth 4, (b) depth 0 (the synchronous pipeline) against
+    depth 4, (c) bench.py's
+    small-op serving comparison on the card.  Returns the report and the
+    gf_apply launches of (a)."""
+    from ceph_tpu_torch.common import Context
+    from ceph_tpu_torch.exec import ServingEngine, workload
+    # the pipeline's completion boundary waits in Event.synchronize; the
+    # coalescer packs meanwhile only if that wait releases the GIL
+    gil = event_wait_releases_gil()
+    if not gil["releases_gil"]:
+        raise AssertionError(f"Event.synchronize holds the GIL: {gil}")
+    k, m, unit = 8, 4, 4096
+    profile = {"k": str(k), "m": str(m), "technique": "reed_sol_van"}
+    registry = registry_cls.instance()
+    ec = registry.factory("torch_rs", "", dict(profile))
+    if ec.get_profile()["device"] != "cuda":
+        raise AssertionError(f"default device {ec.get_profile()['device']}")
+    host = registry.factory("torch_rs", "", profile | {"device": "numpy"})
+    sinfo = ecutil.StripeInfo(k, ec.get_chunk_size(k * unit))
+    assert sinfo.chunk_size == unit, sinfo.chunk_size
+    pays = workload.make_payloads(obj_bytes, 8, seed=0)
+    want = ecutil.encode_many(sinfo, ec, pays)
+    host_want = ecutil.encode_many(sinfo, host, pays)
+    for w, h in zip(want, host_want):
+        if any(not np.array_equal(w[c], h[c]) for c in range(k + m)):
+            raise AssertionError("encode_many on the card != numpy codec")
+    lost = {0, 9}
+    src = sorted(ec.minimum_to_decode(set(range(k)),
+                                      set(range(k + m)) - lost))
+    assert len(src) == k, src
+    reads = [{c: w[c] for c in src} for w in want]
+    logical = [p.tobytes() for p in pays]
+
+    def same(a, b) -> bool:                  # bitwise, 8 bytes a lane
+        return a.shape == b.shape and bool(
+            (a.view(np.uint64) == b.view(np.uint64)).all())
+
+    def check_encode(i, n, chunks):
+        for c in range(k + m):
+            if not same(chunks[c], want[i][c]):
+                raise AssertionError(f"chunk {c} != encode_many")
+            if n % 16 == 0 and not same(chunks[c], host_want[i][c]):
+                raise AssertionError(f"chunk {c} != numpy codec")
+
+    def check_decode(i, n, data):
+        if data != logical[i]:
+            raise AssertionError("decoded bytes differ")
+
+    def run_pair(depth: int, tag: str) -> dict:
+        eng = ServingEngine(cct=Context(), ec_impl=ec, sinfo=sinfo,
+                            name=f"rbd.{tag}", pipeline_depth=depth).start()
+        try:
+            if eng.batch_max_ops != 64 or eng.byte_throttle.max != 64 * MIB:
+                raise AssertionError("option defaults changed")
+            for kind, payloads in (("encode", pays), ("decode", reads)):
+                workload.closed_loop(eng, 2 * concurrency, concurrency,
+                                     payloads, kind=kind)      # warm up
+            enc = serve_run(K, workload, eng, "encode", ops, concurrency,
+                            pays, check_encode)
+            dec = serve_run(K, workload, eng, "decode", ops, concurrency,
+                            reads, check_decode)
+        finally:
+            eng.stop()
+        return {"depth": depth, "encode": enc, "decode": dec}
+
+    rbd = run_pair(4, "a")                           # (a), counted
+    arms = [run_pair(0, "b0"), run_pair(4, "b4"), run_pair(0, "b0b")]
+    ratio = {kind: [a[kind]["MiBps"] for a in (rbd, *arms)]
+             for kind in ("encode", "decode")}
+    depth_cmp = {
+        "order": "depth 4 (a), 0, 4, 0",
+        "MiBps": ratio,
+        "depth4_over_depth0": {
+            kind: (v[0] + v[2]) / (v[1] + v[3]) for kind, v in ratio.items()},
+        "arms": [{"depth": a["depth"],
+                  "encode_p99_ms": a["encode"]["p99_ms"],
+                  "decode_p99_ms": a["decode"]["p99_ms"]} for a in arms]}
+
+    copies = batch_copy_ms(k, m, concurrency * obj_bytes // k)
+
+    small_ops = small_op_serving(K, ecutil, registry, ServingEngine,
+                                 Context, workload)
+    n_serving = rbd["encode"]["gf_apply_launches"] + \
+        rbd["decode"]["gf_apply_launches"]
+    return {"event_synchronize": gil,
+            "object_bytes": obj_bytes, "stripe_unit": unit,
+            "concurrency": concurrency, "ops": ops,
+            "rbd": rbd, "depth_0_vs_4": depth_cmp,
+            "batch_copies": copies, "small_ops": small_ops}, n_serving
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -725,6 +1072,8 @@ def main() -> int:
                                                 bm)))
     ecu, n_apply = phase_ecutil(K, ecutil, ErasureCodePluginRegistry)
     emit("ecutil", **ecu, gpu=smi)
+    serving, n_serving = phase_serving(K, ecutil, ErasureCodePluginRegistry)
+    emit("serving", **serving, gpu=smi)
     head, n_stripes = phase_headline(K, RSCodec, gfref)
     emit("headline", **head, gpu=smi)
     jer, n_xor = phase_jerasure(K, ecutil, ErasureCodePluginRegistry)
@@ -741,7 +1090,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         kernel_row("gf_apply", "gf_apply.cu",
                    "ceph_tpu/ops/pallas_kernels.py:156",
-                   "ecutil", n_apply, on("gf_apply")),
+                   "ecutil", n_apply, on("gf_apply"))
+        | {"launches_by_path": {"ecutil": n_apply, "serving": n_serving}},
         kernel_row("gf_apply_stripes", "gf_apply.cu",
                    "ceph_tpu/ops/pallas_kernels.py:80",
                    "headline", n_stripes, on("gf_apply_stripes")),

@@ -58,6 +58,18 @@ for name, profile in (
     out = ecutil.decode_many(sinfo, ec, [{c: v for c, v in shards.items()
                                           if c not in (0, n - 1)}])
     assert out[0] == buf.tobytes(), (name, profile)
+from ceph_tpu_torch import common, failure, osd
+from ceph_tpu_torch.exec import ServingEngine, workload
+from ceph_tpu_torch.ops import pipeline
+ec = ErasureCodePluginRegistry.instance().factory(
+    "torch_rs", "", {"k": "4", "m": "2", "device": "cpu"})
+sinfo = ecutil.StripeInfo(4, 1024)
+eng = ServingEngine(ec_impl=ec, sinfo=sinfo, name="probe").start()
+pays = workload.make_payloads(sinfo.stripe_width, 4)
+res = workload.closed_loop(eng, 16, 4, payloads=pays)
+assert res["ops"] == 16 and eng.pipeline.perf.get("completed") >= 1
+assert eng.pipeline.perf.get("errors") == 0
+eng.stop()
 print(json.dumps(sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m == "jaxlib" or m.startswith("jaxlib.")
@@ -166,6 +178,36 @@ def test_plugin_without_a_device_key_runs_on_cuda(no_card):
     sinfo = ecutil.StripeInfo(4, 128)
     with pytest.raises(RuntimeError, match="cuda"):
         ecutil.encode_many(sinfo, ec, [np.zeros(512, np.uint8)])
+    assert rs_kernels.launches == {"gf_apply": 0, "gf_apply_stripes": 0,
+                                   "xor_apply": 0}
+
+
+@pytest.mark.parametrize("depth", [0, 4])
+def test_serving_engine_without_a_card_raises(no_card, depth):
+    """A ServingEngine over a torch_rs plugin with no ``device`` key
+    serves on the card: without one every submit fails with the card's
+    error, nothing answers on the host, and no kernel launch counts."""
+    from ceph_tpu_torch.exec import ServingEngine
+    reg = ErasureCodePluginRegistry()
+    ec = reg.factory("torch_rs", "", {"k": "4", "m": "2"})
+    sinfo = ecutil.StripeInfo(4, 1024)
+    eng = ServingEngine(ec_impl=ec, sinfo=sinfo, name=f"nocard{depth}",
+                        pipeline_depth=depth)
+    try:
+        with pytest.raises(RuntimeError, match="cuda"):
+            eng.encode(np.zeros(sinfo.stripe_width, np.uint8))
+        enc = ecutil.encode_many(
+            sinfo, reg.factory("torch_rs", "", {"k": "4", "m": "2",
+                                                "device": "numpy"}),
+            [np.ones(sinfo.stripe_width, np.uint8)])[0]
+        fut = eng.submit_decode({c: enc[c] for c in range(1, 5)})
+        eng.flush()
+        with pytest.raises(RuntimeError, match="cuda"):
+            fut.result(5)
+        assert eng.perf.get("ops_failed") == 2
+        assert eng.pipeline.perf.get("completed") == 0
+    finally:
+        eng.stop()
     assert rs_kernels.launches == {"gf_apply": 0, "gf_apply_stripes": 0,
                                    "xor_apply": 0}
 

@@ -87,18 +87,22 @@ def test_path_shapes_cli_without_a_card_exits_2():
 
 def test_path_shapes_launch_shapes_match_the_jax_package():
     shapes = path_shapes.launch_shapes(path_shapes.load_package())
-    assert [s["kernel"] for s in shapes] == (["gf_apply"] * 3
+    assert [s["kernel"] for s in shapes] == (["gf_apply"] * 5
                                              + ["gf_apply_stripes"] * 2
                                              + ["xor_apply"] * 6)
-    ecutil, headline = shapes[:3], shapes[3:5]
+    ecutil, serving, headline = shapes[:3], shapes[3:5], shapes[5:7]
     jvan = JRSCodec(8, 4, technique="reed_sol_van", device="numpy")
     assert np.array_equal(ecutil[0]["mat"], jvan.parity_mat)
     assert np.array_equal(ecutil[1]["mat"], jvan.decode_matrix([0, 9])[0])
+    assert np.array_equal(serving[0]["mat"], jvan.parity_mat)
+    assert np.array_equal(serving[1]["mat"],
+                          jvan.decode_matrix([0], list(range(1, 9)))[0])
+    assert serving[0]["cols"] * 8 == 16 * 4 * 2**20
     jcau = JRSCodec(8, 4, technique="cauchy", device="numpy")
     assert np.array_equal(headline[0]["mat"], jcau.parity_mat)
     assert np.array_equal(headline[1]["mat"], jcau.decode_matrix([0, 9])[0])
     assert headline[0]["rows"] == 64 * 8 and headline[0]["stripes"] == 64
-    xor = {(s["path"], s["label"]): s for s in shapes[5:]}
+    xor = {(s["path"], s["label"]): s for s in shapes[7:]}
     w16 = xor[("jerasure reed_sol_van_w16", "encode")]
     assert w16["mat"].shape == (64, 128) and int(w16["mat"].sum()) == 3928
     assert w16["rows"] * w16["cols"] == 64 * 4 * 2**20
