@@ -8,7 +8,16 @@ one call for many buffers.  RS parity is positionwise, so batching across
 stripes is a pure relayout: bit-identical output, large device launches.
 :func:`encode_many_pipelined`/:func:`decode_many_pipelined` submit the
 same relayouts to ``ops.pipeline.CodecPipeline`` (async, on a CUDA
-stream) with bit-identical results.
+stream) with bit-identical results.  :func:`hinfo_append` checksums
+appended shards with the ``crc32c`` kernel when the plugin routes the call
+to the card.
+
+The repair path: :func:`decode_shards_many` (recovery waves, one decode
+per survivor and want signature), :func:`partial_sum_accumulate` (one hop
+of a chain repair) and :func:`regen_project`/:func:`regen_combine` (the
+regenerating-repair legs), each through the pipeline when given one.
+The legs run on the card unless the caller names ``device="cpu"`` or
+``"numpy"``.
 
 Host crc32c is pure Python for short buffers and a vectorised numpy form
 (lanes of bytes, then a log-depth combine) for long ones; the native
@@ -19,6 +28,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 # -- crc32c (Castagnoli), seed-chained like ceph_crc32c ----------------------
 # HashInfo chains bufferlist::crc32c(seed) per shard with initial seed -1
@@ -451,15 +461,30 @@ def _device_codec(ec_impl, nbytes: int):
     return probe(int(nbytes))
 
 
+def _crc_rows_on(codec, rows: list[np.ndarray]) -> np.ndarray:
+    """crc32c(0, row) of equal-length host ``rows`` on ``codec``'s device:
+    the rows stack straight into pinned memory, go to the card in one
+    ``non_blocking`` copy, the ``crc32c`` kernel runs, and the [r] crcs
+    come back into pinned memory; the one wait is on their event."""
+    from ..ops import rs_kernels
+    from ..ops.pipeline import CodecPipeline, launch, settle
+    dev = codec.torch_device
+    block = CodecPipeline.host_block(dev, (len(rows), len(rows[0])))
+    for i, row in enumerate(rows):
+        block[i] = row
+    return settle(launch(dev, block, rs_kernels.crc32c_rows))
+
+
 def hinfo_append(hinfo: HashInfo, old_size: int,
                  chunks: dict[int, np.ndarray], ec_impl=None) -> None:
     """HashInfo maintenance with the checksums computed on the codec's
     device: when the plugin routes a call of this size to a device codec
-    and the hashes are live, the appended chunk rows stack into ONE
-    ``crc32c_rows`` call and the seed-free results chain through
-    :meth:`HashInfo.append_crcs`.  Everything else (numpy routing,
-    hash-less objects, uneven appends) takes the bitwise-identical
-    :meth:`HashInfo.append`."""
+    and the hashes are live, the appended chunk rows go through ONE
+    ``crc32c_rows`` call (:func:`_crc_rows_on`) and the seed-free results
+    chain through :meth:`HashInfo.append_crcs`.  Everything else (numpy
+    routing, hash-less objects, uneven appends) takes the
+    bitwise-identical :meth:`HashInfo.append`.  A failure on the card
+    raises: nothing is checksummed on the host instead."""
     if not chunks:
         return
     if hinfo.has_chunk_hash() and ec_impl is not None:
@@ -470,10 +495,8 @@ def hinfo_append(hinfo: HashInfo, old_size: int,
                 if nbytes else None
             if codec is not None:
                 shards = sorted(chunks)
-                rows = np.stack([_as_u8(chunks[s]) for s in shards])
-                from ..ops import rs_kernels
-                crc0 = rs_kernels.crc32c_rows(
-                    codec.to_device(rows)).cpu().numpy()
+                crc0 = _crc_rows_on(codec, [_as_u8(chunks[s])
+                                            for s in shards])
                 hinfo.append_crcs(old_size,
                                   {s: int(c)
                                    for s, c in zip(shards, crc0)}, nbytes)
@@ -510,7 +533,8 @@ def encode_many_pipelined(sinfo: StripeInfo, ec_impl,
                   for b in arrs]
 
     def pack():
-        out = pipeline.host_empty(codec, (k, sum(shard_lens)))
+        out = pipeline.host_block(codec.torch_device,
+                                  (k, sum(shard_lens)))
         return _pack_shard_major(arrs, k, sinfo.chunk_size, out=out)
 
     def dispatch(data_shards):
@@ -573,8 +597,8 @@ def _submit_decode_group(sinfo, ec_impl, codec, batches, sig, idxs,
             _D, src = codec.decode_matrix(erasures_l,
                                           available=list(avail_l))
             rows = [avail_l[s] for s in src]
-            stack = np.stack(rows, out=pipeline.host_empty(
-                codec, (len(rows), len(rows[0]))))
+            stack = np.stack(rows, out=pipeline.host_block(
+                codec.torch_device, (len(rows), len(rows[0]))))
         return avail_l, erasures_l, stack, lens
 
     def dispatch(packed):
@@ -679,3 +703,209 @@ def decode_many(sinfo: StripeInfo, ec_impl,
             results[i] = logical.tobytes()
             off += ln
     return results
+
+
+# -- the repair path ------------------------------------------------------------
+# Recovery waves (decode_shards_many), the chain-repair hop
+# (partial_sum_accumulate) and the regenerating-repair legs (regen_project,
+# regen_combine).  With a pipeline they dispatch through
+# ops.pipeline.CodecPipeline on its CUDA stream; a failure on the card
+# fails the future and raises here, and nothing is served on the host
+# instead.  The chain hop and the regen legs run where ``device`` says:
+# "cuda" by default, "cpu" (the plain versions) or "numpy" (the exact host
+# GF math) when the caller asks; a pipeline only makes the dispatch
+# asynchronous.
+
+def decode_shards_many(sinfo: StripeInfo, ec_impl,
+                       batches: list[tuple[dict[int, np.ndarray], set]],
+                       pipeline=None, owner: str | None = "recovery"
+                       ) -> list[dict[int, np.ndarray]]:
+    """Reconstruct specific shards for MANY objects with ONE
+    ``ec_impl.decode`` per distinct (survivor signature, want set) — the
+    recovery-side sibling of :func:`decode_many`.  Parity is positionwise,
+    so objects sharing both signatures share a decode matrix and their
+    chunk streams concatenate along the byte axis into one device
+    dispatch; results split back per object, bit-identical to calling
+    :func:`decode_shards` per object.
+
+    ``batches`` is ``[(available {chunk: bytes}, want set), ...]``.  Only
+    valid for whole-chunk codes (``get_sub_chunk_count() == 1``); clay's
+    fractional repair reads are not positionwise across objects.
+
+    With a ``pipeline`` and a plugin that routes the call to a tensor
+    codec, each (signature, want) group dispatches through the pipeline:
+    group i+1's host pack overlaps group i's reconstruct on the card, and
+    results are fetched after the last dispatch."""
+    if not batches:
+        return []
+    results: list[dict[int, np.ndarray] | None] = [None] * len(batches)
+    by_sig: dict[tuple[frozenset, frozenset], list[int]] = {}
+    for i, (available, want) in enumerate(batches):
+        by_sig.setdefault((frozenset(available), frozenset(want)),
+                          []).append(i)
+    if pipeline is not None:
+        pending = _decode_shards_groups_pipelined(sinfo, ec_impl, batches,
+                                                  by_sig, pipeline, owner)
+        if pending is not None:
+            for idxs, fut in pending:
+                for i, rec in zip(idxs, fut.result()):
+                    results[i] = rec
+            return results
+    for (sig, want_sig), idxs in by_sig.items():
+        want = set(want_sig)
+        concat, lens = _group_streams([batches[i][0] for i in idxs], sig)
+        decoded = ec_impl.decode(want, concat, 0)
+        off = 0
+        for i, ln in zip(idxs, lens):
+            results[i] = {c: np.asarray(decoded[c], dtype=np.uint8)
+                          [off:off + ln] for c in want}
+            off += ln
+    return results
+
+
+def _decode_shards_groups_pipelined(sinfo, ec_impl, batches, by_sig,
+                                    pipeline, owner: str | None = "recovery"):
+    """Submit every (signature, want) recovery group through the
+    pipeline; ``[(idxs, future), ...]``, or None when the plugin routes
+    the call to the host."""
+    total_bytes = sum(sum(_as_u8(v).nbytes for v in avail.values())
+                      for avail, _want in batches)
+    codec = _device_codec(ec_impl, total_bytes)
+    if codec is None:
+        return None
+    n = ec_impl.get_chunk_count()
+    pending = []
+    for (sig, want_sig), idxs in sorted(by_sig.items(),
+                                        key=lambda kv: kv[1][0]):
+        want = sorted(want_sig)
+
+        def pack(sig=sig, want=want, idxs=idxs):
+            concat, lens = _group_streams([batches[i][0] for i in idxs],
+                                          sig)
+            # wire ids are PHYSICAL; the codec's rows are LOGICAL
+            avail_l, want_l = ec_impl.remap_for_decode(concat, want)
+            erasures_l = [i for i in range(n) if i not in avail_l]
+            _D, src = codec.decode_matrix(erasures_l,
+                                          available=list(avail_l))
+            rows = [avail_l[s] for s in src]
+            stack = np.stack(rows, out=pipeline.host_block(
+                codec.torch_device, (len(rows), len(rows[0]))))
+            return erasures_l, want_l, list(avail_l), stack, lens
+
+        def dispatch(packed):
+            erasures_l, _want_l, avail_ids, stack, _lens = packed
+            return pipeline.dispatch_decode(codec, stack, erasures_l,
+                                            avail_ids)
+
+        def unpack(packed, rec):
+            erasures_l, want_l, _avail_ids, _stack, lens = packed
+            rows = {e: rec[i] for i, e in enumerate(erasures_l)}
+            out: list[dict[int, np.ndarray]] = []
+            off = 0
+            for ln in lens:
+                out.append({ec_impl.chunk_index(w): rows[w][off:off + ln]
+                            for w in want_l})
+                off += ln
+            return out
+
+        pending.append((list(idxs),
+                        pipeline.submit(pack, dispatch, unpack,
+                                        kind="recover", owner=owner,
+                                        ops=len(idxs))))
+    return pending
+
+
+def decode_shards(sinfo: StripeInfo, ec_impl, available: dict[int, np.ndarray],
+                  want: set, chunk_size: int = 0) -> dict[int, np.ndarray]:
+    """Reconstruct specific shards (recovery path, ECUtil.cc:47-118 shape).
+
+    ``chunk_size`` is the full per-shard size; when the available buffers are
+    smaller, sub-chunk-aware codes (clay) route through their fractional
+    repair path (ErasureCodeClay.cc:107-122)."""
+    chunks = {i: _as_u8(v) for i, v in available.items()}
+    return ec_impl.decode(set(want), chunks, chunk_size)
+
+
+def _gf_apply_routed(mat: np.ndarray, rows, k: int, device: str,
+                     pipeline, owner: str | None, kind: str) -> np.ndarray:
+    """``mat`` [r, k] times ``rows[:k]``, XORed into ``rows[k:]`` when
+    there are more rows (a hop's running sums) -> uint8 [r, N]: the one
+    engine under the repair legs.  ``device`` "cuda" (the default of
+    every leg) or "cpu" stacks the rows into one (pinned) block and runs
+    :func:`ops.pipeline.apply_rows` there: through ``pipeline`` when one
+    is given (its stream, breaker and attribution; a failure fails the
+    future and raises here), synchronously on the current stream
+    otherwise.  "numpy" runs the exact host GF math."""
+    from ..ops import codec as _codec
+    from ..ops.pipeline import CodecPipeline, apply_rows, settle
+    mat = np.ascontiguousarray(mat, dtype=np.uint8)
+    if device == "numpy":
+        stack = np.stack(rows)
+        acc = stack[k:] if len(stack) > k else None
+        return _codec.scale_accumulate_host(mat, stack[:k], acc)
+    dev = _codec.torch_device(device)
+
+    def pack():
+        block = CodecPipeline.host_block(dev, (len(rows), len(rows[0])))
+        for i, row in enumerate(rows):
+            block[i] = row
+        return block
+
+    if pipeline is None:
+        return settle(apply_rows(mat, pack(), k, dev))
+    fut = pipeline.submit(
+        pack, lambda block: pipeline.dispatch_apply(mat, block, k, dev),
+        lambda _block, host: host, kind=kind, owner=owner, ops=1)
+    return fut.result()
+
+
+def partial_sum_accumulate(coeffs, stream, acc, pipeline=None,
+                           owner: str | None = "recovery",
+                           device: str = "cuda") -> list[bytes]:
+    """One streaming-repair hop's partial-sum update: scale the hop's
+    local chunk ``stream`` (every plan object concatenated) by its
+    per-erased-row decode ``coeffs`` and XOR into ``acc``.
+
+    ``acc`` is ``None`` on the first hop, else one running buffer per
+    erased row.  Returns one bytes buffer per row.  On ``device`` (see
+    :func:`_gf_apply_routed`) the stream and the running sums go to the
+    card as one block: one copy, the ``gf_apply`` kernel, the XOR
+    there."""
+    mat = np.asarray([[int(c) & 0xFF] for c in coeffs], dtype=np.uint8)
+    rows = [_as_u8(stream).reshape(-1)]
+    rows += [] if acc is None else [_as_u8(a) for a in acc]
+    out = _gf_apply_routed(mat, rows, 1, device, pipeline, owner,
+                           "partial_sum")
+    return [out[i].tobytes() for i in range(out.shape[0])]
+
+
+def regen_project(coeffs: bytes | np.ndarray, stream, sub_count: int,
+                  pipeline=None, owner: str | None = "recovery",
+                  device: str = "cuda") -> bytes:
+    """One helper's regenerating-repair leg: project the stored chunk's
+    ``sub_count`` symbol rows down to the single beta-stream
+    ``psi_f . chunk`` it ships to the newcomer (len(stream)/sub_count
+    bytes — the d-fold wire saving the product-matrix code exists
+    for).  ``device`` and ``pipeline`` as in :func:`_gf_apply_routed`."""
+    data = _as_u8(stream)
+    if data.size % sub_count:
+        raise ValueError(f"chunk of {data.size} bytes is not a whole "
+                         f"number of {sub_count} sub-chunks")
+    mat = np.frombuffer(bytes(coeffs), dtype=np.uint8).reshape(1, sub_count)
+    out = _gf_apply_routed(mat, data.reshape(sub_count, -1), sub_count,
+                           device, pipeline, owner, "regen")
+    return out.reshape(-1).tobytes()
+
+
+def regen_combine(mat: bytes | np.ndarray, streams: list, sub_count: int,
+                  pipeline=None, owner: str | None = "recovery",
+                  device: str = "cuda") -> bytes:
+    """The newcomer's regenerating-repair leg: combine the d stacked
+    helper beta-streams into the lost chunk's ``sub_count`` symbol rows
+    (bitwise-exact repair).  ``device`` and ``pipeline`` as in
+    :func:`_gf_apply_routed`."""
+    m = np.frombuffer(bytes(mat), dtype=np.uint8).reshape(sub_count,
+                                                          len(streams))
+    out = _gf_apply_routed(m, [_as_u8(s) for s in streams], len(streams),
+                           device, pipeline, owner, "regen")
+    return out.reshape(-1).tobytes()

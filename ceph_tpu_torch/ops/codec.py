@@ -7,6 +7,9 @@ GF(2^8) apply of :mod:`.rs_kernels`.
 
 ``device`` is 'cuda' (the hand kernels; the default), 'cpu' (the plain
 PyTorch versions on CPU tensors) or 'numpy' (the host reference codec).
+The repair legs' products, which have no codec (a chain hop's
+scale-accumulate, the regenerating-repair inner products), are module
+functions here, each with an exact numpy sibling.
 The JAX package's buffer donation has no PyTorch counterpart and is left
 out: a launch never aliases its input, and the caller frees it by dropping
 the reference.
@@ -19,6 +22,7 @@ import threading
 import numpy as np
 import torch
 
+from ..backend import ecutil
 from ..gf import matrix as gfm
 from ..gf import ref as gfref
 from . import rs_kernels
@@ -47,6 +51,47 @@ def torch_device(device: str) -> torch.device:
     if device == "cpu":
         return torch.device("cpu")
     raise ValueError(f"device={device} has no torch device")
+
+
+# -- the repair legs' GF products (no RSCodec) ----------------------------------
+
+def scale_accumulate_device(mat, data, acc=None) -> torch.Tensor:
+    """One chain-repair hop's partial-sum update, ``(mat @GF data) ^ acc``:
+    ``mat`` [r, 1] decode coefficients, ``data`` [1, N] the hop's local
+    chunk stream, ``acc`` [r, N] the running sums (None on the first hop)
+    -> [r, N] on the data's device.  A CUDA tensor runs the ``gf_apply``
+    kernel, then the XOR on the card; a CPU tensor the plain versions."""
+    out = rs_kernels.gf_apply(mat, data)
+    if acc is not None:
+        out ^= acc
+    return out
+
+
+def scale_accumulate_host(mat: np.ndarray, data: np.ndarray,
+                          acc: np.ndarray | None) -> np.ndarray:
+    """Exact host sibling of :func:`scale_accumulate_device`."""
+    out = gfref.apply_matrix_fast(
+        np.ascontiguousarray(mat, dtype=np.uint8),
+        np.ascontiguousarray(data, dtype=np.uint8))
+    if acc is not None:
+        np.bitwise_xor(out, acc, out=out)
+    return out
+
+
+def gf_inner_product_device(mat, data) -> torch.Tensor:
+    """The regenerating-repair product ``mat @GF data``: a helper's
+    projection row [1, alpha] x its stored chunk's symbol rows [alpha, N],
+    or the newcomer's combine matrix [alpha, d] x the stacked helper
+    streams [d, N] -> [rows, N] on the data's device (the ``gf_apply``
+    kernel on a CUDA tensor, its plain version on a CPU one)."""
+    return rs_kernels.gf_apply(mat, data)
+
+
+def gf_inner_product_host(mat: np.ndarray, data: np.ndarray) -> np.ndarray:
+    """Exact host sibling of :func:`gf_inner_product_device`."""
+    return gfref.apply_matrix_fast(
+        np.ascontiguousarray(mat, dtype=np.uint8),
+        np.ascontiguousarray(data, dtype=np.uint8))
 
 
 class _DecodeTables:
@@ -117,6 +162,27 @@ class RSCodec:
         if self.device == "numpy":
             return gfref.apply_matrix_fast(self.parity_mat, data)
         return self.encode_device(self.to_device(data)).cpu().numpy()
+
+    def encode_with_crc(self, data: np.ndarray
+                        ) -> tuple[np.ndarray, np.ndarray]:
+        """Fused encode + checksum: parity [m, N] uint8 and the
+        crc32c(0, row) of every row of concat(data, parity) as a [k + m]
+        uint32 array.  On the card: the ``gf_apply`` kernel, then the
+        ``crc32c`` kernel over the rows the card holds, before either
+        comes back.  Seed-free crcs: callers chain them into ceph's
+        running HashInfo semantics with ``ecutil.crc32c_zeros`` (see
+        ``HashInfo.append_crcs``)."""
+        data = np.ascontiguousarray(data, dtype=np.uint8)
+        if self.device == "numpy":
+            parity = gfref.apply_matrix_fast(self.parity_mat, data)
+            crcs = np.array(
+                [ecutil.crc32c(0, row)
+                 for row in np.concatenate([data, parity], axis=0)],
+                dtype=np.uint32)
+            return parity, crcs
+        parity, crcs = rs_kernels.gf_encode_with_crc(self._upload_parity(),
+                                                     self.to_device(data))
+        return parity.cpu().numpy(), crcs.cpu().numpy().astype(np.uint32)
 
     def encode_host(self, data: np.ndarray) -> np.ndarray:
         """Pure-host parity (the exact CPU reference path) REGARDLESS of

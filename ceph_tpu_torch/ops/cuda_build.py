@@ -38,6 +38,9 @@ SIGNATURES = {
     "xor_apply": {
         "xor_apply_launch": [_P, _P, _P, _I, _I, _L, _I, _P],
     },
+    "crc32c": {
+        "crc32c_rows_launch": [_P, _L, _I, _L, _P, _P, _P, _P],
+    },
     "sweep_kernels": {
         "bitplane_apply_launch": [_P, _P, _P, _I, _I, _L, _I, _L, _I, _P],
         "copy_rows_launch": [_P, _P, _I, _I, _L, _L, _P],

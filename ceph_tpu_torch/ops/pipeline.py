@@ -10,7 +10,7 @@ wait on the card to an explicit completion boundary:
 
     submit(pack, dispatch, unpack):
         pack()              host: build the packed uint8 block, straight
-                            into pinned memory (:meth:`host_empty`)
+                            into pinned memory (:meth:`host_block`)
         dispatch(packed)    on the pipeline's CUDA stream: pinned -> card
                             (non_blocking), the gf_apply kernel, card ->
                             pinned output (non_blocking), an event
@@ -48,6 +48,11 @@ What JAX gave for free the port builds by hand:
 A ``device="cpu"`` codec dispatches the plain PyTorch version
 synchronously and its completion waits on nothing (the CPU tests).
 
+The repair legs have no ``RSCodec``: :meth:`CodecPipeline.dispatch_apply`
+takes the matrix and a pinned block of rows ([data; running sums] for a
+chain hop) with the device named by the caller, and returns the same
+dispatched batch as the codec's directions.
+
 A failure on the card (dispatch, event wait or kernel) fails the
 future and so the op: the pipeline has no host fallback, so a kernel
 fault is never served quietly by the CPU.  The circuit breaker of the
@@ -80,6 +85,7 @@ from ..common.tracer import (activate_trace, current_trace,
                              default_tracer, trace_span)
 from ..failure.breaker import BreakerOpen, CircuitBreaker, state_rank
 from ..failure.injector import InjectedFault, InjectedOOM
+from .codec import scale_accumulate_device
 
 DEPTH_BUCKETS = [0, 1, 2, 4, 8, 16, 32]
 
@@ -109,7 +115,7 @@ class _Dispatched:
         return self.out.numpy()
 
 
-def _settle(dev):
+def settle(dev):
     """The completion boundary's wait: a dispatched batch's host array.
     A :class:`_Dispatched` (or anything with ``wait``) waits on its event;
     a CPU tensor (a cpu codec's dispatch) is already done."""
@@ -118,6 +124,54 @@ def _settle(dev):
     if isinstance(dev, torch.Tensor):
         return dev.numpy()
     return dev
+
+
+def launch(dev: torch.device, host: np.ndarray, run, keep: tuple = (),
+           stream=None) -> _Dispatched | torch.Tensor:
+    """The dispatch body every batch shares: ``host`` [rows, N] uint8
+    (pinned for a card, see :meth:`CodecPipeline.host_block`) to ``dev``
+    on ``stream`` (None: the current stream), ``run(card_input)`` (the
+    kernel), the result back into a pinned output, an event.  ``keep``:
+    tensors the launch reads, held until the event (a card tensor made on
+    another stream takes ``record_stream``).  On the CPU ``run`` takes
+    the host tensor and its result returns as it is.  :func:`settle`
+    waits for either."""
+    src = torch.from_numpy(np.ascontiguousarray(host, dtype=np.uint8))
+    if dev.type == "cpu":
+        return run(src)
+    with torch.cuda.device(dev), torch.cuda.stream(stream):
+        stream = torch.cuda.current_stream(dev)
+        for t in keep:
+            if t.is_cuda:
+                t.record_stream(stream)
+        card_in = src.to(dev, non_blocking=True)
+        card_out = run(card_in)
+        out = torch.empty(tuple(card_out.shape), dtype=card_out.dtype,
+                          pin_memory=True)
+        out.copy_(card_out, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(stream)
+    return _Dispatched(out, event, (src, card_in, card_out, *keep))
+
+
+def apply_rows(mat: np.ndarray, block: np.ndarray, k: int,
+               dev: torch.device, stream=None) -> _Dispatched | torch.Tensor:
+    """A GF(2^8) apply with no ``RSCodec`` behind it: the chain-repair
+    hop and the regenerating-repair legs.  ``block`` [k + a, N] host
+    uint8 (from :meth:`CodecPipeline.host_block` for ``dev``) holds the
+    data rows [0, k) and, for a hop, the running sums [k, k + a) the
+    product XORs into (a = 0: none); ``mat`` [r, k] (a = 0 or r).  The
+    block and the matrix go to the card in one copy each, from pinned
+    memory, on ``stream`` -> ``[r, N]`` through :func:`launch`."""
+    mat_t = torch.from_numpy(np.array(mat, dtype=np.uint8))
+    if dev.type == "cuda":
+        mat_t = mat_t.pin_memory()
+
+    def run(card):
+        acc = card[k:] if card.shape[0] > k else None
+        return scale_accumulate_device(
+            mat_t.to(card.device, non_blocking=True), card[:k], acc)
+    return launch(dev, block, run, keep=(mat_t,), stream=stream)
 
 
 class PipelineFuture:
@@ -428,7 +482,7 @@ class CodecPipeline:
                                owner=fut.owner), \
                     self.perf.time("complete_time"):
                 self._roll_device_fault("completion")
-                host = _settle(fut._dev)
+                host = settle(fut._dev)
                 device_ok = True
                 self._device_success()
                 # device occupancy ends at the event: the host unpack
@@ -484,7 +538,10 @@ class CodecPipeline:
             f"jax_rs_mesh_devices={self.mesh_devices}: the multi-card "
             f"codec pipeline is not ported yet")
 
-    def _stream(self, dev: torch.device) -> torch.cuda.Stream:
+    def _stream(self, dev: torch.device) -> torch.cuda.Stream | None:
+        """The pipeline's stream on card ``dev``; None for the CPU."""
+        if dev.type != "cuda":
+            return None
         index = dev.index if dev.index is not None \
             else torch.cuda.current_device()
         stream = self._streams.get(index)
@@ -494,38 +551,19 @@ class CodecPipeline:
         return stream
 
     @staticmethod
-    def host_empty(codec, shape) -> np.ndarray:
-        """An uninitialised uint8 host array for a batch ``codec`` will
-        dispatch: a numpy view of pinned memory for a cuda codec (so the
-        copy to the card is asynchronous), plain numpy for a cpu one.
-        Raises for a cuda codec on a machine without a card."""
-        if codec.torch_device.type == "cuda":
+    def host_block(dev: torch.device, shape) -> np.ndarray:
+        """An uninitialised uint8 host array for a batch bound for ``dev``:
+        a numpy view of pinned memory for a card (so the copy to it is
+        asynchronous), plain numpy for the CPU."""
+        if dev.type == "cuda":
             return torch.empty(tuple(shape), dtype=torch.uint8,
                                pin_memory=True).numpy()
         return np.empty(tuple(shape), dtype=np.uint8)
 
-    def _launch(self, codec, host: np.ndarray, mat: torch.Tensor,
-                run) -> _Dispatched | torch.Tensor:
-        """The dispatch body both directions share: ``host`` [rows, N]
-        (pinned for a cuda codec) to the card on the pipeline's stream,
-        ``run(card_input)`` (the codec's apply), the result back into a
-        pinned output, an event.  A cpu codec runs ``run`` on the host
-        tensor and returns the result."""
-        dev = codec.torch_device
-        src = torch.from_numpy(np.ascontiguousarray(host, dtype=np.uint8))
-        if dev.type == "cpu":
-            return run(src)
-        stream = self._stream(dev)
-        with torch.cuda.device(dev), torch.cuda.stream(stream):
-            mat.record_stream(stream)
-            card_in = src.to(dev, non_blocking=True)
-            card_out = run(card_in)
-            out = torch.empty(tuple(card_out.shape), dtype=torch.uint8,
-                              pin_memory=True)
-            out.copy_(card_out, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(stream)
-        return _Dispatched(out, event, (src, card_in, card_out, mat))
+    def _launch(self, dev: torch.device, host: np.ndarray, run,
+                keep: tuple = ()) -> _Dispatched | torch.Tensor:
+        """:func:`launch` on the pipeline's stream for ``dev``."""
+        return launch(dev, host, run, keep, self._stream(dev))
 
     def dispatch_encode(self, codec, data_shards, chunk_size: int):
         """``data_shards`` [k, S*chunk] host uint8 (logical row order) ->
@@ -533,7 +571,8 @@ class CodecPipeline:
         ``chunk_size`` is the JAX package's mesh split unit, unused on one
         card."""
         mat = codec.parity_matrix_device()
-        return self._launch(codec, data_shards, mat, codec.encode_device)
+        return self._launch(codec.torch_device, data_shards,
+                            codec.encode_device, keep=(mat,))
 
     def dispatch_decode(self, codec, stack, erasures, available):
         """``stack`` [k', S*chunk] host uint8 survivors in the sorted-src
@@ -542,5 +581,12 @@ class CodecPipeline:
         is the codec's card-resident LRU copy."""
         mat, _src = codec.decode_matrix_device(erasures, available)
         return self._launch(
-            codec, stack, mat,
-            lambda card: codec.decode_device(card, erasures, available))
+            codec.torch_device, stack,
+            lambda card: codec.decode_device(card, erasures, available),
+            keep=(mat,))
+
+    def dispatch_apply(self, mat: np.ndarray, block: np.ndarray, k: int,
+                       dev: torch.device):
+        """:func:`apply_rows` on the pipeline's stream for ``dev``, as a
+        dispatched batch (a CPU tensor for ``dev`` cpu)."""
+        return apply_rows(mat, block, k, dev, self._stream(dev))

@@ -25,6 +25,12 @@ and wide-word codes, ``out[r] = XOR of packets[i] where W[r, i] = 1``: on a
 CUDA tensor it launches the kernel of ``csrc/xor_apply.cu``, on a CPU
 tensor it runs :func:`xor_apply_plain`.
 
+:func:`crc32c_rows` is crc32c(0, row) of each row, the HashInfo checksum
+of the EC write path: on a CUDA tensor it launches the kernel of
+``csrc/crc32c.cu``, on a CPU tensor it runs :func:`crc32c_rows_plain`.
+:func:`gf_encode_with_crc` is the fused encode + checksum over both
+kernels.
+
 The kernels' host-visible pieces are plain functions here, for the tests:
 :func:`packed_nibble_tables` (the lookup tables ``gf_apply.cu`` builds in
 shared memory), :func:`xor_nibble_index` and :func:`xor_form` (the W
@@ -40,11 +46,12 @@ import functools
 import numpy as np
 import torch
 
-from ..backend.ecutil import _CRC_TABLES, crc32c_zeros_op
+from ..backend.ecutil import _CRC_TABLES, _gf2_square, crc32c_zeros_op
 from ..gf.tables import MUL_TABLE
 from . import cuda_build
 
-launches = {"gf_apply": 0, "gf_apply_stripes": 0, "xor_apply": 0}
+launches = {"gf_apply": 0, "gf_apply_stripes": 0, "xor_apply": 0,
+            "crc32c_rows": 0}
 
 
 def reset_launches() -> None:
@@ -369,15 +376,19 @@ def xor_apply_form(W, packets, form: str) -> torch.Tensor:
     return out
 
 
-# -- crc32c of rows (plain PyTorch; on the EC write path via hinfo_append) ----
+# -- crc32c of rows (on the EC write path via hinfo_append) -------------------
 #
 # crc32c is GF(2)-linear in the data bits once the seed is factored out
 # (backend/ecutil.crc32c_zeros), so a row's crc32c(0, row) folds like a
-# reduction: per-byte crcs from one 256-entry table gather, then log2(n)
-# fold levels where adjacent 2^l-byte blocks combine as Z_{2^l}(left) ^
-# right, Z_L the 32x32 GF(2) operator advancing a register through L zero
-# bytes.  Rows pad with zeros on the LEFT (free for a zero-seeded
-# register), so every level is an exact halving.  CRCs are held in int64.
+# reduction: adjacent blocks combine as Z_len(right)(left) ^ right, Z_L
+# the 32x32 GF(2) operator advancing a register through L zero bytes.
+# Zeros on the LEFT of a row are free for a zero-seeded register, so both
+# versions pad there.  On a CUDA tensor :func:`crc32c_rows` launches the
+# kernel of ``csrc/crc32c.cu``; on a CPU tensor it runs
+# :func:`crc32c_rows_plain`.  CRCs come back in int64 (values < 2^32).
+
+CRC_ZPOW = 48            # the kernel's Z_{2^j} operators, j < 48
+
 
 @functools.lru_cache(maxsize=None)
 def _crc_t0(device: torch.device) -> torch.Tensor:
@@ -393,11 +404,10 @@ def _crc_apply_op(crcs: torch.Tensor, op: tuple) -> torch.Tensor:
     return out
 
 
-def crc32c_rows(rows) -> torch.Tensor:
-    """crc32c(seed=0) of each row of a uint8 [r, n] tensor -> int64 [r],
-    on the rows' device.  Seed-chained ceph semantics are the caller's host
-    combine: ``crc32c(seed, row) == crc32c_zeros(seed, n) ^ crc32c_rows(rows)[i]``."""
-    rows = _as_u8(rows)
+def crc32c_rows_plain(rows: torch.Tensor) -> torch.Tensor:
+    """Plain version: crc32c(0, row) of each row of a uint8 [r, n] tensor
+    -> int64 [r] on its device.  A per-byte table gather, zero padding on
+    the left to a power of two, then one fold level per halving."""
     r, n = rows.shape
     c = _crc_t0(rows.device)[rows.long()]
     pad = 1 if n <= 1 else 1 << (n - 1).bit_length()
@@ -409,3 +419,97 @@ def crc32c_rows(rows) -> torch.Tensor:
         c = _crc_apply_op(c[:, 0::2], crc32c_zeros_op(1 << level)) ^ c[:, 1::2]
         level += 1
     return c[:, 0]
+
+
+def crc_zpow_words() -> np.ndarray:
+    """The operators Z_{2^j}, j < :data:`CRC_ZPOW`, as uint32 [CRC_ZPOW, 32]
+    (word i of row j = the image of register bit i): what the kernel
+    combines its runs and segments with."""
+    ops = [list(crc32c_zeros_op(1))]
+    for _ in range(CRC_ZPOW - 1):
+        ops.append(_gf2_square(ops[-1]))
+    return np.array(ops, dtype=np.uint32)
+
+
+@functools.lru_cache(maxsize=None)
+def _crc_kernel_tables(device: torch.device) -> tuple:
+    """The slicing tables T0..T7 [8, 256] and :func:`crc_zpow_words` as
+    32-bit words on ``device``, uploaded once."""
+    tables = np.array(_CRC_TABLES[:8], dtype=np.uint32).view(np.int32)
+    zpow = crc_zpow_words().view(np.int32)
+    return (torch.from_numpy(tables).to(device),
+            torch.from_numpy(zpow).to(device))
+
+
+def crc32c_rows_into(rows: torch.Tensor, out: torch.Tensor) -> None:
+    """XOR crc32c(0, row) of each row of the CUDA tensor ``rows`` into the
+    zeroed int32 ``out`` [r] on the current stream; one launch, counted.
+    Raises on any failure."""
+    r, n = rows.shape
+    if n > 1 and rows.stride(1) != 1:
+        raise ValueError("crc32c_rows needs rows of contiguous bytes")
+    if r == 0 or n == 0:
+        return
+    if n >= 1 << (CRC_ZPOW - 1):
+        raise ValueError(f"crc32c_rows: rows of {n} bytes are too long")
+    stride = int(rows.stride(0)) if r > 1 else n
+    tables, zpow = _crc_kernel_tables(rows.device)
+    lib = cuda_build.load("crc32c")
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream(rows.device).cuda_stream
+        err = lib.crc32c_rows_launch(rows.data_ptr(), stride, int(r), int(n),
+                                     tables.data_ptr(), zpow.data_ptr(),
+                                     out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"crc32c_rows failed: cudaError_t {err}")
+    launches["crc32c_rows"] += 1
+
+
+def _widen(words: torch.Tensor) -> torch.Tensor:
+    """int32 words holding uint32 crcs -> int64, without sign extension."""
+    return words.to(torch.int64) & 0xFFFFFFFF
+
+
+def _as_rows(rows) -> torch.Tensor:
+    rows = _as_u8(rows)
+    if rows.dim() != 2:
+        raise ValueError(f"rows must be 2-D, got {tuple(rows.shape)}")
+    if rows.device.type == "cpu" or rows.is_cuda:
+        return rows
+    raise ValueError(f"crc32c_rows runs on cuda or cpu, not {rows.device}")
+
+
+def crc32c_rows(rows) -> torch.Tensor:
+    """crc32c(seed=0) of each row of a uint8 [r, n] tensor -> int64 [r],
+    on the rows' device.  A CUDA tensor (rows of contiguous bytes, any row
+    stride or alignment) launches the hand kernel and adds one to
+    ``launches["crc32c_rows"]``; a CPU tensor (or numpy array) runs
+    :func:`crc32c_rows_plain`.  Seed-chained ceph semantics are the
+    caller's host combine: ``crc32c(seed, row) == crc32c_zeros(seed, n) ^
+    crc32c_rows(rows)[i]``."""
+    rows = _as_rows(rows)
+    if rows.device.type == "cpu":
+        return crc32c_rows_plain(rows)
+    out = torch.zeros(rows.shape[0], dtype=torch.int32, device=rows.device)
+    crc32c_rows_into(rows, out)
+    return _widen(out)
+
+
+def gf_encode_with_crc(mat, data) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused encode + checksum: parity = mat @GF data [m, N] and the
+    crc32c(0, .) of every row of concat(data, parity) as int64 [k + m].
+    On a CUDA tensor: the gf_apply kernel, then the crc kernel over the
+    data rows into ``crcs[:k]`` and over the parity rows the apply just
+    wrote into ``crcs[k:]``, all on the current stream and with no copy of
+    the rows.  On a CPU tensor the plain versions of both."""
+    mat, data = _as_u8(mat), _as_rows(data)
+    parity = gf_apply(mat, data)
+    if data.device.type == "cpu":
+        return parity, torch.cat([crc32c_rows_plain(data),
+                                  crc32c_rows_plain(parity)])
+    k = data.shape[0]
+    words = torch.zeros(k + parity.shape[0], dtype=torch.int32,
+                        device=data.device)
+    crc32c_rows_into(data, words[:k])
+    crc32c_rows_into(parity, words[k:])
+    return parity, _widen(words)

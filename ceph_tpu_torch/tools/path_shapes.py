@@ -16,14 +16,30 @@ For each launch of ``chip_smoke.py``'s main paths, on ``cuda:0``:
 - jerasure: ``xor_apply`` on the packets of 64 objects of 4 MiB,
   liber8tion k=8 (W [16, 64], packets [64, 4 Mi]; decodes {0, 9} and
   {3, 5}) and reed_sol_van k=8 m=4 w=16 (W [64, 128], packets
-  [128, 2 Mi]; decodes {0, 9} and {1, 3, 8, 11}).
+  [128, 2 Mi]; decodes {0, 9} and {1, 3, 8, 11});
+- repair: the same torch_rs codec over the 64 objects' shard streams
+  [8, 32 Mi]: the recovery waves of want {3} and {0, 9} ([4, 8]: every
+  missing row is rebuilt), the chain-repair hops of one and two lost
+  shards ([1, 1] and [2, 1] x [1, 32 Mi]); pm_regen k=3 m=2 d=4 at
+  4 MiB objects, MBR and MSR: encode, a helper's projection [1, alpha]
+  and the newcomer's combine [alpha, 4]; clay k=8 m=4 d=11 (torch_rs):
+  a plane's decode [4, 8] and a pairwise solve [2, 2] x [., 8 Ki]; lrc
+  k=8 m=4 l=6: the global encode [4, 8] and a local repair [1, 6] x
+  [., 512 Ki];
+- ``crc32c_rows``: one object's shards under ``hinfo_append`` [12, 512 Ki],
+  the fused encode + checksum's data and parity rows [8, 32 Mi] and
+  [4, 32 Mi], and the rebuilt shards' hash check of a recovery wave
+  [2, 512 Ki].
 
 Each shape gets the kernel's time (CUDA events, the best of 3 means over
 20 launches, after 2), its bitwise difference from the plain version and
 the plain version's time (3 calls after 1), the bytes bound at
 3.35 TB/s (and for ``xor_apply`` the XOR bound), the copy ceiling
-(``sweep_kernels.copy_rows`` moving the same bytes, in the same run) and
-the kernel's shares of both.  Where the package has
+(``sweep_kernels.copy_rows`` moving the same bytes, in the same run; none
+where the apply writes more rows than it reads, or for the crc, which
+writes no rows) and the kernel's shares of both.  For the crc the
+kernel's time is its launch alone, and the whole ``crc32c_rows`` call
+(zeroed output, launch, widening) is ``wrapper_ms``.  Where the package has
 ``rs_kernels.xor_apply_form``, both ``xor_apply`` forms are timed too.
 One JSON line per shape.
 
@@ -115,8 +131,76 @@ def launch_shapes(pkg) -> list[dict]:
             out.append(dict(kernel="xor_apply", path=f"jerasure {name}",
                             label=f"decode {lost}", mat=D, rows=k * ec.w,
                             cols=p, stripes=1))
+    out += repair_shapes(pkg, registry)
     for s in out:
         s["mat"] = np.ascontiguousarray(s["mat"], dtype=np.uint8)
+    return out
+
+
+def repair_shapes(pkg, registry) -> list[dict]:
+    """The launches of ``chip_smoke.py``'s phase ``repair``, and the crc
+    kernel's."""
+    out = []
+    ec = registry.factory("torch_rs", "", {"k": "8", "m": "4",
+                                           "technique": "reed_sol_van",
+                                           "device": "numpy"})
+    n = OBJECTS * OBJ_BYTES // 8
+    for want in ([3], [0, 9]):
+        avail = sorted(ec.minimum_to_decode(set(want),
+                                            set(range(12)) - set(want)))
+        lost = [c for c in range(12) if c not in avail]
+        out.append(dict(kernel="gf_apply", path="repair",
+                        label=f"wave want {want}",
+                        mat=ec.codec.decode_matrix(lost, avail)[0], rows=8,
+                        cols=n, stripes=1))
+    for lost in ({3}, {0, 9}):
+        sources = sorted(set(range(12)) - lost)[:8]
+        coeffs, _rows = ec.partial_sum_coefficients(lost, sources)
+        out.append(dict(kernel="gf_apply", path="repair",
+                        label=f"chain hop {sorted(lost)}",
+                        mat=np.array(coeffs[sources[0]],
+                                     np.uint8).reshape(-1, 1),
+                        rows=1, cols=n, stripes=1))
+    for mode in ("mbr", "msr"):
+        pm = registry.factory("pm_regen", "", {
+            "k": "3", "m": "2", "d": "4", "mode": mode, "device": "numpy"})
+        alpha, k = pm.get_sub_chunk_count(), pm.k
+        cols = pm.get_stored_chunk_size(pm.get_chunk_size(OBJ_BYTES)) \
+            // alpha
+        enc = pm._enc if mode == "mbr" else pm._enc[k * alpha:]
+        helpers = [1, 2, 3, 4]
+        for label, mat in (("encode", enc),
+                           ("project", pm.repair_projection(0)),
+                           ("combine", pm.repair_combine(0, helpers))):
+            out.append(dict(kernel="gf_apply", path="repair",
+                            label=f"pm_regen {mode} {label}", mat=mat,
+                            rows=mat.shape[1], cols=cols, stripes=1))
+    codec = pkg.codec.RSCodec(2, 2, device="numpy")
+    sc = OBJ_BYTES // 8 // 64                # clay k=8 d=11: 64 planes
+    out.append(dict(kernel="gf_apply", path="repair",
+                    label="clay plane decode",
+                    mat=ec.codec.decode_matrix([8, 9, 10, 11])[0], rows=8,
+                    cols=sc, stripes=1))
+    out.append(dict(kernel="gf_apply", path="repair",
+                    label="clay pairwise solve",
+                    mat=codec.decode_matrix([0, 1])[0], rows=2, cols=sc,
+                    stripes=1))
+    lrc_local = pkg.codec.RSCodec(6, 1, device="numpy")
+    out.append(dict(kernel="gf_apply", path="repair", label="lrc encode",
+                    mat=ec.codec.parity_mat, rows=8, cols=OBJ_BYTES // 8,
+                    stripes=1))
+    out.append(dict(kernel="gf_apply", path="repair",
+                    label="lrc local repair",
+                    mat=lrc_local.decode_matrix([0])[0], rows=6,
+                    cols=OBJ_BYTES // 8, stripes=1))
+    empty = np.zeros((0, 0), np.uint8)
+    for path, label, rows, cols in (
+            ("ecutil", "hinfo_append one object", 12, OBJ_BYTES // 8),
+            ("ecutil", "encode_with_crc data", 8, n),
+            ("ecutil", "encode_with_crc parity", 4, n),
+            ("repair", "wave hash check [0, 9]", 2, OBJ_BYTES // 8)):
+        out.append(dict(kernel="crc32c_rows", path=path, label=label,
+                        mat=empty, rows=rows, cols=cols, stripes=1))
     return out
 
 
@@ -158,12 +242,14 @@ def measure(pkg, shape: dict, dev, seed: int = 3) -> dict:
     """Time one launch shape; the kernel's output is held against its plain
     version first."""
     K, SK = pkg.rs_kernels, pkg.sweep_kernels
-    mat = torch.from_numpy(shape["mat"]).to(dev)
-    r, k = mat.shape
-    s = shape["stripes"]
     gen = torch.Generator(device=dev).manual_seed(seed)
     data = torch.randint(0, 256, (shape["rows"], shape["cols"]),
                          generator=gen, dtype=torch.uint8, device=dev)
+    if shape["kernel"] == "crc32c_rows":
+        return _measure_crc(K, shape, data)
+    mat = torch.from_numpy(shape["mat"]).to(dev)
+    r, k = mat.shape
+    s = shape["stripes"]
     if shape["kernel"] == "gf_apply":
         run = lambda: K.gf_apply(mat, data)                   # noqa: E731
         plain = lambda: K.gf_apply_plain(mat, data)           # noqa: E731
@@ -180,8 +266,10 @@ def measure(pkg, shape: dict, dev, seed: int = 3) -> dict:
     ms = cuda_ms(run)
     plain_ms = cuda_ms(plain, 3, warmup=1, rounds=1)
     # the copy moving the same bytes: [S*k, N] read as [k, S*N], r rows out
+    # (none where r > k: the copy writes at most the rows it reads)
     flat = data.view(k, -1)
-    copy_ms = cuda_ms(lambda: SK.copy_rows(flat, r, 8192))
+    copy_ms = cuda_ms(lambda: SK.copy_rows(flat, r, 8192)) if r <= k \
+        else None
     n = shape["cols"]
     bytes_ms = (shape["rows"] + rows_out) * n / HBM_BYTES_PER_S * 1e3
     row = {"kernel": shape["kernel"], "path": shape["path"],
@@ -204,10 +292,37 @@ def measure(pkg, shape: dict, dev, seed: int = 3) -> dict:
                 row[f"{form}_ms"] = cuda_ms(
                     lambda f=form: K.xor_apply_form(mat, data, f))
     row["share_of_bound"] = row["bound_ms"] / ms
-    row["share_of_copy"] = copy_ms / ms
+    row["share_of_copy"] = None if copy_ms is None else copy_ms / ms
     del data
     torch.cuda.empty_cache()
     return row
+
+
+def _measure_crc(K, shape: dict, rows: torch.Tensor) -> dict:
+    """One crc32c_rows shape: bitwise against crc32c_rows_plain, times,
+    and the bound: r*n bytes read and 4 bytes a row written.  ``ms`` is
+    the kernel's launch alone (``crc32c_rows_into`` XORing into a buffer
+    zeroed once beforehand, so its values are not the crcs);
+    ``wrapper_ms`` is the whole ``crc32c_rows`` call (the zeroed output,
+    the launch, the widening to int64)."""
+    r, n = rows.shape
+    got, want = K.crc32c_rows(rows), K.crc32c_rows_plain(rows)
+    err = int((got - want).abs().max()) if r else 0
+    del got, want
+    words = torch.zeros(r, dtype=torch.int32, device=rows.device)
+    ms = cuda_ms(lambda: K.crc32c_rows_into(rows, words))
+    wrapper_ms = cuda_ms(lambda: K.crc32c_rows(rows))
+    plain_ms = cuda_ms(lambda: K.crc32c_rows_plain(rows), 3, warmup=1,
+                       rounds=1)
+    bound = (r * n + 4 * r) / HBM_BYTES_PER_S * 1e3
+    del rows
+    torch.cuda.empty_cache()
+    return {"kernel": "crc32c_rows", "path": shape["path"],
+            "label": shape["label"], "shape": [r, n], "max_abs_err": err,
+            "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bytes_ms": bound,
+            "bound_ms": bound, "bound_by": "bytes", "copy_ms": None,
+            "share_of_bound": bound / ms, "share_of_copy": None}
 
 
 def main(argv=None) -> int:

@@ -9,14 +9,35 @@ drives the port end to end:
 1. build     -- nvcc build time of every source, card name and power
                 limit;
 2. kernels   -- every kernel against its plain version, bitwise, over a
-                grid of shapes (output rows past 4, k past 128), ragged
-                widths, stripe counts and unaligned views; xor_apply in
-                the density rule's form and in both forms named;
+                grid of shapes (output rows past 4, k past 128, the
+                repair path's k = 1 and alpha x d), ragged widths, stripe
+                counts and unaligned views; xor_apply in the density
+                rule's form and in both forms named; crc32c_rows (r 0, 1,
+                12; ragged n up to 1 MiB + 5; an unaligned and a strided
+                row view);
 3. ecutil    -- the torch_rs plugin through the port's registry (k=8, m=4,
                 reed_sol_van, 4 KiB stripe unit) under ecutil.encode_many,
-                hinfo_append and decode_many over 64 objects of 4 MiB,
-                checked against the port's numpy path;
-4. serving   -- the serving path at RBD-on-EC size: ServingEngine (option
+                hinfo_append (one crc32c kernel launch each) and
+                decode_many over 64 objects of 4 MiB, checked against the
+                port's numpy path; the fused encode + checksum on the
+                packed [8, 32 Mi] stream against gf_apply and the host
+                crc32c;
+4. repair    -- the repair path on the same codec and 64 objects of 4 MiB:
+                (a) recovery waves (decode_shards_many, want {3} and
+                {0, 9}, the k survivors minimum_to_decode picks) through a
+                depth-4 CodecPipeline and with none, every rebuilt shard
+                against the encode's and its crc32c against the stored
+                HashInfo on the card; (b) chain repair, eight hops of
+                partial_sum_accumulate over the 32 MiB shard streams
+                for one and two lost shards, each hop through the pipeline
+                and again called with its defaults (synchronous, on the
+                card), each against the host hop; (c) pm_regen k=3 m=2 d=4, MBR and
+                MSR, every object's chunk 0 rebuilt from four helpers'
+                regen_project and the newcomer's regen_combine through the
+                pipeline; (d) clay k=8 m=4 d=11 (torch_rs) and lrc k=8 m=4
+                l=6 on 8 objects: encode and repair of shard 1 against the
+                numpy path;
+5. serving   -- the serving path at RBD-on-EC size: ServingEngine (option
                 defaults: depth-4 CUDA codec pipeline, 64-op batches, 2 ms
                 deadline, 64 MiB throttle) over torch_rs k=8 m=4 with no
                 device key, 4 KiB stripe unit, 4 MiB objects, closed_loop
@@ -27,21 +48,21 @@ drives the port end to end:
                 k=4 m=2, batched against unbatched (bench.py's serving
                 comparison), 8192 ops an arm, three times, every 16th op
                 checked;
-5. headline  -- rs_kernels.gf_apply_stripes over 64 x 1 MiB stripes
+6. headline  -- rs_kernels.gf_apply_stripes over 64 x 1 MiB stripes
                 (Cauchy RS(8,4), erasures {0, 9}) in the vertical layout,
                 timed with CUDA events;
-6. jerasure  -- the jerasure plugin on the xor_apply kernel under
+7. jerasure  -- the jerasure plugin on the xor_apply kernel under
                 ecutil.encode_many, hinfo_append and decode_many over 64
                 objects of 4 MiB, for liber8tion k=8 and reed_sol_van k=8
                 m=4 w=16, checked against the port's numpy path; then the
                 isa and shec plugins on the gf_apply kernel over 8 objects;
-7. shapes    -- gf_apply, gf_apply_stripes and xor_apply at every shape
-                phases 3-6 launch them at (ceph_tpu_torch/tools/
+8. shapes    -- gf_apply, gf_apply_stripes, xor_apply and crc32c_rows at
+                every shape phases 3-7 launch them at (ceph_tpu_torch/tools/
                 path_shapes.py): bitwise against the plain version, CUDA
                 events, bound, and the copy ceiling moving the same bytes;
-8. ec_bench  -- the ceph_erasure_code_benchmark CLI: torch_rs encode and
+9. ec_bench  -- the ceph_erasure_code_benchmark CLI: torch_rs encode and
                 decode, the default invocation, a liber8tion encode;
-9. sweep     -- the kernel sweep (ceph_tpu_torch.tools.kernel_sweep) in
+10. sweep    -- the kernel sweep (ceph_tpu_torch.tools.kernel_sweep) in
                 process at full size, Cauchy RS(8,4) over [8, 8 Mi]: copy
                 ceiling, tensor-core bit-plane apply in int8 and bf16,
                 block-diagonal stacks of 2 and 4 tiles, bitslice and
@@ -106,7 +127,8 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
         raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
     if a.numel() == 0:
         return 0
-    return int((a.to(torch.int16) - b.to(torch.int16)).abs().max().item())
+    wide = torch.int64 if a.dtype == torch.int64 else torch.int16
+    return int((a.to(wide) - b.to(wide)).abs().max().item())
 
 
 def bytes_bound_ms(nbytes: int) -> float:
@@ -180,8 +202,12 @@ def phase_kernels(K, SK, dev, decode_bitmatrices) -> dict:
     shapes += [(64, 128), (8, 200)]          # > 48 KB tables; k sliced
     # the packed tables' row groups past 4 rows, and sliced tables at k > 128
     shapes += [(5, 8), (8, 20), (4, 252)]
+    # the repair path's narrow matrices: a chain hop [r, 1], the regen legs
+    # [1, alpha] and [alpha, d]
+    shapes += [(1, 1), (2, 1), (4, 1), (1, 2), (2, 4), (1, 4), (4, 4)]
     worst = {"gf_apply": 0, "gf_apply_stripes": 0, "xor_apply": 0,
-             "xor_apply_direct": 0, "xor_apply_tables": 0}
+             "xor_apply_direct": 0, "xor_apply_tables": 0,
+             "crc32c_rows": 0}
     cases = 0
 
     def check(name, got, want):
@@ -233,6 +259,17 @@ def phase_kernels(K, SK, dev, decode_bitmatrices) -> dict:
     for r in (4, 6):
         mat = rand_u8(gen, (r, 8), dev)
         check("gf_apply", K.gf_apply(mat, view), K.gf_apply_plain(mat, view))
+    # crc32c rows: no rows, one, one object's twelve; ragged widths, a row
+    # view that is not 16-byte aligned and every other row of a block
+    for r in (0, 1, 12):
+        for n in (1, 7, 127, 4096, 4099, 512 * 1024, MIB + 5):
+            rows = rand_u8(gen, (r, n), dev)
+            check("crc32c_rows", K.crc32c_rows(rows),
+                  K.crc32c_rows_plain(rows))
+    check("crc32c_rows", K.crc32c_rows(view), K.crc32c_rows_plain(view))
+    block = rand_u8(gen, (24, 4096), dev)
+    check("crc32c_rows", K.crc32c_rows(block[::2]),
+          K.crc32c_rows_plain(block[::2]))
     sweep_worst, sweep_cases = sweep_kernel_grid(SK, K, dev, gen)
     worst |= sweep_worst
     torch.cuda.synchronize()
@@ -277,6 +314,13 @@ def _run_stripe_path(K, ecutil, ec, host, sinfo, bufs, lost_sets,
     if launches[kernel] < 1 + len(lost_sets):
         raise AssertionError(f"{ec.get_profile()} did not launch {kernel} "
                              f"on every call: {launches}")
+    # one crc32c kernel launch per hinfo_append where the plugin has a
+    # tensor codec (the jerasure bitmatrix and shec codes checksum on the
+    # host, as in the JAX package)
+    crc_calls = len(shards) if hasattr(ec, "device_codec") else 0
+    if launches["crc32c_rows"] != crc_calls:
+        raise AssertionError(f"{launches['crc32c_rows']} crc32c_rows "
+                             f"launches for {crc_calls} hinfo_append calls")
     for lost, outs in decoded.items():
         for buf, out in zip(bufs, outs):
             if out != buf.tobytes():
@@ -334,14 +378,273 @@ def phase_ecutil(K, ecutil, registry_cls, objects: int = 64,
     parity.cpu()
     t_d2h = time.perf_counter() - t0
     rows = ec.codec.to_device(np.stack([shards[0][c] for c in range(k + m)]))
-    crc_ms = cuda_ms(lambda: K.crc32c_rows(rows), 5, warmup=1)
+    # the kernel's launch alone (XORing into words zeroed once, so their
+    # values are not the crcs), then the whole wrapper (zeroed output,
+    # launch, widening)
+    words = torch.zeros(k + m, dtype=torch.int32, device=rows.device)
+    crc_ms = cuda_ms(lambda: K.crc32c_rows_into(rows, words), 20)
+    crc_wrapper_ms = cuda_ms(lambda: K.crc32c_rows(rows), 20)
+    crc_plain_ms = cuda_ms(lambda: K.crc32c_rows_plain(rows), 3, warmup=1)
+    # the kernel's own rate: every object's rows in one call (per call,
+    # the wrapper's zeroing, widening and Python cost come once)
+    all_rows = rows.repeat(objects, 1)
+    crc_all_ms = cuda_ms(lambda: K.crc32c_rows(all_rows), 10)
+
+    # the fused encode + checksum on the packed stream: parity and the
+    # 12 row crcs against gf_apply and the host crc32c
+    fused_parity, crcs = K.gf_encode_with_crc(mat, data)
+    if not torch.equal(fused_parity, parity):
+        raise AssertionError("gf_encode_with_crc parity != gf_apply")
+    par_h = parity.cpu().numpy()
+    host = [ecutil.crc32c(0, row) for row in (*packed, *par_h)]
+    if crcs.cpu().tolist() != host:
+        raise AssertionError("gf_encode_with_crc crcs != host crc32c")
+    fused_ms = cuda_ms(lambda: K.gf_encode_with_crc(mat, data), 10)
+    apply_ms = cuda_ms(lambda: K.gf_apply(mat, data), 10)
+    codec_parity, codec_crcs = ec.codec.encode_with_crc(packed[:, :MIB])
+    if not (np.array_equal(codec_parity, par_h[:, :MIB])
+            and [int(c) for c in codec_crcs] == [
+                ecutil.crc32c(0, row) for row in (*packed[:, :MIB],
+                                                  *par_h[:, :MIB])]):
+        raise AssertionError("RSCodec.encode_with_crc disagrees")
 
     report = {**stripe, "object_bytes": obj_bytes, "stripe_unit": unit,
               "h2d_packed_s": t_h2d, "d2h_parity_s": t_d2h,
-              "crc32c_rows_one_object_ms": crc_ms}
-    del data, parity, rows
+              "crc32c_rows_one_object_ms": crc_ms,
+              "crc32c_rows_one_object_wrapper_ms": crc_wrapper_ms,
+              "crc32c_rows_plain_one_object_ms": crc_plain_ms,
+              "crc32c_rows_all_objects_one_call_ms": crc_all_ms,
+              "crc32c_rows_all_objects_shape": list(all_rows.shape),
+              "encode_with_crc": {"shape": [k + m, n], "ms": fused_ms,
+                                  "gf_apply_ms": apply_ms,
+                                  "matches_gf_apply_and_host_crc": True}}
+    del data, parity, rows, words, fused_parity, all_rows
     torch.cuda.empty_cache()
-    return report, launches["gf_apply"]
+    return report, launches["gf_apply"], launches["crc32c_rows"]
+
+
+# -- phase repair ---------------------------------------------------------------
+
+def _wave(ecutil, sinfo, ec, shards, hinfos, want, pipeline) -> dict:
+    """(a) one recovery wave: every object offers the k survivors
+    ``minimum_to_decode`` picks and asks for ``want``; through
+    ``pipeline`` (or None: the plugin's synchronous decode) with every
+    rebuilt shard held against the encode's.  The pipeline's result is
+    also checksummed on the card (``hinfo_append`` over the rebuilt
+    shards) against each object's stored HashInfo."""
+    n = ec.get_chunk_count()
+    avail = sorted(ec.minimum_to_decode(set(want), set(range(n)) - want))
+    batches = [({c: obj[c] for c in avail}, set(want)) for obj in shards]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = ecutil.decode_shards_many(sinfo, ec, batches, pipeline=pipeline)
+    elapsed = time.perf_counter() - t0
+    for obj, got in zip(shards, rec):
+        if sorted(got) != sorted(want) or any(
+                not np.array_equal(got[c], obj[c]) for c in want):
+            raise AssertionError(f"recovery wave {sorted(want)} differs")
+    out = {"want": sorted(want), "sources": avail, "seconds": elapsed,
+           "rebuilt_MiBps": sum(got[c].nbytes for got in rec for c in want)
+           / MIB / elapsed}
+    if pipeline is not None:
+        t0 = time.perf_counter()
+        for got, stored in zip(rec, hinfos):
+            h = ecutil.HashInfo(n)
+            ecutil.hinfo_append(h, 0, got, ec)
+            if any(h.get_chunk_hash(c) != stored.get_chunk_hash(c)
+                   for c in want):
+                raise AssertionError("rebuilt shard's crc32c != HashInfo")
+        out["hash_check_s"] = time.perf_counter() - t0
+    return out
+
+
+def _chain(K, ecutil, ec, shards, lost, pipeline) -> dict:
+    """(b) one chain repair: eight hops of ``partial_sum_accumulate`` over
+    the objects' concatenated shard streams, each a dispatch through the
+    pipeline on the card, then the same hop called with no pipeline (the
+    default: synchronous, on the card), each held against the host hop;
+    the last hop's sums must be the lost shards."""
+    n = ec.get_chunk_count()
+    sources = sorted(set(range(n)) - lost)[:ec.get_data_chunk_count()]
+    coeffs, rows = ec.partial_sum_coefficients(lost, sources)
+    streams = {c: np.concatenate([obj[c] for obj in shards])
+               for c in sources}
+    acc = sync_acc = host_acc = None
+    hops, sync_hops, launched = [], [], K.launches["gf_apply"]
+    for src in sources:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc = ecutil.partial_sum_accumulate(coeffs[src], streams[src], acc,
+                                            pipeline=pipeline)
+        hops.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        sync_acc = ecutil.partial_sum_accumulate(coeffs[src], streams[src],
+                                                 sync_acc)
+        sync_hops.append(time.perf_counter() - t0)
+        host_acc = ecutil.partial_sum_accumulate(coeffs[src], streams[src],
+                                                 host_acc, device="numpy")
+        if acc != host_acc or sync_acc != host_acc:
+            raise AssertionError(f"chain hop {src} differs from the host")
+    for r, e in enumerate(rows):
+        if acc[r] != np.concatenate([obj[e] for obj in shards]).tobytes():
+            raise AssertionError(f"chain repair of {e} differs")
+    return {"lost": sorted(lost), "hops": len(hops),
+            "hop_bytes": int(streams[sources[0]].nbytes),
+            "seconds_per_hop": hops, "mean_hop_s": sum(hops) / len(hops),
+            "sync_seconds_per_hop": sync_hops,
+            "sync_mean_hop_s": sum(sync_hops) / len(sync_hops),
+            "gf_apply_launches": K.launches["gf_apply"] - launched,
+            "launch_shape": [len(rows), 1, int(streams[sources[0]].nbytes)]}
+
+
+def _regen(ecutil, registry, mode, bufs, pipeline) -> dict:
+    """(c) regenerating repair on pm_regen k=3 m=2 d=4: encode every object
+    on the card, then rebuild chunk 0 of each from four helpers' projections
+    and the newcomer's combine, each a dispatch through the pipeline."""
+    profile = {"k": "3", "m": "2", "d": "4", "mode": mode}
+    ec = registry.factory("pm_regen", "", profile | {"device": "cuda"})
+    host = registry.factory("pm_regen", "", profile | {"device": "numpy"})
+    n, alpha = ec.get_chunk_count(), ec.get_sub_chunk_count()
+    t0 = time.perf_counter()
+    encoded = [ec.encode(set(range(n)), buf) for buf in bufs]
+    t_enc = time.perf_counter() - t0
+    for buf, enc in zip(bufs[:2], encoded):
+        want = host.encode(set(range(n)), buf)
+        if any(not np.array_equal(enc[c], want[c]) for c in range(n)):
+            raise AssertionError(f"pm_regen {mode} encode != numpy")
+    lost = 0
+    helpers = ec.minimum_to_repair(lost, ec.d, {c: 1 for c in range(1, n)})
+    proj = ec.repair_projection(lost).tobytes()
+    comb = ec.repair_combine(lost, helpers).tobytes()
+    wire = repaired = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for enc in encoded:
+        betas = [ecutil.regen_project(proj, enc[h], alpha, pipeline=pipeline)
+                 for h in helpers]
+        out = ecutil.regen_combine(comb, betas, alpha, pipeline=pipeline)
+        if out != enc[lost].tobytes():
+            raise AssertionError(f"pm_regen {mode} repair differs")
+        wire += sum(len(b) for b in betas)
+        repaired += len(out)
+    t_rep = time.perf_counter() - t0
+    return {"mode": mode, "profile": profile, "alpha": alpha,
+            "stored_chunk_bytes": int(encoded[0][0].nbytes),
+            "encode_s": t_enc, "repair_s": t_rep,
+            "repaired_MiBps": repaired / MIB / t_rep,
+            "wire_bytes_per_repaired_byte": wire / repaired,
+            "helpers": helpers}
+
+
+def _sub_repair(ecutil, ec, host, bufs, lost: int, fractional: bool
+                ) -> dict:
+    """(d) clay or lrc: encode each object on the card and on the numpy
+    path, then repair data shard ``lost`` from what ``minimum_to_decode``
+    asks for (clay: sub-chunk runs of d helpers), bitwise against the
+    numpy path's repair and the stored shard."""
+    n = ec.get_chunk_count()
+    t0 = time.perf_counter()
+    encoded = [ec.encode(set(range(n)), buf) for buf in bufs]
+    t_enc = time.perf_counter() - t0
+    t_rep = 0.0
+    for buf, enc in zip(bufs, encoded):
+        want = host.encode(set(range(n)), buf)
+        if any(not np.array_equal(enc[c], want[c]) for c in range(n)):
+            raise AssertionError(f"{ec.get_profile()} encode != numpy")
+        minimum = ec.minimum_to_decode({lost}, set(range(n)) - {lost})
+        chunk = len(enc[lost])
+        sub = ec.get_sub_chunk_count()
+        reads = {c: np.concatenate([enc[c].reshape(sub, -1)[o:o + k]
+                                    for o, k in runs]).reshape(-1)
+                 for c, runs in minimum.items()}
+        size = chunk if fractional else 0
+        t0 = time.perf_counter()
+        got = ecutil.decode_shards(None, ec, reads, {lost}, size)
+        t_rep += time.perf_counter() - t0
+        ref = ecutil.decode_shards(None, host, reads, {lost}, size)
+        if not (np.array_equal(got[lost], enc[lost])
+                and np.array_equal(got[lost], ref[lost])):
+            raise AssertionError(f"{ec.get_profile()} repair differs")
+    read = sum(v.nbytes for v in reads.values())
+    return {"objects": len(bufs), "chunk_bytes": chunk, "lost": lost,
+            "helpers": len(reads), "encode_s": t_enc, "repair_s": t_rep,
+            "read_bytes_per_repaired_byte": read / chunk}
+
+
+def phase_repair(K, ecutil, registry_cls, pipeline_cls, objects: int = 64,
+                 obj_bytes: int = 4 * MIB) -> tuple[dict, int, int]:
+    """The repair path at RBD object size: torch_rs RS(8,4) reed_sol_van,
+    4 KiB stripe unit, 64 objects of 4 MiB.  (a) recovery waves, (b) chain
+    repair, (c) pm_regen regenerating repair, (d) clay and lrc; launch
+    counts zeroed after the objects are encoded and read at the end.
+    Returns the report and the gf_apply and crc32c_rows launches."""
+    k, m, unit = 8, 4, 4096
+    registry = registry_cls.instance()
+    profile = {"k": str(k), "m": str(m), "technique": "reed_sol_van"}
+    ec = registry.factory("torch_rs", "", profile | {"device": "cuda"})
+    sinfo = ecutil.StripeInfo(k, ec.get_chunk_size(k * unit))
+    rng = np.random.default_rng(6)
+    bufs = [rng.integers(0, 256, obj_bytes, dtype=np.uint8)
+            for _ in range(objects)]
+    shards = ecutil.encode_many(sinfo, ec, bufs)
+    hinfos = []
+    for obj in shards:
+        h = ecutil.HashInfo(k + m)
+        ecutil.hinfo_append(h, 0, obj, ec)
+        hinfos.append(h)
+    pipeline = pipeline_cls(depth=4, name="smoke.repair")
+    torch.cuda.synchronize()
+    K.reset_launches()
+    try:
+        waves = []
+        for want in ({3}, {0, 9}):
+            # in turns: depth 4, none, none, depth 4 (the first wave also
+            # pays the first pinned allocations of its size)
+            turns = [_wave(ecutil, sinfo, ec, shards, hinfos, want, pl)
+                     for pl in (pipeline, None, None, pipeline)]
+            waves.append({"order": "depth 4, none, none, depth 4",
+                          "pipeline_depth_4": [turns[0], turns[3]],
+                          "no_pipeline": [turns[1], turns[2]]})
+        chains = [_chain(K, ecutil, ec, shards, lost, pipeline)
+                  for lost in ({3}, {0, 9})]
+        regen = [_regen(ecutil, registry, mode, bufs, pipeline)
+                 for mode in ("mbr", "msr")]
+        before = dict(K.launches)
+        sub = {}
+        for name, prof, fractional in (
+                ("clay", {"k": "8", "m": "4", "d": "11",
+                          "scalar_mds": "torch_rs"}, True),
+                ("lrc", {"k": "8", "m": "4", "l": "6"}, False)):
+            at = K.launches["gf_apply"]
+            card = registry.factory(name, "", prof | {"device": "cuda"})
+            host = registry.factory(name, "", prof | {"device": "numpy"})
+            sub[name] = {**_sub_repair(ecutil, card, host, bufs[:8], 1,
+                                       fractional),
+                         "profile": prof,
+                         "gf_apply_launches": K.launches["gf_apply"] - at}
+        torch.cuda.synchronize()
+        pipe = pipeline.perf.dump()
+    finally:
+        pipeline.close()
+    launches = dict(K.launches)
+    if pipe["errors"] or pipe["completed"] != pipe["submitted"]:
+        raise AssertionError(f"repair: errors on the card: {pipe}")
+    if any(c["gf_apply_launches"] != 2 * c["hops"] for c in chains):
+        raise AssertionError(f"chain hops did not each launch gf_apply: "
+                             f"{chains}")
+    if launches["crc32c_rows"] != 4 * objects:
+        raise AssertionError(f"{launches['crc32c_rows']} crc launches for "
+                             f"{4 * objects} rebuilt-shard hash checks")
+    report = {"objects": objects, "object_bytes": obj_bytes,
+              "stripe_unit": unit, "chunk_size": sinfo.chunk_size,
+              "waves": waves, "chains": chains, "regen": regen,
+              "clay_lrc": sub, "launches": launches,
+              "launches_before_clay_lrc": before,
+              "pipeline": {key: pipe[key] for key in
+                           ("submitted", "completed", "errors")}}
+    del bufs, shards
+    torch.cuda.empty_cache()
+    return report, launches["gf_apply"], launches["crc32c_rows"]
 
 
 def phase_headline(K, codec_cls, gfref, batch: int = 64,
@@ -1055,6 +1358,7 @@ def main() -> int:
     from ceph_tpu_torch.ops import rs_kernels as K
     from ceph_tpu_torch.ops import sweep_kernels as SK
     from ceph_tpu_torch.ops.codec import RSCodec
+    from ceph_tpu_torch.ops.pipeline import CodecPipeline
     from ceph_tpu_torch.plugins.registry import ErasureCodePluginRegistry
     from ceph_tpu_torch.tools import kernel_sweep as KS
     from ceph_tpu_torch.tools import path_shapes as PS
@@ -1070,8 +1374,11 @@ def main() -> int:
     emit("kernels", **phase_kernels(
         K, SK, dev, jerasure_decode_bitmatrices(ErasureCodePluginRegistry,
                                                 bm)))
-    ecu, n_apply = phase_ecutil(K, ecutil, ErasureCodePluginRegistry)
+    ecu, n_apply, n_crc = phase_ecutil(K, ecutil, ErasureCodePluginRegistry)
     emit("ecutil", **ecu, gpu=smi)
+    rep, n_repair, n_repair_crc = phase_repair(
+        K, ecutil, ErasureCodePluginRegistry, CodecPipeline)
+    emit("repair", **rep, gpu=smi)
     serving, n_serving = phase_serving(K, ecutil, ErasureCodePluginRegistry)
     emit("serving", **serving, gpu=smi)
     head, n_stripes = phase_headline(K, RSCodec, gfref)
@@ -1091,14 +1398,20 @@ def main() -> int:
         kernel_row("gf_apply", "gf_apply.cu",
                    "ceph_tpu/ops/pallas_kernels.py:156",
                    "ecutil", n_apply, on("gf_apply"))
-        | {"launches_by_path": {"ecutil": n_apply, "serving": n_serving}},
+        | {"launches_by_path": {"ecutil": n_apply, "serving": n_serving,
+                                "repair": n_repair}},
         kernel_row("gf_apply_stripes", "gf_apply.cu",
                    "ceph_tpu/ops/pallas_kernels.py:80",
                    "headline", n_stripes, on("gf_apply_stripes")),
         kernel_row("xor_apply", "xor_apply.cu",
                    "ceph_tpu/ops/pallas_kernels.py:207",
                    "jerasure", n_xor, on("xor_apply")),
-        *rows_sweep]}))
+        *rows_sweep,
+        kernel_row("crc32c_rows", "crc32c.cu",
+                   "ceph_tpu/ops/rs_kernels.py:302", "ecutil", n_crc,
+                   on("crc32c_rows"))
+        | {"launches_by_path": {"ecutil": n_crc, "repair": n_repair_crc},
+           "library": "no PyTorch call computes crc32c"}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

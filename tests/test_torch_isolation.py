@@ -70,6 +70,49 @@ res = workload.closed_loop(eng, 16, 4, payloads=pays)
 assert res["ops"] == 16 and eng.pipeline.perf.get("completed") >= 1
 assert eng.pipeline.perf.get("errors") == 0
 eng.stop()
+from ceph_tpu_torch.backend.ecutil import (
+    decode_shards, decode_shards_many, partial_sum_accumulate,
+    regen_combine, regen_project)
+from ceph_tpu_torch.plugins import (plugin_clay, plugin_lrc,
+                                    plugin_pm_regen, plugin_xor)
+pl = pipeline.CodecPipeline(depth=2, name="probe.repair")
+ec = reg.factory("torch_rs", "", {"k": "4", "m": "2", "device": "cpu"})
+sinfo = ecutil.StripeInfo(4, 512)
+buf = np.random.default_rng(2).integers(0, 256, sinfo.stripe_width * 2,
+                                        dtype=np.uint8)
+obj = ecutil.encode_many(sinfo, ec, [buf])[0]
+coeffs, rows = ec.partial_sum_coefficients({0}, [1, 2, 3, 4])
+acc = None
+for src in (1, 2, 3, 4):
+    acc = partial_sum_accumulate(coeffs[src], obj[src], acc, pipeline=pl,
+                                 device="cpu")
+assert rows == [0] and acc[0] == obj[0].tobytes()
+got = decode_shards_many(sinfo, ec, [({c: obj[c] for c in (0, 2, 3, 5)},
+                                      {1})], pipeline=pl)
+assert got[0][1].tobytes() == obj[1].tobytes()
+assert decode_shards(sinfo, ec, {c: obj[c] for c in range(1, 5)},
+                     {0})[0].tobytes() == obj[0].tobytes()
+pm = reg.factory("pm_regen", "", {"k": "3", "m": "2", "d": "4",
+                                  "mode": "mbr", "device": "cpu"})
+enc = pm.encode(set(range(5)), bytes(range(256)) * 12)
+helpers = pm.minimum_to_repair(2, 4, {c: 1 for c in (0, 1, 3, 4)})
+alpha = pm.get_sub_chunk_count()
+betas = [regen_project(pm.repair_projection(2).tobytes(), enc[h], alpha,
+                       pipeline=pl, device="cpu")
+         for h in helpers]
+assert regen_combine(pm.repair_combine(2, helpers).tobytes(), betas, alpha,
+                     pipeline=pl, device="cpu") == enc[2].tobytes()
+for name, profile in (("xor", {"k": "3"}),
+                      ("clay", {"k": "4", "m": "2", "device": "cpu"}),
+                      ("lrc", {"k": "4", "m": "2", "l": "3",
+                               "device": "cpu"})):
+    ec = reg.factory(name, "", profile)
+    n = ec.get_chunk_count()
+    enc = ec.encode(set(range(n)), bytes(range(256)) * 8)
+    assert ec.decode({1}, {c: v for c, v in enc.items() if c != 1})[1] \
+        .tobytes() == enc[1].tobytes(), name
+assert pl.perf.get("errors") == 0 and pl.perf.get("completed") == 10
+pl.close()
 print(json.dumps(sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m == "jaxlib" or m.startswith("jaxlib.")
@@ -137,7 +180,7 @@ def test_cuda_codec_without_a_card_raises(no_card):
             call()
     assert codec.parity_uploads == 0
     assert rs_kernels.launches == {"gf_apply": 0, "gf_apply_stripes": 0,
-                                   "xor_apply": 0}
+                                   "xor_apply": 0, "crc32c_rows": 0}
 
 
 def test_plugin_on_cuda_without_a_card_raises(no_card):
@@ -159,7 +202,7 @@ def test_plugin_on_cuda_without_a_card_raises(no_card):
     with pytest.raises(RuntimeError, match="cuda"):
         ecutil.encode_many(sinfo, ec, [np.zeros(512, np.uint8)])
     assert rs_kernels.launches == {"gf_apply": 0, "gf_apply_stripes": 0,
-                                   "xor_apply": 0}
+                                   "xor_apply": 0, "crc32c_rows": 0}
 
 
 def test_plugin_without_a_device_key_runs_on_cuda(no_card):
@@ -179,7 +222,7 @@ def test_plugin_without_a_device_key_runs_on_cuda(no_card):
     with pytest.raises(RuntimeError, match="cuda"):
         ecutil.encode_many(sinfo, ec, [np.zeros(512, np.uint8)])
     assert rs_kernels.launches == {"gf_apply": 0, "gf_apply_stripes": 0,
-                                   "xor_apply": 0}
+                                   "xor_apply": 0, "crc32c_rows": 0}
 
 
 @pytest.mark.parametrize("depth", [0, 4])
@@ -209,7 +252,7 @@ def test_serving_engine_without_a_card_raises(no_card, depth):
     finally:
         eng.stop()
     assert rs_kernels.launches == {"gf_apply": 0, "gf_apply_stripes": 0,
-                                   "xor_apply": 0}
+                                   "xor_apply": 0, "crc32c_rows": 0}
 
 
 @pytest.mark.parametrize("name,profile", [
@@ -240,7 +283,77 @@ def test_new_plugins_without_a_device_key_need_the_card(no_card, name,
         ecutil.encode_many(sinfo, ec,
                            [np.zeros(sinfo.stripe_width, np.uint8)])
     assert rs_kernels.launches == {"gf_apply": 0, "gf_apply_stripes": 0,
-                                   "xor_apply": 0}
+                                   "xor_apply": 0, "crc32c_rows": 0}
+
+
+@pytest.mark.parametrize("name,profile", [
+    ("pm_regen", {"k": "3", "m": "2", "d": "4", "mode": "mbr"}),
+    ("pm_regen", {"k": "3", "m": "2", "d": "4", "mode": "msr"}),
+    ("clay", {"k": "4", "m": "2"}),
+    ("clay", {"k": "4", "m": "2", "scalar_mds": "torch_rs"}),
+    ("lrc", {"k": "4", "m": "2", "l": "3"}),
+])
+def test_repair_plugins_without_a_device_key_need_the_card(no_card, name,
+                                                           profile):
+    """pm_regen, clay and lrc with no ``device`` key run their products on
+    the card: without one encode raises, nothing answers on the host, no
+    launch counts."""
+    reg = ErasureCodePluginRegistry()
+    ec = reg.factory(name, "", profile)
+    n = ec.get_chunk_count()
+    data = bytes(range(256)) * 40
+    with pytest.raises(RuntimeError, match="cuda"):
+        ec.encode(set(range(n)), data)
+    enc = reg.factory(name, "", profile | {"device": "numpy"}).encode(
+        set(range(n)), data)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ec.decode({0}, {c: v for c, v in enc.items() if c != 0})
+    assert rs_kernels.launches == {"gf_apply": 0, "gf_apply_stripes": 0,
+                                   "xor_apply": 0, "crc32c_rows": 0}
+
+
+def _repair_leg(leg: str, data: np.ndarray, **kw):
+    if leg == "partial_sum":
+        return ecutil.partial_sum_accumulate([3], data, [data], **kw)
+    if leg == "regen_project":
+        return ecutil.regen_project(b"\x01\x02", data, 2, **kw)
+    return ecutil.regen_combine(b"\x01\x02\x03\x04", [data, data], 2, **kw)
+
+
+@pytest.mark.parametrize("leg", ["partial_sum", "regen_project",
+                                 "regen_combine"])
+def test_repair_legs_default_to_the_card(no_card, leg):
+    """Called with their defaults (no device, no pipeline), the repair
+    legs run on the card: without one they raise, and the host GF math
+    answers only when the caller names ``device="numpy"``."""
+    data = np.arange(512, dtype=np.uint8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        _repair_leg(leg, data)
+    assert _repair_leg(leg, data, device="numpy") == \
+        _repair_leg(leg, data, device="cpu")
+    assert rs_kernels.launches["gf_apply"] == 0
+
+
+def test_repair_legs_on_cuda_without_a_card_raise(no_card):
+    """The repair legs name their device; cuda without a card raises
+    before anything is packed, and nothing runs on the host."""
+    from ceph_tpu_torch.ops.pipeline import CodecPipeline
+    pl = CodecPipeline(depth=2, name="nocard.repair")
+    data = np.ones(512, np.uint8)
+    try:
+        for leg in ("partial_sum", "regen_project", "regen_combine"):
+            with pytest.raises(RuntimeError, match="cuda"):
+                _repair_leg(leg, data, pipeline=pl)
+            with pytest.raises(RuntimeError, match="cuda"):
+                _repair_leg(leg, data, pipeline=pl, device="cuda")
+        assert pl.perf.get("submitted") == 0
+    finally:
+        pl.close()
+    codec = RSCodec(4, 2, device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        codec.encode_with_crc(np.zeros((4, 256), np.uint8))
+    assert rs_kernels.launches == {"gf_apply": 0, "gf_apply_stripes": 0,
+                                   "xor_apply": 0, "crc32c_rows": 0}
 
 
 _SWEEP_PROBE = """

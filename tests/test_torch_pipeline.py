@@ -447,12 +447,16 @@ def test_settle_and_host_buffers():
     are plain numpy; a cuda codec without a card raises, never falls
     back."""
     t = torch.arange(6, dtype=torch.uint8).reshape(2, 3)
-    assert np.array_equal(pipeline_mod._settle(t), t.numpy())
-    assert pipeline_mod._settle(None) is None
+    assert np.array_equal(pipeline_mod.settle(t), t.numpy())
+    assert pipeline_mod.settle(None) is None
     arr = np.ones(4, np.uint8)
-    assert pipeline_mod._settle(arr) is arr
-    buf = CodecPipeline.host_empty(RSCodec(K, M, device="cpu"), (K, 256))
+    assert pipeline_mod.settle(arr) is arr
+    buf = CodecPipeline.host_block(RSCodec(K, M, device="cpu").torch_device,
+                                   (K, 256))
     assert isinstance(buf, np.ndarray) and buf.shape == (K, 256)
+    buf[:] = 7
+    out = pipeline_mod.launch(torch.device("cpu"), buf, lambda t: t ^ 1)
+    assert np.array_equal(pipeline_mod.settle(out), np.full((K, 256), 6))
 
 
 def test_pipelined_encode_without_a_card_raises(monkeypatch):

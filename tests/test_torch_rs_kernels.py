@@ -200,8 +200,9 @@ def test_cpu_tensors_never_count_a_launch():
     trk.gf_apply(mat, data[:4])
     trk.gf_apply_stripes(mat, data, 2)
     trk.xor_apply(_rand(rng, (3, 8)) & 1, data)
+    trk.crc32c_rows(data)
     assert trk.launches == {"gf_apply": 0, "gf_apply_stripes": 0,
-                            "xor_apply": 0}
+                            "xor_apply": 0, "crc32c_rows": 0}
 
 
 def test_wrapper_rejects_bad_inputs():

@@ -89,7 +89,9 @@ def test_path_shapes_launch_shapes_match_the_jax_package():
     shapes = path_shapes.launch_shapes(path_shapes.load_package())
     assert [s["kernel"] for s in shapes] == (["gf_apply"] * 5
                                              + ["gf_apply_stripes"] * 2
-                                             + ["xor_apply"] * 6)
+                                             + ["xor_apply"] * 6
+                                             + ["gf_apply"] * 14
+                                             + ["crc32c_rows"] * 4)
     ecutil, serving, headline = shapes[:3], shapes[3:5], shapes[5:7]
     jvan = JRSCodec(8, 4, technique="reed_sol_van", device="numpy")
     assert np.array_equal(ecutil[0]["mat"], jvan.parity_mat)
@@ -102,10 +104,29 @@ def test_path_shapes_launch_shapes_match_the_jax_package():
     assert np.array_equal(headline[0]["mat"], jcau.parity_mat)
     assert np.array_equal(headline[1]["mat"], jcau.decode_matrix([0, 9])[0])
     assert headline[0]["rows"] == 64 * 8 and headline[0]["stripes"] == 64
-    xor = {(s["path"], s["label"]): s for s in shapes[7:]}
+    xor = {(s["path"], s["label"]): s for s in shapes[7:13]}
     w16 = xor[("jerasure reed_sol_van_w16", "encode")]
     assert w16["mat"].shape == (64, 128) and int(w16["mat"].sum()) == 3928
     assert w16["rows"] * w16["cols"] == 64 * 4 * 2**20
     lib = xor[("jerasure liber8tion", "decode [3, 5]")]
     assert lib["mat"].shape == (16, 64) and lib["cols"] == 4 * 2**20
+    repair = {s["label"]: s for s in shapes[13:27]}
+    assert {s["path"] for s in repair.values()} == {"repair"}
+    # recovery waves rebuild every missing row: {3} from 0-2, 4-8 and
+    # {0, 9} from 1-8, each with 9-11
+    assert np.array_equal(repair["wave want [3]"]["mat"], jvan.decode_matrix(
+        [3, 9, 10, 11], [0, 1, 2, 4, 5, 6, 7, 8])[0])
+    assert np.array_equal(repair["wave want [0, 9]"]["mat"],
+                          jvan.decode_matrix([0, 9, 10, 11],
+                                             list(range(1, 9)))[0])
+    for label, r in (("chain hop [3]", 1), ("chain hop [0, 9]", 2)):
+        assert repair[label]["mat"].shape == (r, 1)
+        assert repair[label]["rows"] * repair[label]["cols"] == 32 * 2**20
+    assert repair["pm_regen mbr encode"]["mat"].shape == (20, 9)
+    assert repair["pm_regen mbr project"]["mat"].shape == (1, 4)
+    assert repair["pm_regen mbr combine"]["mat"].shape == (4, 4)
+    assert repair["pm_regen msr combine"]["mat"].shape == (2, 4)
+    crc = shapes[27:]
+    assert [(s["rows"], s["cols"]) for s in crc] == [
+        (12, 2**19), (8, 2**25), (4, 2**25), (2, 2**19)]
     json.dumps([{k: v for k, v in s.items() if k != "mat"} for s in shapes])
