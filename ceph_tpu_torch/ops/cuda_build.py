@@ -39,7 +39,7 @@ SIGNATURES = {
         "xor_apply_launch": [_P, _P, _P, _I, _I, _L, _I, _P],
     },
     "crc32c": {
-        "crc32c_rows_launch": [_P, _L, _I, _L, _P, _P, _P, _P],
+        "crc32c_rows_launch": [_P, _L, _I, _L, _P, _P, _P, _P, _P],
     },
     "sweep_kernels": {
         "bitplane_apply_launch": [_P, _P, _P, _I, _I, _L, _I, _L, _I, _P],

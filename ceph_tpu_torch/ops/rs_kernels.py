@@ -388,6 +388,8 @@ def xor_apply_form(W, packets, form: str) -> torch.Tensor:
 # :func:`crc32c_rows_plain`.  CRCs come back in int64 (values < 2^32).
 
 CRC_ZPOW = 48            # the kernel's Z_{2^j} operators, j < 48
+CRC_RUN = 128            # bytes of a row one lane of the kernel folds
+CRC_SPAN = 32 * CRC_RUN  # bytes of one warp's work unit
 
 
 @functools.lru_cache(maxsize=None)
@@ -424,50 +426,83 @@ def crc32c_rows_plain(rows: torch.Tensor) -> torch.Tensor:
 def crc_zpow_words() -> np.ndarray:
     """The operators Z_{2^j}, j < :data:`CRC_ZPOW`, as uint32 [CRC_ZPOW, 32]
     (word i of row j = the image of register bit i): what the kernel
-    combines its runs and segments with."""
+    advances a warp's partial crc through the units after it with."""
     ops = [list(crc32c_zeros_op(1))]
     for _ in range(CRC_ZPOW - 1):
         ops.append(_gf2_square(ops[-1]))
     return np.array(ops, dtype=np.uint32)
 
 
+def crc_nibble_tables() -> np.ndarray:
+    """The kernel's split-nibble tables, uint32 [16, 16]: for the 8-byte
+    step c' = crc32c(c ^ lo, hi) with c 0, nibble t of the 64 bits lo | hi
+    << 32 contributes entry t, e = T_{7 - t//2}[e << 4 (t % 2)], so c' is
+    the XOR of 16 lookups (the kernel keeps one copy per lane)."""
+    t = np.array(_CRC_TABLES[:8], dtype=np.uint32)
+    e = np.arange(16)
+    return np.stack([t[7 - q // 2][e << (4 * (q % 2))] for q in range(16)])
+
+
+def _nibble_images(op) -> np.ndarray:
+    """A 32x32 GF(2) operator (``op[i]`` = image of bit i) as 8 nibble
+    tables [8, 16]: entry (i, e) is the image of e << 4i."""
+    op = np.array(op, dtype=np.uint32).reshape(8, 4)
+    e = np.arange(16)
+    bits = (e[:, None] >> np.arange(4)) & 1                 # [16, 4]
+    out = np.zeros((8, 16), np.uint32)
+    for b in range(4):
+        out ^= np.where(bits[None, :, b] == 1, op[:, b, None], 0).astype(
+            np.uint32)
+    return out
+
+
+def crc_lane_tables() -> np.ndarray:
+    """The kernel's lane fold tables, uint32 [8, 16, 32]: lane l's run
+    crc is advanced through the (31 - l) runs after it in its warp's unit,
+    Z_{(31-l)*CRC_RUN}, applied as 8 nibble lookups; entry (i, e, l) is the
+    image of e << 4i (lane l reads only column l)."""
+    return np.stack([_nibble_images(crc32c_zeros_op((31 - l) * CRC_RUN))
+                     for l in range(32)], axis=-1)
+
+
 @functools.lru_cache(maxsize=None)
 def _crc_kernel_tables(device: torch.device) -> tuple:
-    """The slicing tables T0..T7 [8, 256] and :func:`crc_zpow_words` as
-    32-bit words on ``device``, uploaded once."""
-    tables = np.array(_CRC_TABLES[:8], dtype=np.uint32).view(np.int32)
-    zpow = crc_zpow_words().view(np.int32)
-    return (torch.from_numpy(tables).to(device),
-            torch.from_numpy(zpow).to(device))
+    """:func:`crc_nibble_tables`, :func:`crc_lane_tables` and
+    :func:`crc_zpow_words` as 32-bit words on ``device``, uploaded once."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(w).view(np.int32))
+                 .to(device) for w in (crc_nibble_tables(), crc_lane_tables(),
+                                       crc_zpow_words()))
 
 
 def crc32c_rows_into(rows: torch.Tensor, out: torch.Tensor) -> None:
-    """XOR crc32c(0, row) of each row of the CUDA tensor ``rows`` into the
-    zeroed int32 ``out`` [r] on the current stream; one launch, counted.
-    Raises on any failure."""
+    """Write crc32c(0, row) of each row of the CUDA tensor ``rows`` into
+    the contiguous int64 ``out`` [r] on the current stream: one launch,
+    counted.  Raises on any failure."""
     r, n = rows.shape
     if n > 1 and rows.stride(1) != 1:
         raise ValueError("crc32c_rows needs rows of contiguous bytes")
-    if r == 0 or n == 0:
+    if out.dtype != torch.int64 or tuple(out.shape) != (r,) \
+            or not out.is_contiguous() or out.device != rows.device:
+        raise ValueError(f"crc32c_rows: out must be contiguous int64 [{r}] "
+                         f"on {rows.device}")
+    if r == 0:
+        return
+    if n == 0:
+        out.zero_()
         return
     if n >= 1 << (CRC_ZPOW - 1):
         raise ValueError(f"crc32c_rows: rows of {n} bytes are too long")
     stride = int(rows.stride(0)) if r > 1 else n
-    tables, zpow = _crc_kernel_tables(rows.device)
+    nib, lane, zpow = _crc_kernel_tables(rows.device)
     lib = cuda_build.load("crc32c")
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream(rows.device).cuda_stream
         err = lib.crc32c_rows_launch(rows.data_ptr(), stride, int(r), int(n),
-                                     tables.data_ptr(), zpow.data_ptr(),
-                                     out.data_ptr(), stream)
+                                     nib.data_ptr(), lane.data_ptr(),
+                                     zpow.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"crc32c_rows failed: cudaError_t {err}")
     launches["crc32c_rows"] += 1
-
-
-def _widen(words: torch.Tensor) -> torch.Tensor:
-    """int32 words holding uint32 crcs -> int64, without sign extension."""
-    return words.to(torch.int64) & 0xFFFFFFFF
 
 
 def _as_rows(rows) -> torch.Tensor:
@@ -490,9 +525,9 @@ def crc32c_rows(rows) -> torch.Tensor:
     rows = _as_rows(rows)
     if rows.device.type == "cpu":
         return crc32c_rows_plain(rows)
-    out = torch.zeros(rows.shape[0], dtype=torch.int32, device=rows.device)
+    out = torch.empty(rows.shape[0], dtype=torch.int64, device=rows.device)
     crc32c_rows_into(rows, out)
-    return _widen(out)
+    return out
 
 
 def gf_encode_with_crc(mat, data) -> tuple[torch.Tensor, torch.Tensor]:
@@ -508,8 +543,8 @@ def gf_encode_with_crc(mat, data) -> tuple[torch.Tensor, torch.Tensor]:
         return parity, torch.cat([crc32c_rows_plain(data),
                                   crc32c_rows_plain(parity)])
     k = data.shape[0]
-    words = torch.zeros(k + parity.shape[0], dtype=torch.int32,
-                        device=data.device)
-    crc32c_rows_into(data, words[:k])
-    crc32c_rows_into(parity, words[k:])
-    return parity, _widen(words)
+    crcs = torch.empty(k + parity.shape[0], dtype=torch.int64,
+                       device=data.device)
+    crc32c_rows_into(data, crcs[:k])
+    crc32c_rows_into(parity, crcs[k:])
+    return parity, crcs

@@ -169,9 +169,10 @@ def _bitplane(name: str, bmat, data, r: int, k: int, groups: int, acc: str,
 def bitplane_apply(bmat, data, r: int, k: int, acc: str = "int8",
                    tile_n: int = 8192) -> torch.Tensor:
     """out[r, N] = mat ·GF(2^8) data[k, N] from the plane-major bit-matrix
-    ``bmat`` [8r, 8k] (0/1; bit 0 is read), a block owning ``tile_n``
-    columns.  A CUDA tensor launches the tensor-core kernel; a CPU tensor
-    runs :func:`bitplane_apply_plain`."""
+    ``bmat`` [8r, 8k] (0/1; bit 0 is read); ``tile_n`` (a multiple of
+    256) is the column tile of the stacked form and changes nothing at
+    groups = 1.  A CUDA tensor launches the tensor-core kernel; a CPU
+    tensor runs :func:`bitplane_apply_plain`."""
     return _bitplane("bitplane_apply", bmat, data, r, k, 1, acc, tile_n)
 
 

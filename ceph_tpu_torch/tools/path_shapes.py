@@ -1,6 +1,6 @@
 """Time the GF kernels at every shape the port's paths launch them at.
 
-    python ceph_tpu_torch/tools/path_shapes.py [--root DIR]
+    python ceph_tpu_torch/tools/path_shapes.py [--root DIR] [--only KERNEL]
 
 For each launch of ``chip_smoke.py``'s main paths, on ``cuda:0``:
 
@@ -29,7 +29,11 @@ For each launch of ``chip_smoke.py``'s main paths, on ``cuda:0``:
 - ``crc32c_rows``: one object's shards under ``hinfo_append`` [12, 512 Ki],
   the fused encode + checksum's data and parity rows [8, 32 Mi] and
   [4, 32 Mi], and the rebuilt shards' hash check of a recovery wave
-  [2, 512 Ki].
+  [2, 512 Ki];
+- sweep: the kernel sweep's bit-plane variants at Cauchy RS(8,4) over
+  [8, 8 Mi]: ``bitplane_apply`` int8 and bf16, ``bitplane_apply_bd`` int8
+  at G = 4 and 2 and bf16 at G = 4, bound by bytes or tensor-core
+  operations, whichever is larger.
 
 Each shape gets the kernel's time (CUDA events, the best of 3 means over
 20 launches, after 2), its bitwise difference from the plain version and
@@ -37,9 +41,11 @@ the plain version's time (3 calls after 1), the bytes bound at
 3.35 TB/s (and for ``xor_apply`` the XOR bound), the copy ceiling
 (``sweep_kernels.copy_rows`` moving the same bytes, in the same run; none
 where the apply writes more rows than it reads, or for the crc, which
-writes no rows) and the kernel's shares of both.  For the crc the
-kernel's time is its launch alone, and the whole ``crc32c_rows`` call
-(zeroed output, launch, widening) is ``wrapper_ms``.  Where the package has
+writes no rows) and the kernel's shares of both.  For the crc and the
+bit-plane kernel the device time apart from the host's launch pace is
+``device_ms`` (``torch.profiler``'s kernel time) and ``graph_ms`` (a CUDA
+graph replay of the 20 launches); for the crc ``ms`` is the launch alone,
+host-paced, and the whole ``crc32c_rows`` call is ``wrapper_ms``.  Where the package has
 ``rs_kernels.xor_apply_form``, both ``xor_apply`` forms are timed too.
 One JSON line per shape.
 
@@ -47,7 +53,8 @@ One JSON line per shape.
 example an unpacked earlier commit) with this file's shapes and clock, so
 two versions of the kernels can be compared on one card in one run.
 Run it as a file, not with ``-m``, so that the package is imported from
-the root named.  Without a CUDA device it exits 2.
+the root named.  ``--only KERNEL`` (repeatable) times that kernel's
+shapes alone.  Without a CUDA device it exits 2.
 """
 from __future__ import annotations
 
@@ -204,6 +211,27 @@ def repair_shapes(pkg, registry) -> list[dict]:
     return out
 
 
+SWEEP_ROWS = 8 * MIB               # the kernel sweep's [8, 8 Mi] data
+# the sweep's bit-plane variants: (kernel, acc, groups, tile_n)
+BITPLANE_VARIANTS = (("bitplane_apply", "int8", 1, 8192),
+                     ("bitplane_apply", "bf16", 1, 8192),
+                     ("bitplane_apply_bd", "int8", 4, 8192),
+                     ("bitplane_apply_bd", "int8", 2, 8192),
+                     ("bitplane_apply_bd", "bf16", 4, 4096))
+TENSOR_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12}   # dense peaks
+
+
+def sweep_shapes(pkg) -> list[dict]:
+    """The kernel sweep's bit-plane launches: Cauchy RS(8,4) [4, 8] over
+    [8, 8 Mi], each variant of phase ``sweep``."""
+    mat = np.ascontiguousarray(pkg.codec.RSCodec(
+        8, 4, technique="cauchy", device="numpy").parity_mat, np.uint8)
+    return [dict(kernel=kernel, path="sweep",
+                 label=f"{acc} groups={g} tile_n={t}", mat=mat, rows=8,
+                 cols=SWEEP_ROWS, stripes=1, acc=acc, groups=g, tile_n=t)
+            for kernel, acc, g, t in BITPLANE_VARIANTS]
+
+
 def cuda_ms(fn, iters: int = 20, warmup: int = 2, rounds: int = 3) -> float:
     """Milliseconds of ``fn``: the best of ``rounds`` means over ``iters``
     calls, CUDA events (the best, so that a stray slow round does not
@@ -222,6 +250,54 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 2, rounds: int = 3) -> float:
         end.synchronize()
         best = min(best, start.elapsed_time(end) / iters)
     return best
+
+
+def _device_us(evt) -> float:
+    for attr in ("device_time_total", "cuda_time_total"):
+        value = getattr(evt, attr, None)
+        if value:
+            return float(value)
+    return 0.0
+
+
+def device_ms(fn, kernel_name: str, iters: int = 20) -> dict:
+    """The kernel's own time, apart from the host's launch pace:
+    ``profiler_ms``, the mean device time of the kernels whose name holds
+    ``kernel_name`` under ``torch.profiler`` over ``iters`` calls, and
+    ``graph_ms``, CUDA events around the replay of one CUDA graph holding
+    ``iters`` calls (best of 3), over ``iters``.  Where the card's tools
+    refuse one, it is None and ``<name>_error`` says why."""
+    out = {}
+    fn()
+    torch.cuda.synchronize()
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evts = [e for e in prof.key_averages() if kernel_name in e.key]
+        total = sum(_device_us(e) for e in evts)
+        count = sum(e.count for e in evts)
+        out["profiler_ms"] = total / count / 1e3 if count and total else None
+        out["profiler_launches"] = count
+    except Exception as exc:          # noqa: BLE001 - reported, not hidden
+        out["profiler_ms"], out["profiler_error"] = None, repr(exc)
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+        out["graph_ms"] = cuda_ms(graph.replay, iters=1, warmup=1) / iters
+    except Exception as exc:          # noqa: BLE001 - reported, not hidden
+        out["graph_ms"], out["graph_error"] = None, repr(exc)
+    torch.cuda.synchronize()
+    return out
 
 
 def xor_ops_ms(byte_xors: int, sms: int, clock_mhz: float) -> float:
@@ -247,6 +323,8 @@ def measure(pkg, shape: dict, dev, seed: int = 3) -> dict:
                          generator=gen, dtype=torch.uint8, device=dev)
     if shape["kernel"] == "crc32c_rows":
         return _measure_crc(K, shape, data)
+    if shape["kernel"].startswith("bitplane"):
+        return _measure_bitplane(K, SK, shape, data, dev)
     mat = torch.from_numpy(shape["mat"]).to(dev)
     r, k = mat.shape
     s = shape["stripes"]
@@ -300,29 +378,82 @@ def measure(pkg, shape: dict, dev, seed: int = 3) -> dict:
 
 def _measure_crc(K, shape: dict, rows: torch.Tensor) -> dict:
     """One crc32c_rows shape: bitwise against crc32c_rows_plain, times,
-    and the bound: r*n bytes read and 4 bytes a row written.  ``ms`` is
-    the kernel's launch alone (``crc32c_rows_into`` XORing into a buffer
-    zeroed once beforehand, so its values are not the crcs);
-    ``wrapper_ms`` is the whole ``crc32c_rows`` call (the zeroed output,
-    the launch, the widening to int64)."""
+    and the bound: r*n bytes read and 8 bytes a row written.  ``ms`` is
+    the kernel's launch alone, host-paced (``crc32c_rows_into`` 20 times
+    back to back into a buffer allocated once; in a package whose kernel
+    XORs into zeroed int32 words, those words' values are not the crcs);
+    ``device_ms`` is its device time under ``torch.profiler`` and
+    ``graph_ms`` the same 20 launches replayed from a CUDA graph;
+    ``wrapper_ms`` is the whole ``crc32c_rows`` call."""
     r, n = rows.shape
     got, want = K.crc32c_rows(rows), K.crc32c_rows_plain(rows)
     err = int((got - want).abs().max()) if r else 0
     del got, want
-    words = torch.zeros(r, dtype=torch.int32, device=rows.device)
-    ms = cuda_ms(lambda: K.crc32c_rows_into(rows, words))
+    one_launch = hasattr(K, "CRC_SPAN")     # writes int64; else XORs int32
+    words = torch.zeros(r, dtype=torch.int64 if one_launch else torch.int32,
+                        device=rows.device)
+    launch = lambda: K.crc32c_rows_into(rows, words)     # noqa: E731
+    ms = cuda_ms(launch)
+    dev = device_ms(launch, "crc32c_rows_kernel")
     wrapper_ms = cuda_ms(lambda: K.crc32c_rows(rows))
     plain_ms = cuda_ms(lambda: K.crc32c_rows_plain(rows), 3, warmup=1,
                        rounds=1)
-    bound = (r * n + 4 * r) / HBM_BYTES_PER_S * 1e3
+    bound = (r * n + 8 * r) / HBM_BYTES_PER_S * 1e3
     del rows
     torch.cuda.empty_cache()
+    device = dev.get("profiler_ms")
     return {"kernel": "crc32c_rows", "path": shape["path"],
             "label": shape["label"], "shape": [r, n], "max_abs_err": err,
-            "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-            "bytes_ms": bound,
+            "ms": ms, "device_ms": device, "graph_ms": dev.get("graph_ms"),
+            "device_timing": dev, "wrapper_ms": wrapper_ms,
+            "plain_ms": plain_ms, "bytes_ms": bound,
             "bound_ms": bound, "bound_by": "bytes", "copy_ms": None,
-            "share_of_bound": bound / ms, "share_of_copy": None}
+            "share_of_bound": bound / ms,
+            "device_share_of_bound": bound / device if device else None,
+            "share_of_copy": None}
+
+
+def _measure_bitplane(K, SK, shape: dict, data: torch.Tensor, dev) -> dict:
+    """One bit-plane variant of the kernel sweep: bitwise against its plain
+    version, host-paced and device times, and the bound: the larger of
+    (k + r) * N bytes and the [G*8r, G*8k] x [G*8k, N/G] product at the
+    tensor cores' dense peak for ``acc``."""
+    mat = torch.from_numpy(shape["mat"]).to(dev)
+    r, k = mat.shape
+    n, g, acc, t = shape["cols"], shape["groups"], shape["acc"], \
+        shape["tile_n"]
+    bmat = K.expand_bits_plane_major(mat)
+    if g == 1:
+        run = lambda: SK.bitplane_apply(bmat, data, r, k, acc, t)  # noqa
+        plain = lambda: SK.bitplane_apply_plain(bmat, data, r, k)  # noqa
+    else:
+        bmat = torch.block_diag(*[bmat] * g)
+        run = lambda: SK.bitplane_apply_bd(bmat, data, r, k, g, acc, t)  # noqa
+        plain = lambda: SK.bitplane_apply_bd_plain(  # noqa: E731
+            bmat, data, r, k, g, t)
+    got, want = run(), plain()
+    err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max())
+    del got, want
+    ms = cuda_ms(run)
+    timing = device_ms(run, "bitplane")
+    plain_ms = cuda_ms(plain, 3, warmup=1, rounds=1)
+    bytes_ms = (k + r) * n / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * (g * 8 * r) * (g * 8 * k) * (n // g) \
+        / TENSOR_OPS_PER_S[acc] * 1e3
+    bound = max(bytes_ms, ops_ms)
+    device = timing.get("profiler_ms")
+    del data
+    torch.cuda.empty_cache()
+    return {"kernel": shape["kernel"], "path": shape["path"],
+            "label": shape["label"], "shape": [r, k, n], "acc": acc,
+            "groups": g, "tile_n": t, "max_abs_err": err, "ms": ms,
+            "device_ms": device, "graph_ms": timing.get("graph_ms"),
+            "device_timing": timing, "plain_ms": plain_ms,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": bound,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "copy_ms": None, "share_of_bound": bound / ms,
+            "device_share_of_bound": bound / device if device else None,
+            "share_of_copy": None}
 
 
 def main(argv=None) -> int:
@@ -330,6 +461,10 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=None,
                     help="directory holding the ceph_tpu_torch package to "
                          "time (default: this checkout)")
+    ap.add_argument("--only", action="append", default=None,
+                    metavar="KERNEL",
+                    help="time only the shapes of this kernel (repeatable; "
+                         "e.g. crc32c_rows, bitplane_apply)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("path_shapes: torch.cuda.is_available() is False; the kernels "
@@ -338,7 +473,9 @@ def main(argv=None) -> int:
     pkg = load_package(args.root)
     dev = torch.device("cuda", 0)
     bad = []
-    for shape in launch_shapes(pkg):
+    for shape in launch_shapes(pkg) + sweep_shapes(pkg):
+        if args.only and shape["kernel"] not in args.only:
+            continue
         row = measure(pkg, shape, dev)
         bad += [row] if row["max_abs_err"] else []
         print(json.dumps(row), flush=True)

@@ -14,14 +14,20 @@ drives the port end to end:
                 counts and unaligned views; xor_apply in the density
                 rule's form and in both forms named; crc32c_rows (r 0, 1,
                 12; ragged n up to 1 MiB + 5; an unaligned and a strided
-                row view);
+                row view); then the crc and bit-plane kernels at the
+                edges of their work split (rows of one warp unit and one
+                byte either side, shorter than a lane's run, more units
+                than the grid has warps, unaligned strided views; G*r and
+                G*round_up(k, 4) at their limits, ragged N);
 3. ecutil    -- the torch_rs plugin through the port's registry (k=8, m=4,
                 reed_sol_van, 4 KiB stripe unit) under ecutil.encode_many,
                 hinfo_append (one crc32c kernel launch each) and
                 decode_many over 64 objects of 4 MiB, checked against the
                 port's numpy path; the fused encode + checksum on the
                 packed [8, 32 Mi] stream against gf_apply and the host
-                crc32c;
+                crc32c; crc32c_rows of one object and of all 64 in one
+                call, host-paced, as device time (torch.profiler and a
+                CUDA graph replay) and as the whole call;
 4. repair    -- the repair path on the same codec and 64 objects of 4 MiB:
                 (a) recovery waves (decode_shards_many, want {3} and
                 {0, 9}, the k survivors minimum_to_decode picks) through a
@@ -57,9 +63,11 @@ drives the port end to end:
                 m=4 w=16, checked against the port's numpy path; then the
                 isa and shec plugins on the gf_apply kernel over 8 objects;
 8. shapes    -- gf_apply, gf_apply_stripes, xor_apply and crc32c_rows at
-                every shape phases 3-7 launch them at (ceph_tpu_torch/tools/
+                every shape phases 3-7 launch them at, and the sweep's
+                five bit-plane variants (ceph_tpu_torch/tools/
                 path_shapes.py): bitwise against the plain version, CUDA
-                events, bound, and the copy ceiling moving the same bytes;
+                events, device time where the tools give it, bound, and
+                the copy ceiling moving the same bytes;
 9. ec_bench  -- the ceph_erasure_code_benchmark CLI: torch_rs encode and
                 decode, the default invocation, a liber8tion encode;
 10. sweep    -- the kernel sweep (ceph_tpu_torch.tools.kernel_sweep) in
@@ -272,12 +280,64 @@ def phase_kernels(K, SK, dev, decode_bitmatrices) -> dict:
           K.crc32c_rows_plain(block[::2]))
     sweep_worst, sweep_cases = sweep_kernel_grid(SK, K, dev, gen)
     worst |= sweep_worst
+    edge_worst, edge_cases = boundary_cases(K, SK, dev, gen)
+    for name, err in edge_worst.items():
+        worst[name] = max(worst[name], err)
     torch.cuda.synchronize()
     if any(worst.values()):
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{worst}")
-    return {"cases": cases + sweep_cases, "max_abs_err": worst,
+    return {"cases": cases + sweep_cases + edge_cases,
+            "boundary_cases": edge_cases, "max_abs_err": worst,
             "launches": dict(K.launches) | dict(SK.launches)}
+
+
+def boundary_cases(K, SK, dev, gen) -> tuple[dict, int]:
+    """The crc and bit-plane kernels at the edges of their work split,
+    bitwise against their plain versions: crc rows of one warp unit, one
+    less and one more byte, shorter than a lane's run, more units than the
+    persistent grid has warps, unaligned and strided views; bit-plane
+    stacks with G*r and G*round_up(k, 4) at their limits, ragged N."""
+    worst = {"crc32c_rows": 0, "bitplane_apply": 0, "bitplane_apply_bd": 0}
+    cases = 0
+
+    def check(name, got, want):
+        nonlocal cases
+        worst[name] = max(worst[name], max_abs_err(got, want))
+        cases += 1
+
+    span = K.CRC_SPAN
+    for r, n in [(r, n) for r in (1, 2, 12)
+                 for n in (span - 1, span, span + 1, 100, K.CRC_RUN + 2)]:
+        rows = rand_u8(gen, (r, n), dev)
+        check("crc32c_rows", K.crc32c_rows(rows), K.crc32c_rows_plain(rows))
+    for r, n in ((3000, span + 1), (2200, 1)):    # more units than warps
+        rows = rand_u8(gen, (r, n), dev)
+        check("crc32c_rows", K.crc32c_rows(rows), K.crc32c_rows_plain(rows))
+    flat = rand_u8(gen, (12 * 2001 + 1,), dev)
+    for view in (flat[1:].view(12, 2001)[:, :2000],    # unaligned, strided
+                 flat[:12 * 2001].view(12, 2001)[:, 3:],
+                 flat[5:5 + 3 * span].view(3, span)):
+        check("crc32c_rows", K.crc32c_rows(view), K.crc32c_rows_plain(view))
+    for r, k, g in ((32, 5, 1), (1, 64, 1), (16, 13, 2), (3, 13, 4),
+                    (8, 16, 4)):
+        bmat = K.expand_bits_plane_major(rand_u8(gen, (r, k), dev))
+        bd = torch.block_diag(*[bmat] * g)
+        for n in (8192 * 3 + 77, 64 * 5 + 1):
+            data = rand_u8(gen, (k, n), dev)
+            for acc in ("int8", "bf16"):
+                for tile in (256, 8192):
+                    if g == 1:
+                        check("bitplane_apply",
+                              SK.bitplane_apply(bmat, data, r, k, acc, tile),
+                              SK.bitplane_apply_plain(bmat, data, r, k))
+                    else:
+                        check("bitplane_apply_bd",
+                              SK.bitplane_apply_bd(bd, data, r, k, g, acc,
+                                                   tile),
+                              SK.bitplane_apply_bd_plain(bd, data, r, k, g,
+                                                         tile))
+    return worst, cases
 
 
 def _run_stripe_path(K, ecutil, ec, host, sinfo, bufs, lost_sets,
@@ -378,17 +438,26 @@ def phase_ecutil(K, ecutil, registry_cls, objects: int = 64,
     parity.cpu()
     t_d2h = time.perf_counter() - t0
     rows = ec.codec.to_device(np.stack([shards[0][c] for c in range(k + m)]))
-    # the kernel's launch alone (XORing into words zeroed once, so their
-    # values are not the crcs), then the whole wrapper (zeroed output,
-    # launch, widening)
-    words = torch.zeros(k + m, dtype=torch.int32, device=rows.device)
-    crc_ms = cuda_ms(lambda: K.crc32c_rows_into(rows, words), 20)
+    # one object's crcs three ways: the launch alone, host-paced (20 back
+    # to back into an output allocated once); its device time (under
+    # torch.profiler, and 20 launches replayed from a CUDA graph); the
+    # whole crc32c_rows call (output allocation, launch)
+    from ceph_tpu_torch.tools.path_shapes import device_ms
+    words = torch.empty(k + m, dtype=torch.int64, device=rows.device)
+    launch = lambda: K.crc32c_rows_into(rows, words)     # noqa: E731
+    crc_ms = cuda_ms(launch, 20)
+    crc_device = device_ms(launch, "crc32c_rows_kernel")
     crc_wrapper_ms = cuda_ms(lambda: K.crc32c_rows(rows), 20)
     crc_plain_ms = cuda_ms(lambda: K.crc32c_rows_plain(rows), 3, warmup=1)
-    # the kernel's own rate: every object's rows in one call (per call,
-    # the wrapper's zeroing, widening and Python cost come once)
+    # every object's rows in one call: the kernel at a size where the
+    # launch does not dominate
     all_rows = rows.repeat(objects, 1)
+    all_words = torch.empty(all_rows.shape[0], dtype=torch.int64,
+                            device=rows.device)
     crc_all_ms = cuda_ms(lambda: K.crc32c_rows(all_rows), 10)
+    crc_all_device = device_ms(
+        lambda: K.crc32c_rows_into(all_rows, all_words), "crc32c_rows_kernel",
+        10)
 
     # the fused encode + checksum on the packed stream: parity and the
     # 12 row crcs against gf_apply and the host crc32c
@@ -411,14 +480,20 @@ def phase_ecutil(K, ecutil, registry_cls, objects: int = 64,
     report = {**stripe, "object_bytes": obj_bytes, "stripe_unit": unit,
               "h2d_packed_s": t_h2d, "d2h_parity_s": t_d2h,
               "crc32c_rows_one_object_ms": crc_ms,
+              "crc32c_rows_one_object_device": crc_device,
               "crc32c_rows_one_object_wrapper_ms": crc_wrapper_ms,
               "crc32c_rows_plain_one_object_ms": crc_plain_ms,
               "crc32c_rows_all_objects_one_call_ms": crc_all_ms,
+              "crc32c_rows_all_objects_device": crc_all_device,
               "crc32c_rows_all_objects_shape": list(all_rows.shape),
+              "crc32c_rows_bytes_bound_ms": {
+                  "one_object": bytes_bound_ms(rows.numel() + 8 * (k + m)),
+                  "all_objects": bytes_bound_ms(all_rows.numel()
+                                                + 8 * all_rows.shape[0])},
               "encode_with_crc": {"shape": [k + m, n], "ms": fused_ms,
                                   "gf_apply_ms": apply_ms,
                                   "matches_gf_apply_and_host_crc": True}}
-    del data, parity, rows, words, fused_parity, all_rows
+    del data, parity, rows, words, fused_parity, all_rows, all_words
     torch.cuda.empty_cache()
     return report, launches["gf_apply"], launches["crc32c_rows"]
 
@@ -766,12 +841,13 @@ def phase_jerasure(K, ecutil, registry_cls, objects: int = 64,
 
 
 def phase_shapes(PS, dev) -> list[dict]:
-    """Every redesigned kernel at every shape its path launches it at
-    (ceph_tpu_torch/tools/path_shapes.py): bitwise against its plain
-    version, CUDA-event time, bound, and the copy ceiling moving the same
-    bytes in this run."""
+    """Every redesigned kernel at every shape its path launches it at, and
+    the sweep's bit-plane variants (ceph_tpu_torch/tools/path_shapes.py):
+    bitwise against its plain version, CUDA-event time, device time,
+    bound, and the copy ceiling moving the same bytes in this run."""
     pkg = PS.load_package(HERE)
-    rows = [PS.measure(pkg, shape, dev) for shape in PS.launch_shapes(pkg)]
+    rows = [PS.measure(pkg, shape, dev)
+            for shape in PS.launch_shapes(pkg) + PS.sweep_shapes(pkg)]
     bad = [r for r in rows if r["max_abs_err"]]
     if bad:
         raise AssertionError(f"kernel disagrees at a path shape: {bad}")
@@ -791,6 +867,8 @@ def kernel_row(name: str, source: str, replaces: str, path: str,
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": None, "library": NO_LIBRARY,
+            **({"device_ms": first["device_ms"]} if "device_ms" in first
+               else {}),
             "shapes": shape_rows}
 
 
