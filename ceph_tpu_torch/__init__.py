@@ -1,4 +1,5 @@
-"""ceph_tpu_torch: the PyTorch/CUDA port of ceph_tpu's erasure-coding path.
+"""ceph_tpu_torch: the PyTorch/CUDA port of ceph_tpu's erasure-coding path
+and CRUSH bulk placement.
 
 A package of its own beside ``ceph_tpu`` (the JAX reference): it imports
 ``torch`` and numpy, never ``jax`` and nothing of ``ceph_tpu``; what it
@@ -13,6 +14,14 @@ Subpackages:
             ``jerasure``, ``isa`` and ``shec`` plugins
   backend   ECUtil stripe layer: encode/decode over many stripes, HashInfo
   bench     ceph_erasure_code_benchmark-compatible CLI
+  crush     CrushMap, the rjenkins hash and crush_ln, the exact host rule
+            interpreter, the text compiler, and BulkMapper over the
+            straw2 kernel (ops/csrc/crush_straw2.cu)
+  osdmap    OSDMap, Incremental, the scalar PG mapping chain and
+            BulkPGMapper (whole pools in one kernel launch)
+  mgr       the balancer: osd_deviation, calc_weight_set, calc_pg_upmaps
+  tools     osdmaptool and crushtool CLIs, the kernel sweep and the
+            measurement tools
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for ``"cpu"`` (the plain PyTorch versions) or ``"numpy"`` (the host

@@ -10,13 +10,21 @@ dicts, so this module imports nothing of the JAX package:
 - :func:`bitmatrix_from_reference` takes a reference jerasure bitmatrix
   plugin's ``coding`` matrix;
 - :func:`hashinfo_from_dict` takes ``HashInfo.to_dict()``.
+
+A placement has no weights either: its state is the CRUSH map and the
+OSDMap, which cross as the reference's ``to_dict()`` output, read
+unchanged by :func:`crushmap_from_reference` and
+:func:`osdmap_from_reference` (whose ``to_dict`` writes the same dict
+back).
 """
 from __future__ import annotations
 
 import numpy as np
 
 from .backend.ecutil import HashInfo
+from .crush.map import CrushMap
 from .ops.codec import RSCodec, _DecodeTables
+from .osdmap.osdmap import OSDMap
 from .plugins.plugin_jerasure import ErasureCodeJerasureBitmatrix
 
 
@@ -73,3 +81,13 @@ def bitmatrix_from_reference(coding: np.ndarray, technique: str, k: int,
 def hashinfo_from_dict(d: dict) -> HashInfo:
     """The port's HashInfo from the reference's ``HashInfo.to_dict()``."""
     return HashInfo.from_dict(d)
+
+
+def crushmap_from_reference(d: dict) -> CrushMap:
+    """The port's CrushMap from the reference's ``CrushMap.to_dict()``."""
+    return CrushMap.from_dict(d)
+
+
+def osdmap_from_reference(d: dict) -> OSDMap:
+    """The port's OSDMap from the reference's ``OSDMap.to_dict()``."""
+    return OSDMap.from_dict(d)

@@ -41,6 +41,10 @@ SIGNATURES = {
     "crc32c": {
         "crc32c_rows_launch": [_P, _L, _I, _L, _P, _P, _P, _P, _P],
     },
+    "crush_straw2": {
+        "crush_straw2_launch": [_P, _L, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                                _I, _P, _I, _P, _P, _P, _P, *[_I] * 11, _P],
+    },
     "sweep_kernels": {
         "bitplane_apply_launch": [_P, _P, _P, _I, _I, _L, _I, _L, _I, _P],
         "copy_rows_launch": [_P, _P, _I, _I, _L, _L, _P],

@@ -1,0 +1,213 @@
+"""crushtool equivalent: offline CRUSH rule testing.
+
+Mirror of the reference's ``crushtool --test`` driving ``CrushTester``
+(reference: src/crush/CrushTester.{h,cc}; mapping loop + report format at
+CrushTester.cc:600-700): per-x mappings, bad-mapping detection, result-size
+histogram, and device utilization vs weight-proportional expectation.  Bulk
+placement goes through the straw2 kernel (or its plain version with
+``--device cpu``) when the map and rule lie in its envelope; a map or rule
+outside it (ValueError) goes to the exact host interpreter, as in the
+reference.  A failure on the card raises.
+
+CLI:  python -m ceph_tpu_torch.tools.crushtool -i MAP.json --test
+      [--rule N] [--num-rep N] [--min-x A] [--max-x B] [--weight OSD W]...
+      [--show-mappings] [--show-bad-mappings] [--show-statistics]
+      [--show-utilization] [--device {cuda,cpu}]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+
+from ..crush.torch_mapper import BulkMapper
+from ..crush.map import CRUSH_ITEM_NONE, CrushMap
+from ..crush.mapper import crush_do_rule
+from .osdmaptool import device_crush_weights
+
+
+def _bulk_or_scalar(cmap, ruleno, xs, num_rep, weights, device):
+    steps = cmap.rules[ruleno].steps
+    firstn = any(op in (2, 6) for op, _, _ in steps)
+    try:
+        out, placed = BulkMapper(cmap, device=device).map_rule(
+            ruleno, np.asarray(xs), reweights=weights, result_max=num_rep)
+    except ValueError:
+        # outside the bulk path's envelope: the exact host interpreter
+        return [crush_do_rule(cmap, ruleno, int(x), num_rep, weights)
+                for x in xs]
+    if firstn:
+        # firstn rows are short on failure, never NONE-padded
+        return [[int(o) for o in row[:int(p)]]
+                for row, p in zip(out, placed)]
+    return [[int(o) for o in row] for row in out]
+
+
+def test_rule(cmap: CrushMap, ruleno: int, num_rep: int,
+              min_x: int = 0, max_x: int = 1023,
+              weights: list[int] | None = None,
+              show_mappings: bool = False, show_bad_mappings: bool = False,
+              show_statistics: bool = False, show_utilization: bool = False,
+              out=None, device: str = "cuda") -> dict:
+    """One rule's test sweep (CrushTester::test, CrushTester.cc:600-700),
+    mapped on ``device``: ``"cuda"`` (the default) or ``"cpu"``."""
+    w = out.write if out is not None else (lambda s: None)
+    xs = list(range(min_x, max_x + 1))
+    results = _bulk_or_scalar(cmap, ruleno, xs, num_rep, weights, device)
+
+    n_dev = cmap.max_devices
+    per = [0] * n_dev
+    sizes: dict[int, int] = {}
+    bad = 0
+    for x, row in zip(xs, results):
+        vals = [o for o in row if o != CRUSH_ITEM_NONE]
+        has_none = len(vals) != len(row)
+        for o in vals:
+            per[o] += 1
+        sizes[len(row)] = sizes.get(len(row), 0) + 1
+        if show_mappings:
+            w(f"CRUSH rule {ruleno} x {x} {list(row)}\n")
+        if (len(row) != num_rep or has_none):
+            bad += 1
+            if show_bad_mappings:
+                w(f"bad mapping rule {ruleno} x {x} num_rep {num_rep} "
+                  f"result {list(row)}\n")
+
+    # weight-proportional expectation (CrushTester.cc:567-597)
+    cw = device_crush_weights(cmap)
+    eff = {}
+    for dev, dw in cw.items():
+        rw = weights[dev] if weights is not None and dev < len(weights) \
+            else 0x10000
+        eff[dev] = dw * (rw / 0x10000)
+    total_w = sum(eff.values())
+    n_x = len(xs)
+    expected_total = min(num_rep, len(cw)) * n_x
+    expected = {dev: (ew / total_w) * expected_total if total_w else 0.0
+                for dev, ew in eff.items()}
+
+    if show_statistics:
+        name = next((nm for nm, rn in cmap.rule_names.items()
+                     if rn == ruleno), str(ruleno))
+        for sz in sorted(sizes):
+            w(f"rule {ruleno} ({name}) num_rep {num_rep} result size == "
+              f"{sz}:\t{sizes[sz]}/{n_x}\n")
+    if show_utilization:
+        for dev in sorted(cw):
+            if per[dev] > 0 or expected.get(dev, 0) > 0:
+                w(f"  device {dev}:\t\t stored : {per[dev]}\t "
+                  f"expected : {expected.get(dev, 0):g}\n")
+    return {"per_device": per, "sizes": sizes, "bad_mappings": bad,
+            "expected": expected, "num_x": n_x}
+
+
+def test(cmap: CrushMap, rules: list[int] | None = None,
+         num_rep: int | None = None, min_x: int = 0, max_x: int = 1023,
+         weights: list[int] | None = None, out=None, **show) -> dict:
+    """--test over all (or selected) rules x num_rep sweep."""
+    results = {}
+    todo = sorted(cmap.rules) if rules is None else rules
+    for ruleno in todo:
+        nr_list = [num_rep] if num_rep else \
+            list(range(1, _rule_max_reps(cmap, ruleno) + 1))
+        for nr in nr_list:
+            results[(ruleno, nr)] = test_rule(
+                cmap, ruleno, nr, min_x, max_x, weights, out=out, **show)
+    return results
+
+
+def _rule_max_reps(cmap: CrushMap, ruleno: int) -> int:
+    """Default num_rep sweep upper bound: the rule's largest choose arg
+    (crushtool sweeps --min-rep..--max-rep similarly)."""
+    mx = 0
+    for op, arg1, _ in cmap.rules[ruleno].steps:
+        if op in (2, 3, 6, 7) and arg1 > 0:
+            mx = max(mx, arg1)
+    return mx or 3
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="crushtool",
+                                 description=__doc__.splitlines()[0])
+    ap.add_argument("-i", "--in", dest="infile", required=True,
+                    help="CrushMap as JSON (CrushMap.to_dict) or, with -c, "
+                         "crushmap TEXT")
+    ap.add_argument("-d", "--decompile", action="store_true",
+                    help="emit the map as crushmap text (crushtool -d)")
+    ap.add_argument("-c", "--compile", dest="compile_text",
+                    action="store_true",
+                    help="treat the input as crushmap text (crushtool -c); "
+                         "writes JSON with -o")
+    ap.add_argument("-o", "--out", dest="outfile", default="",
+                    help="output path for -d/-c (default stdout)")
+    ap.add_argument("--test", action="store_true")
+    ap.add_argument("--rule", type=int, default=-1)
+    ap.add_argument("--num-rep", type=int, default=0)
+    ap.add_argument("--min-x", type=int, default=0)
+    ap.add_argument("--max-x", type=int, default=1023)
+    ap.add_argument("--weight", nargs=2, action="append", default=[],
+                    metavar=("OSD", "W"),
+                    help="override device reweight (0.0-1.0)")
+    ap.add_argument("--show-mappings", action="store_true")
+    ap.add_argument("--show-bad-mappings", action="store_true")
+    ap.add_argument("--show-statistics", action="store_true")
+    ap.add_argument("--show-utilization", action="store_true")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where the bulk placement runs (cpu: the plain "
+                         "PyTorch version)")
+    args = ap.parse_args(argv)
+
+    if args.compile_text and args.decompile and args.outfile:
+        ap.error("-c and -d share -o; run them separately")
+    if args.compile_text:
+        from ..crush.compiler import compile_crushmap
+        with open(args.infile) as f:
+            cmap = compile_crushmap(f.read())
+        # emit the compiled JSON only when it is the requested product
+        # (-o, or -c alone): --test/-d output must stay unpolluted
+        if args.outfile:
+            with open(args.outfile, "w") as f:
+                f.write(json.dumps(cmap.to_dict(), indent=1) + "\n")
+        elif not (args.test or args.decompile):
+            sys.stdout.write(json.dumps(cmap.to_dict(), indent=1) + "\n")
+        if not (args.test or args.decompile):
+            return 0
+    else:
+        with open(args.infile) as f:
+            cmap = CrushMap.from_dict(json.load(f))
+
+    if args.decompile:
+        from ..crush.compiler import decompile
+        text = decompile(cmap)
+        if args.outfile and not args.compile_text:
+            with open(args.outfile, "w") as f:
+                f.write(text)
+        else:
+            sys.stdout.write(text)
+        if not args.test:
+            return 0
+
+    if not args.test:
+        ap.error("one of --test, -d, -c is required")
+    weights = None
+    if args.weight:
+        weights = [0x10000] * cmap.max_devices
+        for osd_s, w_s in args.weight:
+            weights[int(osd_s)] = int(float(w_s) * 0x10000)
+    test(cmap,
+         rules=None if args.rule < 0 else [args.rule],
+         num_rep=args.num_rep or None,
+         min_x=args.min_x, max_x=args.max_x, weights=weights,
+         out=sys.stdout,
+         show_mappings=args.show_mappings,
+         show_bad_mappings=args.show_bad_mappings,
+         show_statistics=args.show_statistics,
+         show_utilization=args.show_utilization,
+         device=args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

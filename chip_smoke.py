@@ -78,7 +78,22 @@ drives the port end to end:
                 once as a subprocess with --quick, the gf_apply launch
                 variants once (ceph_tpu_torch.tools.sweep_stripes
                 --quick), and the three sweep kernels timed at [4, 8] x
-                [8, 8 Mi].
+                [8, 8 Mi];
+11. placement -- CRUSH bulk placement on a 1024-OSD straw2 map (8 racks x
+                8 hosts x 16 OSDs, optimal tunables) with pools rep3
+                (chooseleaf firstn host, size 3) and ec84 (chooseleaf
+                indep 12 host) of 2^20 PGs each: (a) every straw2 golden
+                run of the reference C through the crush_straw2 kernel;
+                (b) the kernel against its plain version, bitwise, at
+                2^20 x's for both pools, plain, with reweights (5% out,
+                10% at half) and with a one-position compat weight set,
+                and its CUDA-event ms; (c) 4096 x's of each pool against
+                the host interpreter and 256 PGs against the scalar
+                OSDMap chain; (d) BulkPGMapper.map_pool of each pool (pps,
+                map, post-chain seconds) and osdmaptool.test_map_pgs over
+                both; (e) calc_weight_set and calc_pg_upmaps on rep3 at
+                2^15 PGs; (f) the kernel's bound from the plain version's
+                draw count.  Sub-phases print placement.<name> lines.
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero.  Before the last line it prints the kernel table as one JSON
@@ -1419,6 +1434,313 @@ def phase_serving(K, ecutil, registry_cls, ops: int = 256,
             "batch_copies": copies, "small_ops": small_ops}, n_serving
 
 
+# -- phase placement ----------------------------------------------------------
+
+# BASELINE.json's "1M-PG osdmaptool --test-map-pgs": 2^20 PGs a pool
+PLACEMENT_PGS = 1 << 20
+# Ceph's ~100 PGs per OSD x 1024 OSDs / 3 replicas, to a power of two
+BALANCER_PGS = 1 << 15
+# int32 operations one straw2 draw of csrc/crush_straw2.cu costs at
+# least: the 3-word hash's 183 (3 XORs to seed, 5 mixes of 9 lines of
+# two subtractions, a shift and an XOR), the 16-bit mask, and the 64-bit
+# weight test, subtraction, quotient, negation and comparison counted as
+# two 32-bit operations each (the quotient is really a software routine
+# of several dozen, so the bound is generous)
+STRAW2_OPS_PER_DRAW = 183 + 1 + 2 * 5
+# one int32 operation per lane per clock: 132 SMs x 64 lanes x 1,980 MHz
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+NO_CRUSH_LIBRARY = "no PyTorch call computes CRUSH"
+
+
+def placement_cluster(pg_num: int, seed: int = 0):
+    """The phase's OSDMap: 1024 OSDs, straw2 throughout, root -> 8 racks
+    -> 8 hosts each -> 16 OSDs each, device weights of {1, 2, 4, 8} TiB in
+    16.16 units, optimal (jewel) tunables; pool 1 rep3 (replicated_rule:
+    chooseleaf firstn 0 type host, size 3) and pool 2 ec84 (create_rule's
+    shape: chooseleaf indep 12 type host, k=8 m=4), pg_num each."""
+    from ceph_tpu_torch.crush import CRUSH_BUCKET_STRAW2, CrushMap
+    from ceph_tpu_torch.osdmap import (FLAG_HASHPSPOOL, OSDMap, Pool,
+                                       POOL_TYPE_ERASURE,
+                                       POOL_TYPE_REPLICATED)
+    rng = np.random.default_rng(seed)
+    cm = CrushMap()
+    for t, name in ((1, "host"), (2, "rack"), (3, "root")):
+        cm.set_type_name(t, name)
+    osd, racks = 0, []
+    for r in range(8):
+        hosts = []
+        for h in range(8):
+            w = [int(v) * 0x10000 for v in rng.choice([1, 2, 4, 8], size=16)]
+            hid = cm.add_bucket(CRUSH_BUCKET_STRAW2, 1,
+                                list(range(osd, osd + 16)), w)
+            cm.set_item_name(hid, f"host{8 * r + h}")
+            hosts.append(hid)
+            osd += 16
+        rid = cm.add_bucket(CRUSH_BUCKET_STRAW2, 2, hosts,
+                            [sum(cm.buckets[h].item_weights) for h in hosts])
+        cm.set_item_name(rid, f"rack{r}")
+        racks.append(rid)
+    root = cm.add_bucket(CRUSH_BUCKET_STRAW2, 3, racks,
+                         [sum(cm.buckets[r].item_weights) for r in racks])
+    cm.set_item_name(root, "default")
+    cm.finalize()
+    rep_rule = cm.add_simple_rule("replicated_rule", "default", "host")
+    ec_rule = cm.add_simple_rule("ec84", "default", "host", mode="indep",
+                                 num_rep=12)
+    m = OSDMap(crush=cm)
+    for o in range(osd):
+        m.create_osd(o)
+    m.add_pool(Pool(pool_id=1, type=POOL_TYPE_REPLICATED, size=3,
+                    pg_num=pg_num, crush_rule=rep_rule,
+                    flags=FLAG_HASHPSPOOL, name="rep3"))
+    m.add_pool(Pool(pool_id=2, type=POOL_TYPE_ERASURE, size=12, min_size=9,
+                    pg_num=pg_num, crush_rule=ec_rule,
+                    flags=FLAG_HASHPSPOOL, name="ec84",
+                    erasure_code_profile="k=8 m=4"))
+    return m
+
+
+def placement_variants(m, seed: int = 1) -> dict:
+    """(reweights, choose_args) of the kernel checks: none; 5% of OSDs
+    out and 10% at half weight (forces retries); a one-position compat
+    weight set scaling every item by 0.5-1.5."""
+    rng = np.random.default_rng(seed)
+    n = m.max_osd
+    rw = np.full(n, 0x10000, dtype=np.int64)
+    pick = rng.permutation(n)
+    rw[pick[:n // 20]] = 0
+    rw[pick[n // 20:n // 20 + n // 10]] = 0x8000
+    compat = {bid: {"weight_set": [[int(w * f) for w, f in zip(
+        b.item_weights, rng.choice([0.5, 0.75, 1.0, 1.25, 1.5],
+                                   size=b.size))]]}
+              for bid, b in m.crush.buckets.items()}
+    base = np.asarray(m.osd_weight, dtype=np.int64)
+    return {"base": (base, None), "reweights": (rw, None),
+            "choose_args": (base, compat)}
+
+
+def placement_golden(BulkMapper, CrushMap, none: int) -> dict:
+    """Every straw2 golden run of the reference C (the filter of
+    tests/test_jax_mapper.py) through the kernel."""
+    with open(os.path.join(HERE, "tests", "golden", "crush_golden.json")) as f:
+        golden = json.load(f)
+    runs = xs = 0
+    for g in golden["groups"]:
+        cmap = CrushMap.from_dict(g["map"])
+        if any(b.alg != 5 for b in cmap.buckets.values()) or \
+                cmap.tunables["choose_local_tries"]:
+            continue
+        bm = BulkMapper(cmap, device="cuda")
+        for run in g["runs"]:
+            if len(cmap.rules[run["ruleno"]].steps) != 3:
+                continue
+            nx = len(run["results"])
+            out, _ = bm.map_rule(run["ruleno"], np.arange(nx),
+                                 reweights=run["weights"],
+                                 result_max=run["result_max"])
+            for x, want in enumerate(run["results"]):
+                want = (want + [none] * out.shape[1])[:out.shape[1]]
+                if out[x].tolist() != want:
+                    raise AssertionError(f"golden {run['name']} x={x}: "
+                                         f"{out[x].tolist()} != {want}")
+            runs += 1
+            xs += nx
+    if runs < 10:
+        raise AssertionError(f"only {runs} golden straw2 runs")
+    return {"runs": runs, "xs": xs}
+
+
+def straw2_bound(draws: int, n: int, out_size: int, tables, rw) -> dict:
+    """The least time the card could take: the draws' int32 operations at
+    the peak rate, or the bytes (xs in, out and placed out, every table
+    read once) at 3.35 TB/s, whichever is larger."""
+    ops_ms = draws * STRAW2_OPS_PER_DRAW / INT32_OPS_PER_S * 1e3
+    nbytes = 4 * n * (2 + out_size) + rw.numel() * 8 + sum(
+        t.numel() * t.element_size() for t in (
+            tables.items, tables.hash_ids, tables.ws, tables.sizes,
+            tables.types, tables.row_of_id, tables.ln))
+    b_ms = bytes_bound_ms(nbytes)
+    return {"draws": draws, "bound_ms": max(ops_ms, b_ms),
+            "bound_by": "operations" if ops_ms >= b_ms else "bytes",
+            "ops_bound_ms": ops_ms, "bytes_bound_ms": b_ms}
+
+
+def placement_kernel_checks(CK, mapper, m, dev) -> list[dict]:
+    """(b) and the kernel's times: both pools x the three variants at the
+    pools' full pg_num, kernel against plain version bitwise on the card,
+    the plain version's draws, CUDA-event ms of the kernel alone on
+    device-resident xs, the plain version's ms, the bound."""
+    rows = []
+    for pid in sorted(m.pools):
+        pool = m.pools[pid]
+        xs = torch.from_numpy(mapper.pool_pps(pool).astype(np.int64)).to(dev)
+        shape = mapper.bulk.rule_shape(pool.crush_rule, pool.size)
+        for variant, (rw_np, ca) in placement_variants(m).items():
+            tables = mapper.bulk.tables(ca)
+            rw = torch.from_numpy(rw_np).to(dev)
+            got = CK.straw2_map(xs, tables, rw, shape)
+            torch.cuda.synchronize()
+            stats = {}
+            t0 = time.perf_counter()
+            want = CK.straw2_map_plain(xs, tables, rw, shape, stats=stats)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err = max(max_abs_err(got[0], want[0]),
+                      max_abs_err(got[1], want[1]))
+            if err:
+                raise AssertionError(f"crush_straw2 disagrees with its plain "
+                                     f"version: pool {pool.name} {variant}")
+            ms = cuda_ms(lambda: CK.straw2_map(xs, tables, rw, shape), 5)
+            bound = straw2_bound(stats["draws"], xs.numel(), shape.out_size,
+                                 tables, rw)
+            rows.append({"pool": pool.name, "variant": variant,
+                         "shape": [xs.numel(), shape.out_size],
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         **bound, "bound_share": bound["bound_ms"] / ms,
+                         "draws_per_x": stats["draws"] / xs.numel(),
+                         "mean_placed": float(got[1].float().mean())})
+    return rows
+
+
+def placement_interpreter(m, pms: dict, crush_do_rule, PG, none: int,
+                          sample: int = 4096) -> dict:
+    """(c) sampled x's of each pool: the kernel's raw CRUSH rows against the
+    port's host interpreter, and the mapped PG's up and acting sets
+    against the scalar OSDMap chain."""
+    rng = np.random.default_rng(3)
+    checked = {}
+    for pid, (pm, raw, placed) in pms.items():
+        pool = m.pools[pid]
+        pss = rng.choice(pool.pg_num, size=min(sample, pool.pg_num),
+                         replace=False)
+        for ps in pss.tolist():
+            want = crush_do_rule(m.crush, pool.crush_rule, int(pm.pps[ps]),
+                                 pool.size, list(m.osd_weight))
+            got = raw[ps][:placed[ps]].tolist()
+            if got != want:
+                raise AssertionError(f"{pool.name} ps {ps}: kernel {got} != "
+                                     f"interpreter {want}")
+        for ps in pss[:256].tolist():
+            up, upp, act, actp = m.pg_to_up_acting_osds(PG(pid, ps))
+            if pm.up[ps][:len(up)].tolist() != up or \
+                    int(pm.up_primary[ps]) != upp or \
+                    pm.acting[ps][:len(act)].tolist() != act or \
+                    int(pm.acting_primary[ps]) != actp or \
+                    (pm.up[ps][len(up):] != none).any():
+                raise AssertionError(f"{pool.name} ps {ps}: map_pool "
+                                     f"disagrees with the scalar chain")
+        checked[pool.name] = len(pss)
+    return checked
+
+
+def placement_balancer(mgr, CK, tracer, m) -> dict:
+    """(e) the balancer on rep3 at BALANCER_PGS: calc_weight_set (6
+    iterations) and calc_pg_upmaps (8, max_deviation 1.0); seconds an
+    iteration split into the map calls (kernel and copies, the
+    crush.bulk_map spans) and the host's share, the kernel's own share
+    from its launches at this shape, and what each found."""
+    bm = m.clone()
+    bm.pools[1].pg_num = bm.pools[1].pgp_num = BALANCER_PGS
+    out = {"pg_num": BALANCER_PGS}
+    for name, call in (
+            ("calc_weight_set",
+             lambda: mgr.calc_weight_set(bm, max_iterations=6, pools=[1])),
+            ("calc_pg_upmaps",
+             lambda: mgr.calc_pg_upmaps(bm, max_iterations=8,
+                                        max_deviation=1.0, pools=[1]))):
+        before = tracer.histograms().get("crush.bulk_map", {"sum": 0.0})
+        n0 = CK.launches["crush_straw2"]
+        t0 = time.perf_counter()
+        res = call()
+        seconds = time.perf_counter() - t0
+        launches = CK.launches["crush_straw2"] - n0
+        map_s = tracer.histograms()["crush.bulk_map"]["sum"] - before["sum"]
+        # calc_weight_set maps once before its loop
+        iters = launches - 1 if name == "calc_weight_set" else launches
+        found = (0 if res is None else len(res)) \
+            if name == "calc_weight_set" else len(res.new_pg_upmap_items)
+        out[name] = {"seconds": seconds, "iterations": iters,
+                     "launches": launches,
+                     "seconds_per_iteration": seconds / max(iters, 1),
+                     "map_seconds": map_s, "host_seconds": seconds - map_s,
+                     "found": found}
+    return out
+
+
+def phase_placement(dev, pg_num: int = PLACEMENT_PGS,
+                    sample: int = 4096) -> tuple[dict, int, list]:
+    """CRUSH bulk placement on a 1024-OSD map with rep3 and ec84 at
+    ``pg_num`` PGs each: (a) the golden runs, (b) the kernel against its
+    plain version, (c) a sample against the host interpreter, (d) the
+    main path timed (BulkPGMapper.map_pool, osdmaptool.test_map_pgs),
+    (e) the balancer, (f) the bound.  Returns (the sub-phases' lines,
+    the main path's launches, the kernel rows)."""
+    import io
+    from ceph_tpu_torch import mgr
+    from ceph_tpu_torch.common.tracer import default_tracer
+    from ceph_tpu_torch.crush import CRUSH_ITEM_NONE, CrushMap, crush_do_rule
+    from ceph_tpu_torch.crush.torch_mapper import BulkMapper
+    from ceph_tpu_torch.ops import crush_kernels as CK
+    from ceph_tpu_torch.osdmap import PG, BulkPGMapper
+    from ceph_tpu_torch.tools import osdmaptool
+    lines = {"golden": placement_golden(BulkMapper, CrushMap,
+                                        CRUSH_ITEM_NONE)}
+    t0 = time.perf_counter()
+    m = placement_cluster(pg_num)
+    mapper = BulkPGMapper(m)
+    build_s = time.perf_counter() - t0
+    rows = placement_kernel_checks(CK, mapper, m, dev)
+    lines["kernel"] = {"rows": rows, "build_map_s": build_s}
+
+    # the main path, from zero launches: map_pool of both pools,
+    # test_map_pgs over both, the balancer
+    tracer = default_tracer()
+    CK.reset_launches()
+    timings, pms = {}, {}
+    for pid in sorted(m.pools):
+        pool = m.pools[pid]
+        before = dict(mapper.times)
+        t0 = time.perf_counter()
+        pm = mapper.map_pool(pid)
+        seconds = time.perf_counter() - t0
+        stage = {k: mapper.times[k] - before[k] for k in before}
+        timings[pool.name] = {"map_pool_s": seconds, **stage,
+                              "pgs_per_s": pool.pg_num / seconds}
+        pms[pid] = pm
+    n_map = CK.launches["crush_straw2"]
+    report = io.StringIO()
+    t0 = time.perf_counter()
+    stats = osdmaptool.test_map_pgs(m, out=report)
+    timings["test_map_pgs_s"] = time.perf_counter() - t0
+    placed = sum(int((pm.acting != CRUSH_ITEM_NONE).sum())
+                 for pm in pms.values())
+    if stats["total"] != placed or stats["in"] != m.max_osd:
+        raise AssertionError(f"test_map_pgs counted {stats['total']} of "
+                             f"{placed} placements over {stats['in']} OSDs")
+    timings["report"] = report.getvalue().splitlines()[-5:]
+    lines["balancer"] = placement_balancer(mgr, CK, tracer, m)
+    launches = CK.launches["crush_straw2"]
+    timings["launches"] = {"map_pool": n_map, "total": launches}
+    if n_map != len(m.pools) or launches <= n_map:
+        raise AssertionError(f"the main path's launches: {timings}")
+
+    # (c) the raw CRUSH rows of each pool, outside the counted window
+    raws = {pid: (pms[pid], *mapper.bulk.map_rule(
+        m.pools[pid].crush_rule, pms[pid].pps, reweights=m.osd_weight,
+        result_max=m.pools[pid].size)) for pid in pms}
+    lines["interpreter"] = placement_interpreter(m, raws, crush_do_rule, PG,
+                                                 CRUSH_ITEM_NONE, sample)
+    lines["timings"] = timings
+    base = [r for r in rows if r["variant"] == "base"]
+    lines["bound"] = {"ops_per_draw": STRAW2_OPS_PER_DRAW,
+                      "int32_ops_per_s": INT32_OPS_PER_S,
+                      "rows": [{k: r[k] for k in (
+                          "pool", "draws", "draws_per_x", "ms", "bound_ms",
+                          "bound_by", "ops_bound_ms", "bytes_bound_ms",
+                          "bound_share")} for r in base]}
+    return lines, launches, base
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -1468,6 +1790,9 @@ def main() -> int:
     emit("ec_bench", **phase_ec_bench(), gpu=smi)
     sweep, rows_sweep = phase_sweep(K, SK, KS, cuda_build, dev)
     emit("sweep", **sweep, gpu=smi)
+    placement, n_place, rows_place = phase_placement(dev)
+    for name, line in placement.items():
+        emit(f"placement.{name}", **line, gpu=smi)
 
     def on(kernel):
         return [r for r in shapes if r["kernel"] == kernel]
@@ -1489,7 +1814,17 @@ def main() -> int:
                    "ceph_tpu/ops/rs_kernels.py:302", "ecutil", n_crc,
                    on("crc32c_rows"))
         | {"launches_by_path": {"ecutil": n_crc, "repair": n_repair_crc},
-           "library": "no PyTorch call computes crc32c"}]}))
+           "library": "no PyTorch call computes crc32c"},
+        {"name": "crush_straw2", "route": "cuda",
+         "source": "ceph_tpu_torch/ops/csrc/crush_straw2.cu",
+         "replaces": "ceph_tpu/crush/jax_mapper.py:180",
+         "path": "placement", "shape": rows_place[0]["shape"],
+         "launches": n_place,
+         "max_abs_err": max(r["max_abs_err"] for r in rows_place),
+         "ms": rows_place[0]["ms"], "plain_ms": rows_place[0]["plain_ms"],
+         "bound_ms": rows_place[0]["bound_ms"],
+         "bound_by": rows_place[0]["bound_by"], "library_ms": None,
+         "library": NO_CRUSH_LIBRARY, "shapes": rows_place}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -113,6 +113,30 @@ for name, profile in (("xor", {"k": "3"}),
         .tobytes() == enc[1].tobytes(), name
 assert pl.perf.get("errors") == 0 and pl.perf.get("completed") == 10
 pl.close()
+import io
+from ceph_tpu_torch.crush import CRUSH_BUCKET_STRAW2, CrushMap
+from ceph_tpu_torch.mgr import calc_pg_upmaps
+from ceph_tpu_torch.osdmap import OSDMap, Pool
+from ceph_tpu_torch.tools import crushtool, osdmaptool
+cm = CrushMap()
+cm.set_type_name(1, "host")
+cm.set_type_name(2, "root")
+hosts = [cm.add_bucket(CRUSH_BUCKET_STRAW2, 1, list(range(3 * h, 3 * h + 3)),
+                       [0x10000] * 3) for h in range(4)]
+root = cm.add_bucket(CRUSH_BUCKET_STRAW2, 2, hosts, [0x30000] * 4)
+cm.set_item_name(root, "default")
+cm.finalize()
+om = OSDMap(crush=cm)
+for o in range(12):
+    om.create_osd(o)
+om.add_pool(Pool(pool_id=1, size=3, pg_num=64, name="rbd",
+                 crush_rule=cm.add_simple_rule("replicated_rule", "default",
+                                               "host")))
+report = io.StringIO()
+st = osdmaptool.test_map_pgs(om, out=report, device="cpu")
+assert st["total"] == 3 * 64 and "pool 1 pg_num 64" in report.getvalue()
+crushtool.test_rule(cm, 0, 3, 0, 63, device="cpu")
+calc_pg_upmaps(om, max_iterations=2, device="cpu")
 print(json.dumps(sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m == "jaxlib" or m.startswith("jaxlib.")
