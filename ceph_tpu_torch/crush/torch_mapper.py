@@ -200,6 +200,8 @@ class BulkMapper:
             def up(a):
                 return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
             got = {"items": up(cm.items), "ws": up(cm.weights[None]),
+                   "recip": up(crush_kernels.straw2_reciprocals(
+                       cm.weights[None], cm.sizes)),
                    "sizes": up(cm.sizes), "types": up(cm.types),
                    "row_of_id": up(cm.row_of_id), "ln": up(LN_TABLE_S64)}
             self._cache[key] = got
@@ -212,15 +214,18 @@ class BulkMapper:
         dev = torch_device(device or self.device)
         fixed = self._map_tensors(dev)
         if choose_args:
+            # the weight set changes on every balancer iteration: its
+            # reciprocals are built with it
             _, ws, ids = self._compile_choose_args(choose_args)
-            ws = torch.from_numpy(np.ascontiguousarray(ws)).to(dev)
-            ids = torch.from_numpy(np.ascontiguousarray(ids)).to(dev)
+            recip = crush_kernels.straw2_reciprocals(ws, self.cm.sizes)
+            ws, recip, ids = (torch.from_numpy(np.ascontiguousarray(a)).to(
+                dev) for a in (ws, recip, ids))
         else:
-            ws, ids = fixed["ws"], fixed["items"]
+            ws, recip, ids = fixed["ws"], fixed["recip"], fixed["items"]
         return crush_kernels.Straw2Tables(
-            items=fixed["items"], hash_ids=ids, ws=ws, sizes=fixed["sizes"],
-            types=fixed["types"], row_of_id=fixed["row_of_id"],
-            ln=fixed["ln"])
+            items=fixed["items"], hash_ids=ids, ws=ws, recip=recip,
+            sizes=fixed["sizes"], types=fixed["types"],
+            row_of_id=fixed["row_of_id"], ln=fixed["ln"])
 
     def rule_shape(self, ruleno: int, result_max: int = 0
                    ) -> crush_kernels.RuleShape:

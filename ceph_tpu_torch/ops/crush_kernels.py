@@ -7,10 +7,12 @@ for a map whose buckets are all straw2, in the dense form of
 ``crush.torch_mapper.CompiledMap`` (items, hash ids and weight sets per
 bucket row).  On a CUDA tensor :func:`straw2_map` launches the
 hand-written kernel of ``csrc/crush_straw2.cu`` (built at first use by
-:mod:`.cuda_build`), one thread per x; it never falls back to anything
-else.  On a CPU tensor it runs :func:`straw2_map_plain`, the plain PyTorch
-version: vectorized over x on int64 tensors with the reference's bounded
-loops, each loop step applied only to the x's still walking it.
+:mod:`.cuda_build`), one thread per x that walks its own attempts, with
+the quotient taken through :func:`straw2_reciprocals`; it never falls
+back to anything else.  On a CPU tensor it runs :func:`straw2_map_plain`,
+the plain PyTorch version: vectorized over x on int64 tensors with the
+reference's bounded loops, each loop step applied only to the x's still
+walking it.
 
 Both compute exactly what the reference's vmapped chooser does (the JAX
 package's ``BulkMapper._kernel``, mapper.c's straw2 rule walk with
@@ -42,6 +44,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..crush.hash import crush_hash32_2_torch, crush_hash32_3_torch
@@ -51,6 +54,8 @@ S64_MIN = -(1 << 63)
 LN_BIAS = 0x1000000000000          # 2^48
 NONE = 0x7FFFFFFF                  # CRUSH_ITEM_NONE
 UNDEF = 0x7FFFFFFE                 # CRUSH_ITEM_UNDEF
+STATE_CAP = 16                     # positions of per-x state in shared memory
+RECIP_SHIFT = 56                   # a reciprocal word is M | l << 56
 
 launches = {"crush_straw2": 0}
 
@@ -80,12 +85,15 @@ class RuleShape:
 class Straw2Tables:
     """A compiled straw2 map on one device.  ``items``, ``hash_ids``
     [B, S] int32 (the hash runs over ``hash_ids``, the bucket returns its
-    ``items``); ``ws`` [P, B, S] int64 weight sets; ``sizes``, ``types``
-    [B] int32; ``row_of_id`` [R] int32 (row of bucket id -1 - i, -1 if
-    absent); ``ln`` [65536] int64, crush_ln of every 16-bit u."""
+    ``items``); ``ws`` [P, B, S] int64 weight sets and ``recip``, their
+    :func:`straw2_reciprocals` (the kernel's quotient; the plain version
+    divides by ``ws``); ``sizes``, ``types`` [B] int32; ``row_of_id`` [R]
+    int32 (row of bucket id -1 - i, -1 if absent); ``ln`` [65536] int64,
+    crush_ln of every 16-bit u."""
     items: torch.Tensor
     hash_ids: torch.Tensor
     ws: torch.Tensor
+    recip: torch.Tensor
     sizes: torch.Tensor
     types: torch.Tensor
     row_of_id: torch.Tensor
@@ -94,6 +102,26 @@ class Straw2Tables:
     @property
     def device(self) -> torch.device:
         return self.items.device
+
+
+def straw2_reciprocals(ws: np.ndarray, sizes: np.ndarray) -> np.ndarray:
+    """The kernel's divisor table for weight sets ``ws`` [P, B, S] of
+    buckets of ``sizes`` [B]: int64 words ``M | l << 56`` with
+    ``2^(l-1) <= w < 2^l`` and ``M = ceil(2^(49+l) / w)``, so that
+    ``(n << 15) * M >> (64 + l) == n // w`` for every ``0 <= n < 2^49``
+    (the straw2 numerators ``2^48 - ln(u)``); 0 for a dead slot (weight
+    <= 0, or past its bucket's size)."""
+    ws = np.asarray(ws, dtype=np.int64)
+    live = (ws > 0) & (np.arange(ws.shape[2])[None, None, :] <
+                       np.asarray(sizes)[None, :, None])
+    out = np.zeros(ws.shape, dtype=np.int64)
+    weights, inv = np.unique(ws[live], return_inverse=True)
+    words = []
+    for w in weights.tolist():
+        l = w.bit_length()
+        words.append(-(-(1 << (49 + l)) // w) | l << RECIP_SHIFT)
+    out[live] = np.asarray(words, dtype=np.int64)[inv]
+    return out
 
 
 def _wrap(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -283,8 +311,8 @@ def _as_u32_bits(xs: torch.Tensor) -> torch.Tensor:
 
 def _check_tables(t: Straw2Tables, reweights: torch.Tensor) -> None:
     want = {"items": torch.int32, "hash_ids": torch.int32,
-            "ws": torch.int64, "sizes": torch.int32, "types": torch.int32,
-            "row_of_id": torch.int32, "ln": torch.int64}
+            "ws": torch.int64, "recip": torch.int64, "sizes": torch.int32,
+            "types": torch.int32, "row_of_id": torch.int32, "ln": torch.int64}
     for name, dtype in want.items():
         v = getattr(t, name)
         if v.dtype != dtype or v.device != t.device or not v.is_contiguous():
@@ -292,7 +320,8 @@ def _check_tables(t: Straw2Tables, reweights: torch.Tensor) -> None:
                              f"on {t.device}")
     b, s = t.items.shape
     if t.hash_ids.shape != (b, s) or t.ws.dim() != 3 or \
-            t.ws.shape[1:] != (b, s) or t.sizes.shape != (b,) or \
+            t.ws.shape[1:] != (b, s) or t.recip.shape != t.ws.shape or \
+            t.sizes.shape != (b,) or \
             t.types.shape != (b,) or t.ln.shape != (1 << 16,) or \
             t.row_of_id.numel() < 1 or t.ws.shape[0] < 1:
         raise ValueError("straw2_map: tables of mismatched shapes")
@@ -322,8 +351,10 @@ def straw2_map(xs: torch.Tensor, tables: Straw2Tables,
     placed = torch.empty(n, dtype=torch.int32, device=xs.device)
     if n == 0:
         return out, placed
-    # the leaf walk keeps its chosen buckets beside the devices it returns
-    scratch = torch.empty_like(out) if s.leaf else out
+    # past STATE_CAP positions the leaf walk keeps its chosen buckets in a
+    # row of its own beside the devices it returns
+    scratch = torch.empty_like(out) if s.leaf and s.out_size > STATE_CAP \
+        else out
     xs32 = _as_u32_bits(xs)
     t = tables
     p, b, w = t.ws.shape
@@ -332,7 +363,7 @@ def straw2_map(xs: torch.Tensor, tables: Straw2Tables,
         stream = torch.cuda.current_stream(xs.device).cuda_stream
         err = lib.crush_straw2_launch(
             xs32.data_ptr(), n, t.items.data_ptr(), t.hash_ids.data_ptr(),
-            t.ws.data_ptr(), p, b, w, t.sizes.data_ptr(),
+            t.recip.data_ptr(), p, b, w, t.sizes.data_ptr(),
             t.types.data_ptr(), t.row_of_id.data_ptr(),
             t.row_of_id.numel(), reweights.data_ptr(), reweights.numel(),
             t.ln.data_ptr(), out.data_ptr(), scratch.data_ptr(),

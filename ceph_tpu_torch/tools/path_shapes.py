@@ -1,4 +1,4 @@
-"""Time the GF kernels at every shape the port's paths launch them at.
+"""Time the hand kernels at every shape the port's paths launch them at.
 
     python ceph_tpu_torch/tools/path_shapes.py [--root DIR] [--only KERNEL]
 
@@ -33,11 +33,18 @@ For each launch of ``chip_smoke.py``'s main paths, on ``cuda:0``:
 - sweep: the kernel sweep's bit-plane variants at Cauchy RS(8,4) over
   [8, 8 Mi]: ``bitplane_apply`` int8 and bf16, ``bitplane_apply_bd`` int8
   at G = 4 and 2 and bf16 at G = 4, bound by bytes or tensor-core
-  operations, whichever is larger.
+  operations, whichever is larger;
+- placement: ``crush_straw2`` on phase placement's 1024-OSD straw2 map
+  at 2^20 x's (the pools' placement seeds), rep3 (chooseleaf firstn 3
+  host) and ec84 (chooseleaf indep 12 host), each plain, with reweights
+  and with a compat weight set; bound by the straw2 draws the plain
+  version counts at the least issue time of a draw's instructions
+  (``STRAW2_DRAWS_PER_S``) or the bytes, whichever is larger.
 
 Each shape gets the kernel's time (CUDA events, the best of 3 means over
-20 launches, after 2), its bitwise difference from the plain version and
-the plain version's time (3 calls after 1), the bytes bound at
+20 launches, after 2; 10 for ``crush_straw2``), its bitwise difference
+from the plain version and the plain version's time (3 calls after 1;
+for ``crush_straw2`` the one call that checks it), the bytes bound at
 3.35 TB/s (and for ``xor_apply`` the XOR bound), the copy ceiling
 (``sweep_kernels.copy_rows`` moving the same bytes, in the same run; none
 where the apply writes more rows than it reads, or for the crc, which
@@ -62,8 +69,10 @@ import argparse
 import importlib
 import json
 import os
+import re
 import subprocess
 import sys
+import time
 import types
 
 import numpy as np
@@ -89,7 +98,10 @@ def load_package(root: str | None = None) -> types.SimpleNamespace:
     sys.path.insert(0, os.path.abspath(root))
     names = {"rs_kernels": "ops.rs_kernels", "sweep_kernels":
              "ops.sweep_kernels", "codec": "ops.codec", "registry":
-             "plugins.registry", "bitmatrix": "gf.bitmatrix"}
+             "plugins.registry", "bitmatrix": "gf.bitmatrix",
+             "crush_kernels": "ops.crush_kernels", "cuda_build":
+             "ops.cuda_build", "crush": "crush", "torch_mapper":
+             "crush.torch_mapper", "osdmap": "osdmap"}
     return types.SimpleNamespace(**{
         key: importlib.import_module(f"ceph_tpu_torch.{mod}")
         for key, mod in names.items()})
@@ -317,6 +329,8 @@ def sm_clock_max_mhz() -> float:
 def measure(pkg, shape: dict, dev, seed: int = 3) -> dict:
     """Time one launch shape; the kernel's output is held against its plain
     version first."""
+    if shape["kernel"] == "crush_straw2":
+        return _measure_straw2(pkg, shape, dev)
     K, SK = pkg.rs_kernels, pkg.sweep_kernels
     gen = torch.Generator(device=dev).manual_seed(seed)
     data = torch.randint(0, 256, (shape["rows"], shape["cols"]),
@@ -456,6 +470,296 @@ def _measure_bitplane(K, SK, shape: dict, data: torch.Tensor, dev) -> dict:
             "share_of_copy": None}
 
 
+# -- crush_straw2: chip_smoke.py's phase placement ---------------------------
+
+PLACEMENT_PGS = 1 << 20            # BASELINE.json's 1M-PG test-map-pgs
+# The straw2 draw's bound: the least SM-clocks the card must spend issuing
+# one draw's instructions.  An SM issues 128 lanes a clock (4 schedulers x
+# 32); the integer ALU pipe takes 64 of them, the FMA pipe's IMAD another
+# 64 (132 SMs, 1,980 MHz: H100 SXM).  The instructions of a draw, from
+# the work and from the draw loop of csrc/crush_straw2.cu as ptxas emits
+# it for sm_90a (cuobjdump -sass), by the pipes that can execute them:
+#   - ALU only, 60: the 3-word rjenkins hash's 45 XORs and one to seed it
+#     (SEED ^ x ^ r is the same for every slot of a choice); the ln
+#     index's mask and the reciprocal word's multiplier mask (LOP3 2); the
+#     dead-slot test, the 64-bit compare with the best quotient and the
+#     loop's tests (ISETP 8); the best's update (SEL 3, PLOP3 1);
+#   - either pipe at one instruction, 63: the hash's 45 shifts (SHF, or
+#     IMAD.SHL / IMAD.HI by a power of two) and the loop's other 18
+#     (two-input adds and carries, the quotient's shifts, pointer steps);
+#   - either pipe at one ALU or two FMA instructions, 45: the hash's
+#     subtract pairs, one IADD3 of three inputs on the ALU, but two
+#     IMAD.IADD on the FMA pipe (an IMAD adds one input);
+#   - FMA only, 4: the 64-bit high multiply (IMAD.WIDE.U32 3, .X 1);
+#   - neither, 3: the loads of the reciprocal word, the hash id and ln[u].
+# Branch and convergence instructions are left out.  :func:`issue_floor`
+# gives the pipes their least share of these: 35/24 = 1.458 SM-clocks a
+# draw, where this build's own split (146 of its 176 on the ALU pipe)
+# takes 2.28.  Phase placement recounts the build's loop
+# (:func:`straw2_sass_counts`) and fails if it needs fewer SM-clocks than
+# this: the bound would no longer be a floor.
+STRAW2_DRAW_WORK = {"alu": 60, "either": 63, "pairs": 45, "fma": 4,
+                    "other": 3}
+ISSUE_LANES, PIPE_LANES = 128, 64
+
+
+def issue_floor(alu: float, either: float, pairs: float, fma: float,
+                other: float) -> float:
+    """The least SM-clocks that issue ``alu`` ALU-only, ``fma`` FMA-only
+    and ``other`` instructions of neither pipe, ``either`` that go to
+    either pipe as one instruction, and ``pairs`` that take one ALU or two
+    FMA instructions: ALU work moves to the FMA pipe, the one-for-one
+    kind first, until the ALU pipe no longer takes longest."""
+    a, f, n = alu + either + pairs, fma, alu + either + pairs + fma + other
+
+    def clocks(a, f, n):
+        return max(a / PIPE_LANES, f / PIPE_LANES, n / ISSUE_LANES)
+
+    x = min(either, max(0.0, (a - f) / 2))
+    a, f = a - x, f + x
+    # a moved pair frees one ALU slot and costs two FMA slots and one issue
+    y = min(pairs, max(0.0, min((a - f) / 3, (2 * a - n) / 3)))
+    return clocks(a - y, f + 2 * y, n + y)
+
+
+STRAW2_CLOCKS_PER_DRAW = issue_floor(**STRAW2_DRAW_WORK)
+STRAW2_DRAWS_PER_S = 132 * 1.98e9 / STRAW2_CLOCKS_PER_DRAW
+ALU_ONLY = ("LOP3", "ISETP", "SEL", "PLOP3", "IMNMX", "PRMT")
+NEITHER = ("LDG", "LDS", "LDL", "STG", "STS", "STL", "SHFL")
+CONTROL_OPCODES = ("BRA", "BSSY", "BSYNC", "WARPSYNC", "NOP")
+
+
+def placement_cluster(pkg, pg_num: int, seed: int = 0):
+    """Phase placement's OSDMap: 1024 OSDs, straw2 throughout, root -> 8
+    racks -> 8 hosts each -> 16 OSDs each, device weights of {1, 2, 4, 8}
+    TiB in 16.16 units, optimal (jewel) tunables; pool 1 rep3
+    (replicated_rule: chooseleaf firstn 0 type host, size 3) and pool 2
+    ec84 (create_rule's shape: chooseleaf indep 12 type host, k=8 m=4),
+    pg_num each."""
+    C, O = pkg.crush, pkg.osdmap
+    rng = np.random.default_rng(seed)
+    cm = C.CrushMap()
+    for t, name in ((1, "host"), (2, "rack"), (3, "root")):
+        cm.set_type_name(t, name)
+    osd, racks = 0, []
+    for r in range(8):
+        hosts = []
+        for h in range(8):
+            w = [int(v) * 0x10000 for v in rng.choice([1, 2, 4, 8], size=16)]
+            hid = cm.add_bucket(C.CRUSH_BUCKET_STRAW2, 1,
+                                list(range(osd, osd + 16)), w)
+            cm.set_item_name(hid, f"host{8 * r + h}")
+            hosts.append(hid)
+            osd += 16
+        rid = cm.add_bucket(C.CRUSH_BUCKET_STRAW2, 2, hosts,
+                            [sum(cm.buckets[h].item_weights) for h in hosts])
+        cm.set_item_name(rid, f"rack{r}")
+        racks.append(rid)
+    root = cm.add_bucket(C.CRUSH_BUCKET_STRAW2, 3, racks,
+                         [sum(cm.buckets[r].item_weights) for r in racks])
+    cm.set_item_name(root, "default")
+    cm.finalize()
+    rep_rule = cm.add_simple_rule("replicated_rule", "default", "host")
+    ec_rule = cm.add_simple_rule("ec84", "default", "host", mode="indep",
+                                 num_rep=12)
+    m = O.OSDMap(crush=cm)
+    for o in range(osd):
+        m.create_osd(o)
+    m.add_pool(O.Pool(pool_id=1, type=O.POOL_TYPE_REPLICATED, size=3,
+                      pg_num=pg_num, crush_rule=rep_rule,
+                      flags=O.FLAG_HASHPSPOOL, name="rep3"))
+    m.add_pool(O.Pool(pool_id=2, type=O.POOL_TYPE_ERASURE, size=12,
+                      min_size=9, pg_num=pg_num, crush_rule=ec_rule,
+                      flags=O.FLAG_HASHPSPOOL, name="ec84",
+                      erasure_code_profile="k=8 m=4"))
+    return m
+
+
+def placement_variants(m, seed: int = 1) -> dict:
+    """(reweights, choose_args) of the kernel's cases: none; 5% of OSDs
+    out and 10% at half weight (forces retries); a one-position compat
+    weight set scaling every item by 0.5-1.5."""
+    rng = np.random.default_rng(seed)
+    n = m.max_osd
+    rw = np.full(n, 0x10000, dtype=np.int64)
+    pick = rng.permutation(n)
+    rw[pick[:n // 20]] = 0
+    rw[pick[n // 20:n // 20 + n // 10]] = 0x8000
+    compat = {bid: {"weight_set": [[int(w * f) for w, f in zip(
+        b.item_weights, rng.choice([0.5, 0.75, 1.0, 1.25, 1.5],
+                                   size=b.size))]]}
+              for bid, b in m.crush.buckets.items()}
+    base = np.asarray(m.osd_weight, dtype=np.int64)
+    return {"base": (base, None), "reweights": (rw, None),
+            "choose_args": (base, compat)}
+
+
+def straw2_bound(draws: int, n: int, out_size: int, tables, rw) -> dict:
+    """The least time the card could take: the draws at
+    STRAW2_DRAWS_PER_S, or the bytes (xs in, out and placed out, every
+    table read once) at 3.35 TB/s, whichever is larger."""
+    ops_ms = draws / STRAW2_DRAWS_PER_S * 1e3
+    nbytes = 4 * n * (2 + out_size) + rw.numel() * 8 + sum(
+        getattr(tables, f).numel() * getattr(tables, f).element_size()
+        for f in ("items", "hash_ids", "sizes", "types", "row_of_id", "ln",
+                  # the kernel reads one table of weights or reciprocals
+                  "ws"))
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"draws": draws, "bound_ms": max(ops_ms, b_ms),
+            "bound_by": "operations" if ops_ms >= b_ms else "bytes",
+            "ops_bound_ms": ops_ms, "bytes_bound_ms": b_ms}
+
+
+def straw2_shapes(pkg, cluster=None) -> list[dict]:
+    """Phase placement's kernel launches: both pools of
+    :func:`placement_cluster` at PLACEMENT_PGS x's, each variant of
+    :func:`placement_variants`; ``cluster`` is the (OSDMap,
+    BulkPGMapper) to use, built here once when not given."""
+    if cluster is None:
+        m = placement_cluster(pkg, PLACEMENT_PGS)
+        cluster = (m, pkg.osdmap.BulkPGMapper(m))
+    m, mapper = cluster
+    return [dict(kernel="crush_straw2", path="placement",
+                 label=f"{m.pools[pid].name} {variant}", pool=pid,
+                 variant=variant, cluster=cluster)
+            for pid in sorted(m.pools) for variant in placement_variants(m)]
+
+
+def _measure_straw2(pkg, shape: dict, dev) -> dict:
+    """One placement launch: bitwise against straw2_map_plain (which
+    counts the draws, and whose one checking call is timed on the host's
+    clock), CUDA-event ms, the bound."""
+    CK = pkg.crush_kernels
+    m, mapper = shape["cluster"]
+    pool = m.pools[shape["pool"]]
+    xs = torch.from_numpy(mapper.pool_pps(pool).astype(np.int64)).to(dev)
+    rule = mapper.bulk.rule_shape(pool.crush_rule, pool.size)
+    rw_np, ca = placement_variants(m)[shape["variant"]]
+    tables = mapper.bulk.tables(ca)
+    rw = torch.from_numpy(rw_np).to(dev)
+    run = lambda: CK.straw2_map(xs, tables, rw, rule)      # noqa: E731
+    got = run()
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = CK.straw2_map_plain(xs, tables, rw, rule, stats=stats)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(int((got[0].long() - want[0].long()).abs().max()),
+              int((got[1].long() - want[1].long()).abs().max()))
+    mean_placed = float(got[1].float().mean())
+    del got, want
+    ms = cuda_ms(run, iters=10)
+    bound = straw2_bound(stats["draws"], xs.numel(), rule.out_size, tables,
+                         rw)
+    return {"kernel": "crush_straw2", "path": "placement",
+            "label": shape["label"], "pool": pool.name,
+            "variant": shape["variant"], "shape": [xs.numel(), rule.out_size],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound,
+            "share_of_bound": bound["bound_ms"] / ms,
+            "draws_per_x": stats["draws"] / xs.numel(),
+            "mean_placed": mean_placed, "copy_ms": None,
+            "share_of_copy": None}
+
+
+def straw2_sass_counts(library: str, nvcc: str) -> dict | None:
+    """:func:`draw_loop_counts` of the straw2 library at ``library``; None
+    where the toolkit has no cuobjdump."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    return draw_loop_counts(subprocess.run(
+        [tool, "-sass", library], capture_output=True, text=True,
+        timeout=120).stdout)
+
+
+def pipe_class(instruction: str) -> str:
+    """The :data:`STRAW2_DRAW_WORK` class of one SASS instruction (its
+    text without the address): control, alu, fma, either, pairs (an
+    IADD3 of three non-zero inputs) or other.  An opcode not listed goes
+    to ``either``, which can only lower a floor."""
+    words = instruction.replace(",", " ").split()
+    if words[0].startswith("@"):
+        words = words[1:]
+    op = words[0].split(".")[0]
+    if op in CONTROL_OPCODES:
+        return "control"
+    if op in ALU_ONLY:
+        return "alu"
+    if op in NEITHER or op.startswith("U"):
+        return "other"
+    if words[0].startswith(("IMAD.WIDE", "IMAD.HI")):
+        return "fma"
+    if op == "IADD3":
+        # destination, then carry-out predicates, then three inputs
+        inputs = [w for w in words[2:] if not re.fullmatch(r"!?U?P[0-9T]", w)]
+        if sum(w not in ("RZ", "URZ", "0x0") for w in inputs[:3]) == 3:
+            return "pairs"
+    return "either"
+
+
+def draw_loop_counts(sass: str) -> dict:
+    """Per kernel of ``cuobjdump -sass`` output: the instructions of its
+    draw loop (the innermost loop holding a 64-bit high multiply,
+    IMAD.WIDE.U32.X) per draw by opcode and by :func:`pipe_class`, and
+    the :func:`issue_floor` of those, in SM-clocks a draw."""
+    kernels: dict[str, list] = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            kernels[name] = []
+            continue
+        hit = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if name and hit:
+            kernels[name].append((int(hit.group(1), 16), hit.group(2)))
+    out = {}
+    for name, ins in kernels.items():
+        loops = []
+        for addr, text in ins:
+            back = re.search(r"\bBRA\b.*0x([0-9a-f]+)\s*$", text)
+            if back and int(back.group(1), 16) <= addr:
+                loops.append((int(back.group(1), 16), addr))
+        out[name] = None
+        for lo, hi in sorted(loops, key=lambda p: p[1] - p[0]):
+            body = [text for addr, text in ins if lo <= addr <= hi]
+            muls = sum("IMAD.WIDE.U32.X" in text for text in body)
+            if not muls:
+                continue
+            ops: dict[str, int] = {}
+            work = dict.fromkeys(STRAW2_DRAW_WORK, 0)
+            for text in body:
+                words = text.split()
+                op = words[1] if words[0].startswith("@") else words[0]
+                ops[op.split(".")[0]] = ops.get(op.split(".")[0], 0) + 1
+                kind = pipe_class(text)
+                if kind != "control":
+                    work[kind] += 1
+            work = {k: v / muls for k, v in work.items()}
+            out[name] = {"multiplies": muls, "opcodes": ops, "work": work,
+                         "instructions_per_draw": sum(work.values()),
+                         "clocks_per_draw": issue_floor(**work)}
+            break
+    return out
+
+
+def check_straw2_floor(counts: dict | None) -> None:
+    """Raise when there is no recount, or when a recounted draw loop
+    (:func:`draw_loop_counts`) needs fewer SM-clocks than
+    STRAW2_CLOCKS_PER_DRAW: the bound would no longer be a floor of that
+    build's work."""
+    if not counts:
+        raise AssertionError("no straw2 kernel recounted (no cuobjdump?)")
+    for name, loop in counts.items():
+        if loop is None:
+            raise AssertionError(f"no draw loop found in {name}")
+        if loop["clocks_per_draw"] < STRAW2_CLOCKS_PER_DRAW - 1e-9:
+            raise AssertionError(
+                f"{name}: the draw loop needs {loop['clocks_per_draw']} "
+                f"SM-clocks a draw, under STRAW2_CLOCKS_PER_DRAW = "
+                f"{STRAW2_CLOCKS_PER_DRAW}: {loop}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="path_shapes")
     ap.add_argument("--root", default=None,
@@ -473,7 +777,10 @@ def main(argv=None) -> int:
     pkg = load_package(args.root)
     dev = torch.device("cuda", 0)
     bad = []
-    for shape in launch_shapes(pkg) + sweep_shapes(pkg):
+    shapes = launch_shapes(pkg) + sweep_shapes(pkg)
+    if not args.only or "crush_straw2" in args.only:
+        shapes += straw2_shapes(pkg)
+    for shape in shapes:
         if args.only and shape["kernel"] not in args.only:
             continue
         row = measure(pkg, shape, dev)

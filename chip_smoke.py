@@ -87,13 +87,20 @@ drives the port end to end:
                 (b) the kernel against its plain version, bitwise, at
                 2^20 x's for both pools, plain, with reweights (5% out,
                 10% at half) and with a one-position compat weight set,
-                and its CUDA-event ms; (c) 4096 x's of each pool against
-                the host interpreter and 256 PGs against the scalar
-                OSDMap chain; (d) BulkPGMapper.map_pool of each pool (pps,
-                map, post-chain seconds) and osdmaptool.test_map_pgs over
-                both; (e) calc_weight_set and calc_pg_upmaps on rep3 at
-                2^15 PGs; (f) the kernel's bound from the plain version's
-                draw count.  Sub-phases print placement.<name> lines.
+                and its CUDA-event ms; then at 2^20 random x's a map with
+                weights of 2^32, 2^40 and 2^48 + 1 (the rep3 rule) and
+                chooseleaf indep and firstn rules of 20 hosts (past
+                the kernel's shared-memory state); (c) 4096 x's of each
+                pool against the host interpreter and 256 PGs against the
+                scalar OSDMap chain; (d) BulkPGMapper.map_pool of each
+                pool (pps, map, post-chain seconds) and
+                osdmaptool.test_map_pgs over both; (e) calc_weight_set and
+                calc_pg_upmaps on rep3 at 2^15 PGs; (f) the kernel's bound
+                from the plain version's draw count at the least issue
+                time of a draw's instructions (path_shapes.py), and the
+                kernel's draw loop recounted from cuobjdump -sass: the
+                phase fails if the build needs less than that bound.
+                Sub-phases print placement.<name> lines.
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero.  Before the last line it prints the kernel table as one JSON
@@ -1436,87 +1443,59 @@ def phase_serving(K, ecutil, registry_cls, ops: int = 256,
 
 # -- phase placement ----------------------------------------------------------
 
-# BASELINE.json's "1M-PG osdmaptool --test-map-pgs": 2^20 PGs a pool
-PLACEMENT_PGS = 1 << 20
+# BASELINE.json's "1M-PG osdmaptool --test-map-pgs": 2^20 PGs a pool (the
+# phase's map, pools, variants and the kernel's bound are
+# ceph_tpu_torch/tools/path_shapes.py's, which times the same launches)
 # Ceph's ~100 PGs per OSD x 1024 OSDs / 3 replicas, to a power of two
 BALANCER_PGS = 1 << 15
-# int32 operations one straw2 draw of csrc/crush_straw2.cu costs at
-# least: the 3-word hash's 183 (3 XORs to seed, 5 mixes of 9 lines of
-# two subtractions, a shift and an XOR), the 16-bit mask, and the 64-bit
-# weight test, subtraction, quotient, negation and comparison counted as
-# two 32-bit operations each (the quotient is really a software routine
-# of several dozen, so the bound is generous)
-STRAW2_OPS_PER_DRAW = 183 + 1 + 2 * 5
-# one int32 operation per lane per clock: 132 SMs x 64 lanes x 1,980 MHz
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
 NO_CRUSH_LIBRARY = "no PyTorch call computes CRUSH"
 
 
-def placement_cluster(pg_num: int, seed: int = 0):
-    """The phase's OSDMap: 1024 OSDs, straw2 throughout, root -> 8 racks
-    -> 8 hosts each -> 16 OSDs each, device weights of {1, 2, 4, 8} TiB in
-    16.16 units, optimal (jewel) tunables; pool 1 rep3 (replicated_rule:
-    chooseleaf firstn 0 type host, size 3) and pool 2 ec84 (create_rule's
-    shape: chooseleaf indep 12 type host, k=8 m=4), pg_num each."""
-    from ceph_tpu_torch.crush import CRUSH_BUCKET_STRAW2, CrushMap
-    from ceph_tpu_torch.osdmap import (FLAG_HASHPSPOOL, OSDMap, Pool,
-                                       POOL_TYPE_ERASURE,
-                                       POOL_TYPE_REPLICATED)
-    rng = np.random.default_rng(seed)
-    cm = CrushMap()
-    for t, name in ((1, "host"), (2, "rack"), (3, "root")):
-        cm.set_type_name(t, name)
-    osd, racks = 0, []
-    for r in range(8):
-        hosts = []
-        for h in range(8):
-            w = [int(v) * 0x10000 for v in rng.choice([1, 2, 4, 8], size=16)]
-            hid = cm.add_bucket(CRUSH_BUCKET_STRAW2, 1,
-                                list(range(osd, osd + 16)), w)
-            cm.set_item_name(hid, f"host{8 * r + h}")
-            hosts.append(hid)
-            osd += 16
-        rid = cm.add_bucket(CRUSH_BUCKET_STRAW2, 2, hosts,
-                            [sum(cm.buckets[h].item_weights) for h in hosts])
-        cm.set_item_name(rid, f"rack{r}")
-        racks.append(rid)
-    root = cm.add_bucket(CRUSH_BUCKET_STRAW2, 3, racks,
-                         [sum(cm.buckets[r].item_weights) for r in racks])
-    cm.set_item_name(root, "default")
-    cm.finalize()
-    rep_rule = cm.add_simple_rule("replicated_rule", "default", "host")
-    ec_rule = cm.add_simple_rule("ec84", "default", "host", mode="indep",
-                                 num_rep=12)
-    m = OSDMap(crush=cm)
-    for o in range(osd):
-        m.create_osd(o)
-    m.add_pool(Pool(pool_id=1, type=POOL_TYPE_REPLICATED, size=3,
-                    pg_num=pg_num, crush_rule=rep_rule,
-                    flags=FLAG_HASHPSPOOL, name="rep3"))
-    m.add_pool(Pool(pool_id=2, type=POOL_TYPE_ERASURE, size=12, min_size=9,
-                    pg_num=pg_num, crush_rule=ec_rule,
-                    flags=FLAG_HASHPSPOOL, name="ec84",
-                    erasure_code_profile="k=8 m=4"))
-    return m
+def placement_edge_maps(PS, pkg):
+    """The kernel's edge cases on the phase's topology, as (name, crush
+    map, [(rule number, result_max)]): "heavy" gives host0's first two
+    OSDs the weights 2^32 and 2^48 + 1 and rack0's host0 2^40 (quotients
+    of 0 and 1, weights past 32 bits); "wide" adds chooseleaf indep and
+    firstn rules of 20 hosts, past the kernel's STATE_CAP positions of
+    shared-memory state."""
+    heavy = PS.placement_cluster(pkg, 1).crush
+    host0 = heavy.buckets[heavy.item_id("host0")]
+    host0.item_weights[:2] = [1 << 32, (1 << 48) + 1]
+    heavy.buckets[heavy.item_id("rack0")].item_weights[0] = 1 << 40
+    wide = PS.placement_cluster(pkg, 1).crush
+    rules = [(wide.add_simple_rule(f"wide_{mode}", "default", "host",
+                                   mode=mode, num_rep=20), 20)
+             for mode in ("indep", "firstn")]
+    # the rep3 rule, as the pool calls it
+    return [("heavy", heavy, [(0, 3)]), ("wide", wide, rules)]
 
 
-def placement_variants(m, seed: int = 1) -> dict:
-    """(reweights, choose_args) of the kernel checks: none; 5% of OSDs
-    out and 10% at half weight (forces retries); a one-position compat
-    weight set scaling every item by 0.5-1.5."""
-    rng = np.random.default_rng(seed)
-    n = m.max_osd
-    rw = np.full(n, 0x10000, dtype=np.int64)
-    pick = rng.permutation(n)
-    rw[pick[:n // 20]] = 0
-    rw[pick[n // 20:n // 20 + n // 10]] = 0x8000
-    compat = {bid: {"weight_set": [[int(w * f) for w, f in zip(
-        b.item_weights, rng.choice([0.5, 0.75, 1.0, 1.25, 1.5],
-                                   size=b.size))]]}
-              for bid, b in m.crush.buckets.items()}
-    base = np.asarray(m.osd_weight, dtype=np.int64)
-    return {"base": (base, None), "reweights": (rw, None),
-            "choose_args": (base, compat)}
+def placement_edge_checks(PS, pkg, dev, n: int) -> list[dict]:
+    """Each rule of :func:`placement_edge_maps` over ``n`` random x's: the
+    kernel against its plain version, bitwise."""
+    CK, BulkMapper = pkg.crush_kernels, pkg.torch_mapper.BulkMapper
+    xs = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 1 << 32, size=n, dtype=np.int64)).to(dev)
+    rows = []
+    for name, cmap, rules in placement_edge_maps(PS, pkg):
+        bm = BulkMapper(cmap, device=dev.type)
+        rw = torch.full((cmap.max_devices,), 0x10000, dtype=torch.int64,
+                        device=dev)
+        tables = bm.tables(None)
+        for ruleno, result_max in rules:
+            shape = bm.rule_shape(ruleno, result_max)
+            got = CK.straw2_map(xs, tables, rw, shape)
+            want = CK.straw2_map_plain(xs, tables, rw, shape)
+            err = max(max_abs_err(got[0], want[0]),
+                      max_abs_err(got[1], want[1]))
+            if err:
+                raise AssertionError(f"crush_straw2 disagrees with its plain "
+                                     f"version: {name} rule {ruleno}")
+            rows.append({"map": name, "rule": ruleno,
+                         "shape": [n, shape.out_size], "max_abs_err": err,
+                         "max_weight": int(tables.ws.max()),
+                         "mean_placed": float(got[1].float().mean())})
+    return rows
 
 
 def placement_golden(BulkMapper, CrushMap, none: int) -> dict:
@@ -1548,58 +1527,6 @@ def placement_golden(BulkMapper, CrushMap, none: int) -> dict:
     if runs < 10:
         raise AssertionError(f"only {runs} golden straw2 runs")
     return {"runs": runs, "xs": xs}
-
-
-def straw2_bound(draws: int, n: int, out_size: int, tables, rw) -> dict:
-    """The least time the card could take: the draws' int32 operations at
-    the peak rate, or the bytes (xs in, out and placed out, every table
-    read once) at 3.35 TB/s, whichever is larger."""
-    ops_ms = draws * STRAW2_OPS_PER_DRAW / INT32_OPS_PER_S * 1e3
-    nbytes = 4 * n * (2 + out_size) + rw.numel() * 8 + sum(
-        t.numel() * t.element_size() for t in (
-            tables.items, tables.hash_ids, tables.ws, tables.sizes,
-            tables.types, tables.row_of_id, tables.ln))
-    b_ms = bytes_bound_ms(nbytes)
-    return {"draws": draws, "bound_ms": max(ops_ms, b_ms),
-            "bound_by": "operations" if ops_ms >= b_ms else "bytes",
-            "ops_bound_ms": ops_ms, "bytes_bound_ms": b_ms}
-
-
-def placement_kernel_checks(CK, mapper, m, dev) -> list[dict]:
-    """(b) and the kernel's times: both pools x the three variants at the
-    pools' full pg_num, kernel against plain version bitwise on the card,
-    the plain version's draws, CUDA-event ms of the kernel alone on
-    device-resident xs, the plain version's ms, the bound."""
-    rows = []
-    for pid in sorted(m.pools):
-        pool = m.pools[pid]
-        xs = torch.from_numpy(mapper.pool_pps(pool).astype(np.int64)).to(dev)
-        shape = mapper.bulk.rule_shape(pool.crush_rule, pool.size)
-        for variant, (rw_np, ca) in placement_variants(m).items():
-            tables = mapper.bulk.tables(ca)
-            rw = torch.from_numpy(rw_np).to(dev)
-            got = CK.straw2_map(xs, tables, rw, shape)
-            torch.cuda.synchronize()
-            stats = {}
-            t0 = time.perf_counter()
-            want = CK.straw2_map_plain(xs, tables, rw, shape, stats=stats)
-            torch.cuda.synchronize()
-            plain_ms = (time.perf_counter() - t0) * 1e3
-            err = max(max_abs_err(got[0], want[0]),
-                      max_abs_err(got[1], want[1]))
-            if err:
-                raise AssertionError(f"crush_straw2 disagrees with its plain "
-                                     f"version: pool {pool.name} {variant}")
-            ms = cuda_ms(lambda: CK.straw2_map(xs, tables, rw, shape), 5)
-            bound = straw2_bound(stats["draws"], xs.numel(), shape.out_size,
-                                 tables, rw)
-            rows.append({"pool": pool.name, "variant": variant,
-                         "shape": [xs.numel(), shape.out_size],
-                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         **bound, "bound_share": bound["bound_ms"] / ms,
-                         "draws_per_x": stats["draws"] / xs.numel(),
-                         "mean_placed": float(got[1].float().mean())})
-    return rows
 
 
 def placement_interpreter(m, pms: dict, crush_do_rule, PG, none: int,
@@ -1667,14 +1594,16 @@ def placement_balancer(mgr, CK, tracer, m) -> dict:
     return out
 
 
-def phase_placement(dev, pg_num: int = PLACEMENT_PGS,
-                    sample: int = 4096) -> tuple[dict, int, list]:
+def phase_placement(PS, cuda_build, dev, sample: int = 4096
+                    ) -> tuple[dict, int, list]:
     """CRUSH bulk placement on a 1024-OSD map with rep3 and ec84 at
-    ``pg_num`` PGs each: (a) the golden runs, (b) the kernel against its
-    plain version, (c) a sample against the host interpreter, (d) the
-    main path timed (BulkPGMapper.map_pool, osdmaptool.test_map_pgs),
-    (e) the balancer, (f) the bound.  Returns (the sub-phases' lines,
-    the main path's launches, the kernel rows)."""
+    ``PS.PLACEMENT_PGS`` PGs each: (a) the golden runs, (b) the kernel
+    against its plain version, and at the edges of its design (weights
+    past 2^32, rules past STATE_CAP positions), (c) a sample against the
+    host interpreter, (d) the main path timed (BulkPGMapper.map_pool,
+    osdmaptool.test_map_pgs), (e) the balancer, (f) the bound and the
+    instruction counts of the kernel's draw loop it rests on.  Returns
+    (the sub-phases' lines, the main path's launches, the kernel rows)."""
     import io
     from ceph_tpu_torch import mgr
     from ceph_tpu_torch.common.tracer import default_tracer
@@ -1685,12 +1614,22 @@ def phase_placement(dev, pg_num: int = PLACEMENT_PGS,
     from ceph_tpu_torch.tools import osdmaptool
     lines = {"golden": placement_golden(BulkMapper, CrushMap,
                                         CRUSH_ITEM_NONE)}
+    pkg = PS.load_package(HERE)
     t0 = time.perf_counter()
-    m = placement_cluster(pg_num)
+    m = PS.placement_cluster(pkg, PS.PLACEMENT_PGS)
     mapper = BulkPGMapper(m)
     build_s = time.perf_counter() - t0
-    rows = placement_kernel_checks(CK, mapper, m, dev)
+    # (b) both pools x the three variants (path_shapes.py's rows: bitwise
+    # against the plain version, which counts the draws, CUDA-event ms,
+    # the plain version's ms, the bound)
+    rows = [PS.measure(pkg, shape, dev)
+            for shape in PS.straw2_shapes(pkg, (m, mapper))]
+    if any(r["max_abs_err"] for r in rows):
+        raise AssertionError(f"crush_straw2 disagrees with its plain "
+                             f"version: {rows}")
     lines["kernel"] = {"rows": rows, "build_map_s": build_s}
+    lines["edges"] = {"rows": placement_edge_checks(PS, pkg, dev,
+                                                    PS.PLACEMENT_PGS)}
 
     # the main path, from zero launches: map_pool of both pools,
     # test_map_pgs over both, the balancer
@@ -1732,13 +1671,17 @@ def phase_placement(dev, pg_num: int = PLACEMENT_PGS,
                                                  CRUSH_ITEM_NONE, sample)
     lines["timings"] = timings
     base = [r for r in rows if r["variant"] == "base"]
-    lines["bound"] = {"ops_per_draw": STRAW2_OPS_PER_DRAW,
-                      "int32_ops_per_s": INT32_OPS_PER_S,
+    sass = PS.straw2_sass_counts(cuda_build.library_path("crush_straw2"),
+                                 cuda_build._nvcc())
+    PS.check_straw2_floor(sass)
+    lines["bound"] = {"draw_work": PS.STRAW2_DRAW_WORK,
+                      "clocks_per_draw": PS.STRAW2_CLOCKS_PER_DRAW,
+                      "draws_per_s": PS.STRAW2_DRAWS_PER_S, "sass": sass,
                       "rows": [{k: r[k] for k in (
                           "pool", "draws", "draws_per_x", "ms", "bound_ms",
                           "bound_by", "ops_bound_ms", "bytes_bound_ms",
-                          "bound_share")} for r in base]}
-    return lines, launches, base
+                          "share_of_bound")} for r in base]}
+    return lines, launches, rows
 
 
 def main() -> int:
@@ -1790,7 +1733,7 @@ def main() -> int:
     emit("ec_bench", **phase_ec_bench(), gpu=smi)
     sweep, rows_sweep = phase_sweep(K, SK, KS, cuda_build, dev)
     emit("sweep", **sweep, gpu=smi)
-    placement, n_place, rows_place = phase_placement(dev)
+    placement, n_place, rows_place = phase_placement(PS, cuda_build, dev)
     for name, line in placement.items():
         emit(f"placement.{name}", **line, gpu=smi)
 
