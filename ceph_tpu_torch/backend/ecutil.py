@@ -249,6 +249,9 @@ class StripeInfo:
         return start, end_len
 
 
+HINFO_KEY = "hinfo_key"  # xattr name (ECUtil.cc:235, get_hinfo_key)
+
+
 class HashInfo:
     """Per-shard cumulative crc32c of appended chunk bytes (ECUtil.h:101-168).
 

@@ -1,14 +1,17 @@
 """Context: the per-process service bundle (CephContext analog).
 
 A cut of ``ceph_tpu.common.context`` to what the port's serving path
-reads: the config store (``conf``, a :class:`ConfigProxy`) and the
-perf-counter collection (``perf``), with the device-attribution ledger
-registered in it.  The log, admin socket and admin commands of the JAX
-package's Context are not ported yet.
+and OSD backend read: the config store (``conf``, a
+:class:`ConfigProxy`), the perf-counter collection (``perf``), with the
+device-attribution ledger registered in it, and the admin socket
+(``admin_socket``), where PG backends hang their op-tracker dumps.  The
+log and the standard admin commands of the JAX package's Context are not
+ported yet.
 """
 from __future__ import annotations
 
 from . import device_attribution
+from .admin_socket import AdminSocket
 from .options import ConfigProxy
 from .perf_counters import PerfCountersCollection
 
@@ -21,6 +24,7 @@ class Context:
         # owner class) is process-wide: every Context's collection
         # carries it
         self.perf.add(device_attribution.perf_counters())
+        self.admin_socket = AdminSocket()
 
 
 _default: Context | None = None

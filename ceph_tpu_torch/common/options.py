@@ -132,6 +132,36 @@ OPTIONS: list[Option] = [
            description="op coalescer: max ops fused into one device "
                        "dispatch",
            see_also=["osd_batch_max_delay_ms"]),
+    Option("osd_op_complaint_time", TYPE_FLOAT, LEVEL_ADVANCED, default=30.0,
+           description="ops slower than this many seconds are slow ops "
+                       "(flagged in dumps, counted on slow_ops)",
+           min=0.0),
+    Option("osd_recovery_chain_enable", TYPE_BOOL, LEVEL_ADVANCED,
+           default=True,
+           description="chained streaming repair: recovery waves plan a "
+                       "partial-sum chain over survivor OSDs (each hop "
+                       "GF-scales its local shard and forwards the "
+                       "running sum) instead of pulling k full shards "
+                       "to the primary; falls back to centralized "
+                       "verified repair per object on any mid-chain "
+                       "failure and for sub-chunked codes",
+           see_also=["osd_recovery_chain_max_len"]),
+    Option("osd_recovery_chain_max_len", TYPE_UINT, LEVEL_ADVANCED,
+           default=12, min=2,
+           description="longest partial-sum chain (hop count = decode "
+                       "sources); repairs needing more sources than "
+                       "this stay centralized",
+           see_also=["osd_recovery_chain_enable"]),
+    Option("osd_recovery_regen_enable", TYPE_BOOL, LEVEL_ADVANCED,
+           default=True,
+           description="regenerating-code repair: single-erasure repairs "
+                       "on a regenerating pool (pm_regen MSR/MBR) gather "
+                       "d helper inner products (beta bytes each) at the "
+                       "newcomer instead of decoding k full chunks; "
+                       "falls back to centralized verified repair on any "
+                       "abort (helper death, version skew, sub-chunk or "
+                       "hash mismatch) and for multi-chunk losses",
+           see_also=["osd_recovery_chain_enable"]),
 ]
 
 SCHEMA: dict[str, Option] = {o.name: o for o in OPTIONS}

@@ -16,14 +16,27 @@ OSDMap, which cross as the reference's ``to_dict()`` output, read
 unchanged by :func:`crushmap_from_reference` and
 :func:`osdmap_from_reference` (whose ``to_dict`` writes the same dict
 back).
+
+An OSD backend has no weights either: its state is the shard stores
+(object bytes, attributes, and the pgmeta omap holding the pickled PG
+log, its bounds and the rollback records).  They cross as a plain-dict
+dump of the reference's ``MemStore``s, read by
+:func:`shard_stores_from_reference`, which rebuilds the pickled PG log
+entries and rollback records as the port's classes without importing
+the reference package (``OSDShard`` boots its PG log from them).
 """
 from __future__ import annotations
+
+import io
+import pickle
 
 import numpy as np
 
 from .backend.ecutil import HashInfo
+from .backend.memstore import GObject, MemStore, _Object
 from .crush.map import CrushMap
 from .ops.codec import RSCodec, _DecodeTables
+from .osd.pg_log import PGLogEntry
 from .osdmap.osdmap import OSDMap
 from .plugins.plugin_jerasure import ErasureCodeJerasureBitmatrix
 
@@ -91,3 +104,55 @@ def crushmap_from_reference(d: dict) -> CrushMap:
 def osdmap_from_reference(d: dict) -> OSDMap:
     """The port's OSDMap from the reference's ``OSDMap.to_dict()``."""
     return OSDMap.from_dict(d)
+
+
+# the classes a reference pgmeta omap pickles, by (module, name) -> the
+# port's own; any other class in the stream is refused
+_OMAP_CLASSES = {
+    ("ceph_tpu.osd.pg_log", "PGLogEntry"): PGLogEntry,
+    ("ceph_tpu.backend.memstore", "GObject"): GObject,
+}
+
+
+class _OmapUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        cls = _OMAP_CLASSES.get((module, name))
+        if cls is None:
+            raise pickle.UnpicklingError(
+                f"{module}.{name} is not a PG log or rollback class")
+        return cls
+
+
+def _omap_value(key: str, value: bytes) -> bytes:
+    """One pgmeta omap value re-pickled with the port's classes: the PG
+    log entries (``log.*``), the rollback records (``rb.*``, op tuples
+    naming GObjects) and the log bounds (``vi``).  Other keys pass."""
+    if not (key == "vi" or key.startswith(("log.", "rb."))):
+        return bytes(value)
+    obj = _OmapUnpickler(io.BytesIO(bytes(value))).load()
+    return pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def shard_stores_from_reference(dump: dict) -> dict[int, MemStore]:
+    """The port's ``MemStore`` per shard from a dump of the reference's.
+
+    ``dump`` maps shard id -> a list of objects, each a dict with
+    ``oid``, ``shard``, ``data`` (bytes), ``xattrs`` (name -> value),
+    ``omap`` (key -> bytes) and ``omap_header`` (bytes): what the
+    reference store's ``list_objects``, ``read``, ``getattrs``,
+    ``get_omap`` and ``get_omap_header`` return.  Object bytes and
+    attributes (``HINFO_KEY`` among them) carry over unchanged; the
+    pickled PG log entries and rollback records are rebuilt as the port's
+    ``PGLogEntry`` and ``GObject``."""
+    stores: dict[int, MemStore] = {}
+    for shard, objects in dump.items():
+        store = MemStore()
+        for rec in objects:
+            obj = GObject(str(rec["oid"]), int(rec["shard"]))
+            store.objects[obj] = _Object(
+                bytearray(rec["data"]), dict(rec["xattrs"]),
+                {k: _omap_value(k, v) for k, v in rec["omap"].items()},
+                bytes(rec["omap_header"]))
+        stores[int(shard)] = store
+    return stores
+

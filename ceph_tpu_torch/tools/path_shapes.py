@@ -26,6 +26,11 @@ For each launch of ``chip_smoke.py``'s main paths, on ``cuda:0``:
   a plane's decode [4, 8] and a pairwise solve [2, 2] x [., 8 Ki]; lrc
   k=8 m=4 l=6: the global encode [4, 8] and a local repair [1, 6] x
   [., 512 Ki];
+- backend: the OSD's EC backend on the same codec, per 4 MiB op: the
+  encode [4, 8] x [8, 512 Ki] and its ``crc32c_rows`` [12, 512 Ki], the
+  degraded read with shards 1 and 9 down [4, 8] x [8, 512 Ki]; and a
+  recovery wave of the 64 objects rebuilding shard 3 [1, 8] x
+  [8, 32 Mi];
 - ``crc32c_rows``: one object's shards under ``hinfo_append`` [12, 512 Ki],
   the fused encode + checksum's data and parity rows [8, 32 Mi] and
   [4, 32 Mi], and the rebuilt shards' hash check of a recovery wave
@@ -151,6 +156,7 @@ def launch_shapes(pkg) -> list[dict]:
                             label=f"decode {lost}", mat=D, rows=k * ec.w,
                             cols=p, stripes=1))
     out += repair_shapes(pkg, registry)
+    out += backend_shapes(registry)
     for s in out:
         s["mat"] = np.ascontiguousarray(s["mat"], dtype=np.uint8)
     return out
@@ -221,6 +227,35 @@ def repair_shapes(pkg, registry) -> list[dict]:
         out.append(dict(kernel="crc32c_rows", path=path, label=label,
                         mat=empty, rows=rows, cols=cols, stripes=1))
     return out
+
+
+def backend_shapes(registry) -> list[dict]:
+    """The launches of ``chip_smoke.py``'s phase ``backend``, the OSD's EC
+    backend over the same codec at a 4 KiB stripe unit: one op's encode
+    [4, 8] x [8, 512 Ki] and its ``hinfo_append`` crc [12, 512 Ki]; a
+    degraded read with shards 1 and 9 down, which rebuilds every chunk
+    it did not read (1, 9, 10 and 11) from 0 and 2-8 [4, 8]; and a
+    recovery wave of the 64 objects rebuilding shard 3 [1, 8] x
+    [8, 32 Mi].  Its chain hops are the repair path's [1, 1] x
+    [1, 32 Mi]."""
+    ec = registry.factory("torch_rs", "", {"k": "8", "m": "4",
+                                           "technique": "reed_sol_van",
+                                           "device": "numpy"})
+    obj, n = OBJ_BYTES // 8, OBJECTS * OBJ_BYTES // 8
+    read = [0, *range(2, 9)]
+    wave = sorted(ec.minimum_to_decode({3}, set(range(12)) - {3}))
+    return [
+        dict(kernel="gf_apply", path="backend", label="op encode",
+             mat=ec.codec.parity_mat, rows=8, cols=obj, stripes=1),
+        dict(kernel="gf_apply", path="backend",
+             label="degraded read [1, 9] down",
+             mat=ec.codec.decode_matrix([1, 9, 10, 11], read)[0], rows=8,
+             cols=obj, stripes=1),
+        dict(kernel="gf_apply", path="backend", label="wave want [3]",
+             mat=ec.codec.decode_matrix([3], wave)[0], rows=8, cols=n,
+             stripes=1),
+        dict(kernel="crc32c_rows", path="backend", label="op hinfo_append",
+             mat=np.zeros((0, 0), np.uint8), rows=12, cols=obj, stripes=1)]
 
 
 SWEEP_ROWS = 8 * MIB               # the kernel sweep's [8, 8 Mi] data

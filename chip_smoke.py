@@ -43,7 +43,28 @@ drives the port end to end:
                 pipeline; (d) clay k=8 m=4 d=11 (torch_rs) and lrc k=8 m=4
                 l=6 on 8 objects: encode and repair of shard 1 against the
                 numpy path;
-5. serving   -- the serving path at RBD-on-EC size: ServingEngine (option
+5. backend   -- the OSD's EC backend (ceph_tpu_torch.backend.make_cluster:
+                the primary and 11 OSDShards on one MessageBus) over
+                torch_rs k=8 m=4 with no device key, 4 KiB stripe unit,
+                64 objects of 4 MiB: (a) submit_transaction + deliver_all
+                per object, every shard's bytes against the numpy encode
+                and every HashInfo against the host crc32c, one gf_apply
+                and one crc32c_rows launch an op; (b) every object read
+                back, then again with shards 1 and 9 down (a gf_apply
+                decode an op); (c) shard 3's disk replaced and repaired by
+                recovery waves (decode_shards_many) through a depth-4
+                CodecPipeline and with none, every rebuilt chunk against
+                the encode and its crc32c against the HashInfo, wire bytes
+                per repaired byte from the bus's wire accounting; (d) the
+                same by chain repair (osd_recovery_chain_enable); (e)
+                pm_regen k=3 m=2 d=4, MBR and MSR, 64 objects written and
+                shard 1 rebuilt from the helpers' ECRegenRead legs; (f)
+                (a) and (b) again through a ServingEngine (option
+                defaults), no pipeline error.  Each sub-phase prints a
+                backend.<name> line with its host time by function, and
+                backend.timing splits the phase's wall time into set-up,
+                timed runs and checks;
+6. serving   -- the serving path at RBD-on-EC size: ServingEngine (option
                 defaults: depth-4 CUDA codec pipeline, 64-op batches, 2 ms
                 deadline, 64 MiB throttle) over torch_rs k=8 m=4 with no
                 device key, 4 KiB stripe unit, 4 MiB objects, closed_loop
@@ -54,23 +75,23 @@ drives the port end to end:
                 k=4 m=2, batched against unbatched (bench.py's serving
                 comparison), 8192 ops an arm, three times, every 16th op
                 checked;
-6. headline  -- rs_kernels.gf_apply_stripes over 64 x 1 MiB stripes
+7. headline  -- rs_kernels.gf_apply_stripes over 64 x 1 MiB stripes
                 (Cauchy RS(8,4), erasures {0, 9}) in the vertical layout,
                 timed with CUDA events;
-7. jerasure  -- the jerasure plugin on the xor_apply kernel under
+8. jerasure  -- the jerasure plugin on the xor_apply kernel under
                 ecutil.encode_many, hinfo_append and decode_many over 64
                 objects of 4 MiB, for liber8tion k=8 and reed_sol_van k=8
                 m=4 w=16, checked against the port's numpy path; then the
                 isa and shec plugins on the gf_apply kernel over 8 objects;
-8. shapes    -- gf_apply, gf_apply_stripes, xor_apply and crc32c_rows at
-                every shape phases 3-7 launch them at, and the sweep's
+9. shapes    -- gf_apply, gf_apply_stripes, xor_apply and crc32c_rows at
+                every shape phases 3-8 launch them at, and the sweep's
                 five bit-plane variants (ceph_tpu_torch/tools/
                 path_shapes.py): bitwise against the plain version, CUDA
                 events, device time where the tools give it, bound, and
                 the copy ceiling moving the same bytes;
-9. ec_bench  -- the ceph_erasure_code_benchmark CLI: torch_rs encode and
+10. ec_bench -- the ceph_erasure_code_benchmark CLI: torch_rs encode and
                 decode, the default invocation, a liber8tion encode;
-10. sweep    -- the kernel sweep (ceph_tpu_torch.tools.kernel_sweep) in
+11. sweep    -- the kernel sweep (ceph_tpu_torch.tools.kernel_sweep) in
                 process at full size, Cauchy RS(8,4) over [8, 8 Mi]: copy
                 ceiling, tensor-core bit-plane apply in int8 and bf16,
                 block-diagonal stacks of 2 and 4 tiles, bitslice and
@@ -79,7 +100,7 @@ drives the port end to end:
                 variants once (ceph_tpu_torch.tools.sweep_stripes
                 --quick), and the three sweep kernels timed at [4, 8] x
                 [8, 8 Mi];
-11. placement -- CRUSH bulk placement on a 1024-OSD straw2 map (8 racks x
+12. placement -- CRUSH bulk placement on a 1024-OSD straw2 map (8 racks x
                 8 hosts x 16 OSDs, optimal tunables) with pools rep3
                 (chooseleaf firstn host, size 3) and ec84 (chooseleaf
                 indep 12 host) of 2^20 PGs each: (a) every straw2 golden
@@ -102,8 +123,9 @@ drives the port end to end:
                 phase fails if the build needs less than that bound.
                 Sub-phases print placement.<name> lines.
 
-Each phase prints one JSON line; any failure raises and the script exits
-non-zero.  Before the last line it prints the kernel table as one JSON
+Each phase prints one JSON line, and a ``walls`` line gives every phase's
+wall seconds; any failure raises and the script exits non-zero.  Before
+the last line it prints the kernel table as one JSON
 object and the card's ``nvidia-smi`` name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
@@ -1441,6 +1463,379 @@ def phase_serving(K, ecutil, registry_cls, ops: int = 256,
             "batch_copies": copies, "small_ops": small_ops}, n_serving
 
 
+# -- phase backend ------------------------------------------------------------
+
+class CallTimer:
+    """Inclusive host seconds and calls of named functions, by wrapping
+    them in place for the ``with`` block (one perf_counter pair a
+    call)."""
+
+    def __init__(self, targets: dict):
+        self.targets = targets          # name -> (owner, attribute)
+        self.seconds = {name: 0.0 for name in targets}
+        self.calls = {name: 0 for name in targets}
+        self._saved = []
+
+    def __enter__(self):
+        for name, (owner, attr) in self.targets.items():
+            fn = getattr(owner, attr)
+            self._saved.append((owner, attr, owner.__dict__[attr]))
+
+            def wrapped(*a, _fn=fn, _name=name, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    self.seconds[_name] += time.perf_counter() - t0
+                    self.calls[_name] += 1
+            setattr(owner, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, orig in reversed(self._saved):
+            setattr(owner, attr, orig)
+        return False
+
+    def report(self) -> dict:
+        return {name: {"s": self.seconds[name], "calls": self.calls[name]}
+                for name in self.targets if self.calls[name]}
+
+
+def backend_timer() -> CallTimer:
+    """Where a backend op's host time goes: the codec calls (card encode,
+    crc, decode, repair legs), the host crc32c, the store's transaction
+    apply and the rollback capture, the transaction generation, the
+    shards' message handling and the bus's whole delivery loop
+    (inclusive times; nested calls count in both)."""
+    from ceph_tpu_torch.backend import ec_backend as ecb, ecutil as eu
+    from ceph_tpu_torch.backend import memstore as ms, pg_backend as pgb
+    from ceph_tpu_torch.backend.messages import MessageBus
+    return CallTimer({
+        "deliver_all": (MessageBus, "deliver_all"),
+        "generate_transactions": (ecb.ECBackend, "_generate_transactions"),
+        "encode": (eu, "encode"), "hinfo_append": (eu, "hinfo_append"),
+        "decode": (eu, "decode"),
+        "decode_shards_many": (eu, "decode_shards_many"),
+        "partial_sum_accumulate": (eu, "partial_sum_accumulate"),
+        "regen_project": (eu, "regen_project"),
+        "regen_combine": (eu, "regen_combine"),
+        "host_crc32c": (eu, "crc32c"), "host_crc32c_ec": (ecb, "crc32c"),
+        "shard_handle_message": (pgb.OSDShard, "handle_message"),
+        "store_apply": (ms.MemStore, "queue_transaction"),
+        "rollback_capture": (pgb.OSDShard, "_capture_rollback")})
+
+
+def _host_crcs(host_enc) -> list[list[int]]:
+    """The host crc32c of every chunk of every object, once for the
+    phase's write and repair checks."""
+    from ceph_tpu_torch.backend import ecutil as eu
+    return [[eu.crc32c(0xFFFFFFFF, want[c]) for c in range(len(want))]
+            for want in host_enc]
+
+
+def _backend_write(K, be, bus, bufs, host_enc, crcs, name) -> dict:
+    """(a) one submit_transaction + deliver_all per object, timed and
+    launch-counted; then every shard's bytes against ``host_enc`` and
+    every shard's HashInfo against ``crcs``, the host crc32c of its
+    chunks."""
+    from ceph_tpu_torch.backend import GObject, PGTransaction
+    from ceph_tpu_torch.backend import ecutil as eu
+    from ceph_tpu_torch.backend.pg_backend import shard_store
+    n = be.ec_impl.get_chunk_count()
+    torch.cuda.synchronize()
+    before = dict(K.launches)
+    with backend_timer() as timer:
+        t0 = time.perf_counter()
+        for i, buf in enumerate(bufs):
+            done = []
+            be.submit_transaction(
+                PGTransaction().write(f"{name}{i}", 0, buf.tobytes()),
+                on_commit=done.append)
+            bus.deliver_all()
+            if not done:
+                raise AssertionError(f"write {name}{i} did not commit")
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    launches = {key: K.launches[key] - before[key] for key in K.launches}
+    t0 = time.perf_counter()
+    for i, want in enumerate(host_enc):
+        oid = f"{name}{i}"
+        for c in range(n):
+            store = shard_store(bus, c)
+            if store.read(GObject(oid, c)) != want[c].tobytes():
+                raise AssertionError(f"{oid} shard {c} != numpy encode")
+            h = store.getattr(GObject(oid, c), eu.HINFO_KEY)
+            if list(h["cumulative_shard_hashes"]) != crcs[i]:
+                raise AssertionError(f"{oid} shard {c} HashInfo != crc32c")
+    check_s = time.perf_counter() - t0
+    nbytes = sum(b.nbytes for b in bufs)
+    return {"objects": len(bufs), "object_bytes": int(bufs[0].nbytes),
+            "seconds": elapsed, "MiBps": nbytes / MIB / elapsed,
+            "ms_per_op": elapsed / len(bufs) * 1e3,
+            "launches": launches,
+            "one_of_each_per_op": launches["gf_apply"] == len(bufs)
+            and launches["crc32c_rows"] == len(bufs),
+            "host_breakdown": timer.report(), "check_s": check_s}
+
+
+def _backend_reads(K, be, bus, bufs, name, lost=()) -> dict:
+    """(b) one objects_read_and_reconstruct + deliver_all per object, every
+    byte checked; with ``lost`` shards marked down first (degraded)."""
+    for s in lost:
+        bus.mark_down(s)
+    torch.cuda.synchronize()
+    before = dict(K.launches)
+    bad = []
+    with backend_timer() as timer:
+        t0 = time.perf_counter()
+        for i, buf in enumerate(bufs):
+            out = {}
+            be.objects_read_and_reconstruct(
+                {f"{name}{i}": [(0, buf.nbytes)]},
+                lambda result, errors: out.update(result=result,
+                                                  errors=errors))
+            bus.deliver_all()
+            if out.get("errors") or \
+                    out["result"][f"{name}{i}"][0][2] != buf.tobytes():
+                bad.append(i)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    for s in lost:
+        bus.mark_up(s)
+    bus.deliver_all()
+    if bad or be.stale:
+        raise AssertionError(f"reads lost={sorted(lost)}: objects {bad[:4]} "
+                             f"differ, stale {be.stale}")
+    launches = {key: K.launches[key] - before[key] for key in K.launches}
+    return {"lost": sorted(lost), "objects": len(bufs),
+            "seconds": elapsed,
+            "MiBps": sum(b.nbytes for b in bufs) / MIB / elapsed,
+            "ms_per_op": elapsed / len(bufs) * 1e3, "launches": launches,
+            "host_breakdown": timer.report()}
+
+
+def _backend_repair(K, be, bus, wire, host_enc, crcs, name, victim: int,
+                    label: str) -> dict:
+    """Replace ``victim``'s disk and let its repair run to completion
+    through the scheduler stand-in; every rebuilt chunk against
+    ``host_enc`` (so its crc32c is the one in ``crcs``) and that crc
+    against the stored HashInfo."""
+    from ceph_tpu_torch.backend import GObject
+    from ceph_tpu_torch.backend import ecutil as eu
+    from ceph_tpu_torch.backend.pg_backend import shard_store
+    from ceph_tpu_torch.tools.wave_driver import replace_disk
+    perf0 = {key: be.perf.get(key) for key in (
+        "recoveries", "recovery_bytes", "chain_objects", "chain_fallbacks",
+        "regen_objects", "regen_fallbacks")}
+    tx0 = wire.totals()["tx_bytes"]
+    types0 = wire.per_type()
+    torch.cuda.synchronize()
+    before = dict(K.launches)
+    waves0 = be.recovery_scheduler.waves
+    with backend_timer() as timer:
+        t0 = time.perf_counter()
+        replace_disk(bus, victim)
+        rop = be.shard_repairs.get(victim)
+        bus.deliver_all()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    state = getattr(rop, "state", None)
+    if rop is None or state.value != "COMPLETE" or be.stale:
+        raise AssertionError(f"{label}: repair of {victim} ended {state}")
+    launches = {key: K.launches[key] - before[key] for key in K.launches}
+    store = shard_store(bus, victim)
+    t0 = time.perf_counter()
+    repaired = 0
+    for i, want in enumerate(host_enc):
+        obj = GObject(f"{name}{i}", victim)
+        got = store.read(obj)
+        if got != want[victim].tobytes():
+            raise AssertionError(f"{label}: {name}{i} rebuilt chunk differs")
+        h = store.getattr(obj, eu.HINFO_KEY)
+        if crcs[i][victim] != h["cumulative_shard_hashes"][victim]:
+            raise AssertionError(f"{label}: {name}{i} crc != HashInfo")
+        repaired += len(got)
+    check_s = time.perf_counter() - t0
+    perf = {key: be.perf.get(key) - v for key, v in perf0.items()}
+    tx = wire.totals()["tx_bytes"] - tx0
+    types = {t: v["tx_bytes"] - types0.get(t, {}).get("tx_bytes", 0)
+             for t, v in wire.per_type().items()
+             if v["tx_bytes"] != types0.get(t, {}).get("tx_bytes", 0)}
+    return {"victim": victim, "plan": rop.plan,
+            "objects_repaired": rop.objects_repaired,
+            "waves": be.recovery_scheduler.waves - waves0,
+            "seconds": elapsed, "rebuilt_MiBps": repaired / MIB / elapsed,
+            "rebuilt_bytes": repaired, "wire_tx_bytes": tx,
+            "wire_bytes_per_repaired_byte": tx / repaired,
+            "wire_tx_bytes_by_type": types, "perf": perf,
+            "launches": launches, "host_breakdown": timer.report(),
+            "check_s": check_s}
+
+
+def phase_backend(K, ecutil, registry_cls, pipeline_cls, objects: int = 64,
+                  obj_bytes: int = 4 * MIB, regen_objects: int = 16,
+                  serving_objects: int = 16) -> tuple[dict, int, int]:
+    """The OSD's EC backend at RBD object size: make_cluster over torch_rs
+    k=8 m=4 reed_sol_van with no device key (the card), 4 KiB stripe
+    unit, the primary and 11 OSDShards on one MessageBus.  (a) writes,
+    (b) reads and degraded reads, (c) centralized wave repair with a
+    depth-4 CodecPipeline and with none, (d) chain repair, (e) pm_regen
+    MBR and MSR regenerating repair, (f) (a) and (b) through a
+    ServingEngine.  The launch counts are zeroed after the payloads, their
+    numpy encodes and the encodes' host crc32c are made, and read at the
+    end; the ``timing`` line splits the phase's wall time into that
+    set-up, the sub-phases' timed runs and their byte and crc checks.
+    Returns the sub-phase lines and the gf_apply and crc32c_rows
+    launches."""
+    from ceph_tpu_torch.backend import make_cluster
+    from ceph_tpu_torch.common import Context
+    from ceph_tpu_torch.common.wire_accounting import WireAccounting
+    from ceph_tpu_torch.exec import ServingEngine
+    from ceph_tpu_torch.tools.wave_driver import WaveScheduler
+    t_phase = time.perf_counter()
+    registry = registry_cls.instance()
+    k, m, unit = 8, 4, 4096
+    profile = {"k": str(k), "m": str(m), "technique": "reed_sol_van"}
+    ec = registry.factory("torch_rs", "", profile)
+    host = registry.factory("torch_rs", "", profile | {"device": "numpy"})
+    chunk = ec.get_chunk_size(k * unit)
+    rng = np.random.default_rng(10)
+    bufs = [rng.integers(0, 256, obj_bytes, dtype=np.uint8)
+            for _ in range(objects)]
+    sinfo = ecutil.StripeInfo(k, chunk)
+    host_enc = ecutil.encode_many(sinfo, host, bufs)
+    crcs = _host_crcs(host_enc)
+    setup_s = time.perf_counter() - t_phase
+    cct = Context({"osd_recovery_chain_enable": False})
+    be, bus = make_cluster(ec, chunk_size=chunk, cct=cct)
+    if ec.get_profile()["device"] != "cuda" or len(bus.handlers) != k + m:
+        raise AssertionError("backend: not torch_rs on the card over "
+                             "12 shards")
+    be.recovery_scheduler = WaveScheduler(size=objects)
+    wire = WireAccounting(cct, name="backend")
+    bus.wire_stats = wire
+    lines = {}
+    torch.cuda.synchronize()
+    K.reset_launches()
+    lines["write"] = _backend_write(K, be, bus, bufs, host_enc, crcs, "rbd")
+    lines["reads"] = {"healthy": _backend_reads(K, be, bus, bufs,
+                                                "rbd"),
+                      "degraded": _backend_reads(K, be, bus, bufs,
+                                                 "rbd", lost=(1, 9))}
+    if lines["reads"]["degraded"]["launches"]["gf_apply"] != objects:
+        raise AssertionError(f"degraded reads: "
+                             f"{lines['reads']['degraded']['launches']}")
+    # (c) centralized waves: the wave reconstruct through a depth-4
+    # pipeline (the scheduler's shared one, on the backend and on every
+    # shard handler), then with none
+    pipeline = pipeline_cls(depth=4, name="smoke.backend", cct=cct)
+    turns = []
+    try:
+        for pl in (pipeline, None):
+            be.recovery_pipeline = pl
+            for h in bus.handlers.values():
+                getattr(h, "local_shard", h).recovery_pipeline = pl
+            turns.append(_backend_repair(K, be, bus, wire, host_enc, crcs,
+                                         "rbd", 3, "wave")
+                         | {"pipeline_depth": 4 if pl else None})
+        pipe = pipeline.perf.dump()
+    finally:
+        pipeline.close()
+    if pipe["errors"] or pipe["completed"] != pipe["submitted"]:
+        raise AssertionError(f"backend waves: errors on the card: {pipe}")
+    lines["repair_wave"] = {"turns": turns,
+                            "pipeline": {key: pipe[key] for key in
+                                         ("submitted", "completed",
+                                          "errors")}}
+    # (d) chain repair: the same backend, chains on, no pipeline (each hop
+    # synchronous on the card)
+    be.recovery_pipeline = None
+    for h in bus.handlers.values():
+        getattr(h, "local_shard", h).recovery_pipeline = None
+    cct.conf.set("osd_recovery_chain_enable", True)
+    lines["repair_chain"] = _backend_repair(K, be, bus, wire, host_enc, crcs,
+                                            "rbd", 3, "chain")
+    if lines["repair_chain"]["perf"]["chain_objects"] != objects:
+        raise AssertionError(f"chain: {lines['repair_chain']['perf']}")
+    # (f) the same writes and reads through a ServingEngine (defaults)
+    eng = ServingEngine(cct=cct, name="smoke.backend").start()
+    try:
+        be.attach_serving(eng)
+        eng0 = eng.perf.dump()
+        pipe0 = eng.pipeline.perf.dump()
+        served = bufs[:serving_objects]
+        sw = _backend_write(K, be, bus, served, host_enc[:serving_objects],
+                            crcs, "srv")
+        sh = _backend_reads(K, be, bus, served, "srv")
+        sr = _backend_reads(K, be, bus, served, "srv", lost=(1, 9))
+        eng.flush()
+        torch.cuda.synchronize()
+        engine = _perf_delta(eng0, eng.perf.dump(), ENGINE_KEYS)
+        epipe = _perf_delta(pipe0, eng.pipeline.perf.dump(), PIPE_KEYS)
+    finally:
+        be.attach_serving(None)
+        eng.stop()
+    if epipe["errors"] or engine["ops_failed"] or \
+            epipe["completed"] != epipe["submitted"]:
+        raise AssertionError(f"backend serving: {engine} {epipe}")
+    lines["serving"] = {"write": sw, "reads": sh, "degraded_reads": sr,
+                        "ops": 3 * len(served),
+                        "batches": engine["batches"],
+                        "engine": engine, "pipeline": epipe}
+    # (e) regenerating repair on pm_regen k=3 m=2 d=4, each mode its own
+    # cluster on the card
+    regen = []
+    for mode in ("mbr", "msr"):
+        prof = {"k": "3", "m": "2", "d": "4", "mode": mode}
+        pm = registry.factory("pm_regen", "", prof)
+        pm_host = registry.factory("pm_regen", "", prof | {"device": "numpy"})
+        rcct = Context({"osd_recovery_regen_enable": True})
+        rchunk = pm.get_chunk_size(3 * unit)
+        rbe, rbus = make_cluster(pm, chunk_size=rchunk, cct=rcct)
+        rbe.recovery_scheduler = WaveScheduler(size=regen_objects)
+        rwire = WireAccounting(rcct, name=f"backend.{mode}")
+        rbus.wire_stats = rwire
+        rbufs = bufs[:regen_objects]
+        rsinfo = ecutil.StripeInfo(3, rchunk)
+        rsinfo.stored_chunk_size = pm.get_stored_chunk_size(rchunk)
+        pad = -obj_bytes % rsinfo.stripe_width   # the write's zero tail
+        t0 = time.perf_counter()
+        renc = [ecutil.encode(rsinfo, pm_host, np.concatenate(
+            [b, np.zeros(pad, np.uint8)])) for b in rbufs]
+        rcrcs = _host_crcs(renc)
+        setup_s += time.perf_counter() - t0
+        w = _backend_write(K, rbe, rbus, rbufs, renc, rcrcs, mode)
+        rep = _backend_repair(K, rbe, rbus, rwire, renc, rcrcs, mode, 1,
+                              f"regen {mode}")
+        if rep["perf"]["regen_objects"] != len(rbufs):
+            raise AssertionError(f"regen {mode}: {rep['perf']}")
+        alpha, d = pm.get_sub_chunk_count(), 4
+        regen.append({"mode": mode, "profile": prof, "chunk_size": rchunk,
+                      "stored_chunk_bytes": int(renc[0][0].nbytes),
+                      "alpha": alpha, "d": d,
+                      "code_wire_per_repaired_byte": d / alpha,
+                      "write": w, "repair": rep})
+        rwire.close()
+    lines["repair_regen"] = regen
+    torch.cuda.synchronize()
+    launches = dict(K.launches)
+    for key in ("gf_apply", "crc32c_rows"):
+        if not launches[key]:
+            raise AssertionError(f"backend path launched no {key}")
+    lines["launches"] = launches
+    wire.close()
+    del bufs, host_enc
+    torch.cuda.empty_cache()
+    runs = [lines["write"], *lines["reads"].values(), *turns,
+            lines["repair_chain"], sw, sh, sr,
+            *(r[key] for r in regen for key in ("write", "repair"))]
+    lines["timing"] = {
+        "seconds": time.perf_counter() - t_phase, "setup_s": setup_s,
+        "timed_s": sum(r["seconds"] for r in runs),
+        "checks_s": sum(r.get("check_s", 0.0) for r in runs)}
+    return lines, launches["gf_apply"], launches["crc32c_rows"]
+
+
 # -- phase placement ----------------------------------------------------------
 
 # BASELINE.json's "1M-PG osdmaptool --test-map-pgs": 2^20 PGs a pool (the
@@ -1712,30 +2107,55 @@ def main() -> int:
     smi = KS.nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
 
+    walls, mark = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """Wall seconds of the phase just emitted, set-up and checks in."""
+        now = time.perf_counter()
+        walls[name], mark[0] = now - mark[0], now
+
     emit("build", **phase_build(cuda_build), gpu=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
+    lap("build")
     emit("kernels", **phase_kernels(
         K, SK, dev, jerasure_decode_bitmatrices(ErasureCodePluginRegistry,
                                                 bm)))
+    lap("kernels")
     ecu, n_apply, n_crc = phase_ecutil(K, ecutil, ErasureCodePluginRegistry)
     emit("ecutil", **ecu, gpu=smi)
+    lap("ecutil")
     rep, n_repair, n_repair_crc = phase_repair(
         K, ecutil, ErasureCodePluginRegistry, CodecPipeline)
     emit("repair", **rep, gpu=smi)
+    lap("repair")
+    backend, n_backend, n_backend_crc = phase_backend(
+        K, ecutil, ErasureCodePluginRegistry, CodecPipeline)
+    for name, line in backend.items():
+        emit(f"backend.{name}", **(line if isinstance(line, dict)
+                                   else {"runs": line}), gpu=smi)
+    lap("backend")
     serving, n_serving = phase_serving(K, ecutil, ErasureCodePluginRegistry)
     emit("serving", **serving, gpu=smi)
+    lap("serving")
     head, n_stripes = phase_headline(K, RSCodec, gfref)
     emit("headline", **head, gpu=smi)
+    lap("headline")
     jer, n_xor = phase_jerasure(K, ecutil, ErasureCodePluginRegistry)
     emit("jerasure", **jer, gpu=smi)
+    lap("jerasure")
     shapes = phase_shapes(PS, dev)
     emit("shapes", rows=shapes, gpu=smi)
+    lap("shapes")
     emit("ec_bench", **phase_ec_bench(), gpu=smi)
+    lap("ec_bench")
     sweep, rows_sweep = phase_sweep(K, SK, KS, cuda_build, dev)
     emit("sweep", **sweep, gpu=smi)
+    lap("sweep")
     placement, n_place, rows_place = phase_placement(PS, cuda_build, dev)
     for name, line in placement.items():
         emit(f"placement.{name}", **line, gpu=smi)
+    lap("placement")
+    emit("walls", seconds=walls, total=sum(walls.values()), gpu=smi)
 
     def on(kernel):
         return [r for r in shapes if r["kernel"] == kernel]
@@ -1745,7 +2165,7 @@ def main() -> int:
                    "ceph_tpu/ops/pallas_kernels.py:156",
                    "ecutil", n_apply, on("gf_apply"))
         | {"launches_by_path": {"ecutil": n_apply, "serving": n_serving,
-                                "repair": n_repair}},
+                                "repair": n_repair, "backend": n_backend}},
         kernel_row("gf_apply_stripes", "gf_apply.cu",
                    "ceph_tpu/ops/pallas_kernels.py:80",
                    "headline", n_stripes, on("gf_apply_stripes")),
@@ -1756,7 +2176,8 @@ def main() -> int:
         kernel_row("crc32c_rows", "crc32c.cu",
                    "ceph_tpu/ops/rs_kernels.py:302", "ecutil", n_crc,
                    on("crc32c_rows"))
-        | {"launches_by_path": {"ecutil": n_crc, "repair": n_repair_crc},
+        | {"launches_by_path": {"ecutil": n_crc, "repair": n_repair_crc,
+                                "backend": n_backend_crc},
            "library": "no PyTorch call computes crc32c"},
         {"name": "crush_straw2", "route": "cuda",
          "source": "ceph_tpu_torch/ops/csrc/crush_straw2.cu",

@@ -137,6 +137,38 @@ st = osdmaptool.test_map_pgs(om, out=report, device="cpu")
 assert st["total"] == 3 * 64 and "pool 1 pg_num 64" in report.getvalue()
 crushtool.test_rule(cm, 0, 3, 0, 63, device="cpu")
 calc_pg_upmaps(om, max_iterations=2, device="cpu")
+from ceph_tpu_torch.backend import PGTransaction, make_cluster
+from ceph_tpu_torch.backend.ec_backend import RepairState
+from ceph_tpu_torch.common import Context
+from ceph_tpu_torch.tools.wave_driver import WaveScheduler, replace_disk
+for name, profile, path in (
+        ("torch_rs", {"k": "4", "m": "2"}, "wave"),
+        ("torch_rs", {"k": "4", "m": "2"}, "chain"),
+        ("pm_regen", {"k": "3", "m": "2", "d": "4", "mode": "mbr"},
+         "regen")):
+    cct = Context({"osd_recovery_chain_enable": path == "chain",
+                   "osd_recovery_regen_enable": path == "regen"})
+    ec = reg.factory(name, "", profile | {"device": "cpu"})
+    be, bus = make_cluster(ec, chunk_size=384, cct=cct)
+    be.recovery_scheduler = WaveScheduler()
+    k = ec.get_data_chunk_count()
+    data = {f"o{i}": bytes([i]) * (3 * 384 * k) for i in range(3)}
+    for oid, d in data.items():
+        be.submit_transaction(PGTransaction().write(oid, 0, d))
+        bus.deliver_all()
+    bus.mark_down(1)
+    got = {}
+    be.objects_read_and_reconstruct(
+        {oid: [(0, len(d))] for oid, d in data.items()},
+        lambda result, errors: got.update(result))
+    bus.deliver_all()
+    assert all(got[o][0][2] == d for o, d in data.items()), path
+    replace_disk(bus, 1)              # an empty disk comes back
+    rop = be.shard_repairs[1]
+    bus.deliver_all()
+    assert rop.state == RepairState.COMPLETE and not be.stale, path
+    assert be.perf.get({"wave": "recoveries", "chain": "chain_objects",
+                        "regen": "regen_objects"}[path]) == 3, path
 print(json.dumps(sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m == "jaxlib" or m.startswith("jaxlib.")

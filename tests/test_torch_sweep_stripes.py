@@ -91,7 +91,9 @@ def test_path_shapes_launch_shapes_match_the_jax_package():
                                              + ["gf_apply_stripes"] * 2
                                              + ["xor_apply"] * 6
                                              + ["gf_apply"] * 14
-                                             + ["crc32c_rows"] * 4)
+                                             + ["crc32c_rows"] * 4
+                                             + ["gf_apply"] * 3
+                                             + ["crc32c_rows"])
     ecutil, serving, headline = shapes[:3], shapes[3:5], shapes[5:7]
     jvan = JRSCodec(8, 4, technique="reed_sol_van", device="numpy")
     assert np.array_equal(ecutil[0]["mat"], jvan.parity_mat)
@@ -126,7 +128,20 @@ def test_path_shapes_launch_shapes_match_the_jax_package():
     assert repair["pm_regen mbr project"]["mat"].shape == (1, 4)
     assert repair["pm_regen mbr combine"]["mat"].shape == (4, 4)
     assert repair["pm_regen msr combine"]["mat"].shape == (2, 4)
-    crc = shapes[27:]
+    crc = shapes[27:31]
     assert [(s["rows"], s["cols"]) for s in crc] == [
         (12, 2**19), (8, 2**25), (4, 2**25), (2, 2**19)]
+    # the OSD backend's: an op's encode and crc; a degraded read with 1
+    # and 9 down rebuilds 1, 9, 10 and 11 from 0 and 2-8; a wave of the
+    # 64 objects rebuilds 3 alone
+    backend = {s["label"]: s for s in shapes[31:]}
+    assert {s["path"] for s in backend.values()} == {"backend"}
+    assert np.array_equal(backend["op encode"]["mat"], jvan.parity_mat)
+    assert np.array_equal(
+        backend["degraded read [1, 9] down"]["mat"],
+        jvan.decode_matrix([1, 9, 10, 11], [0, 2, 3, 4, 5, 6, 7, 8])[0])
+    assert np.array_equal(backend["wave want [3]"]["mat"], jvan.decode_matrix(
+        [3], [0, 1, 2, 4, 5, 6, 7, 8])[0])
+    assert [(s["rows"], s["cols"]) for s in backend.values()] == [
+        (8, 2**19), (8, 2**19), (8, 2**25), (12, 2**19)]
     json.dumps([{k: v for k, v in s.items() if k != "mat"} for s in shapes])
