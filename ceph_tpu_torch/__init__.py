@@ -12,14 +12,22 @@ Subpackages:
             versions, and RSCodec
   plugins   ErasureCodeInterface / registry with the ``torch_rs``,
             ``jerasure``, ``isa`` and ``shec`` plugins
-  backend   ECUtil stripe layer: encode/decode over many stripes, HashInfo
+  backend   ECUtil stripe layer: encode/decode over many stripes, HashInfo;
+            the OSD's EC and replicated backends, the message bus,
+            MemStore and its per-PG collections
+  osd       the PG log, the mClock queue, the OSD daemon, PrimaryLogPG
+            (op vectors, watchers, snapshots, hit sets) and peering
+  recovery  the recovery scheduler and reservers, chain and regen repair
+  cluster   MiniCluster (the vstart analog), in memory mode
   bench     ceph_erasure_code_benchmark-compatible CLI
   crush     CrushMap, the rjenkins hash and crush_ln, the exact host rule
             interpreter, the text compiler, and BulkMapper over the
             straw2 kernel (ops/csrc/crush_straw2.cu)
   osdmap    OSDMap, Incremental, the scalar PG mapping chain and
             BulkPGMapper (whole pools in one kernel launch)
-  mgr       the balancer: osd_deviation, calc_weight_set, calc_pg_upmaps
+  mgr       the balancer (osd_deviation, calc_weight_set,
+            calc_pg_upmaps), stats, health checks, heat, time series and
+            SLOs
   tools     osdmaptool and crushtool CLIs, the kernel sweep and the
             measurement tools
 
@@ -28,3 +36,11 @@ for ``"cpu"`` (the plain PyTorch versions) or ``"numpy"`` (the host
 reference codec).
 """
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # the cluster pulls in the whole OSD stack: import it on first use
+    if name == "MiniCluster":
+        from .cluster import MiniCluster
+        return MiniCluster
+    raise AttributeError(name)

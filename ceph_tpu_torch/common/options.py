@@ -162,7 +162,151 @@ OPTIONS: list[Option] = [
                        "abort (helper death, version skew, sub-chunk or "
                        "hash mismatch) and for multi-chunk losses",
            see_also=["osd_recovery_chain_enable"]),
+    Option("osd_recovery_max_active", TYPE_UINT, LEVEL_ADVANCED, default=3,
+           description="concurrent recoveries per OSD (the recovery "
+                       "scheduler's wave size: objects fused into one "
+                       "batched reconstruct dispatch)",
+           see_also=["osd_max_backfills",
+                     "osd_recovery_max_bytes_per_sec"]),
+    Option("osd_max_backfills", TYPE_UINT, LEVEL_ADVANCED, default=1,
+           min=0,
+           description="max concurrent recovery/backfill reservations "
+                       "per OSD (local and remote AsyncReserver "
+                       "max_allowed; 0 parks every job — useful to "
+                       "pause background repair)",
+           see_also=["osd_recovery_max_active"]),
+    Option("osd_recovery_max_bytes_per_sec", TYPE_SIZE, LEVEL_ADVANCED,
+           default=0,
+           description="token-bucket byte-rate cap on recovery waves "
+                       "per OSD (0 = uncapped); waves run post-paid and "
+                       "the next wave waits out the debt in virtual time",
+           see_also=["osd_recovery_sleep"]),
+    Option("osd_recovery_sleep", TYPE_FLOAT, LEVEL_ADVANCED, default=0.0,
+           min=0.0,
+           description="virtual-time pause between recovery waves "
+                       "(throttles background repair like the "
+                       "reference's recovery sleep)",
+           see_also=["osd_recovery_max_bytes_per_sec"]),
+    Option("osd_queue_throttle_ops", TYPE_UINT, LEVEL_ADVANCED,
+           default=0,
+           description="OSD daemon op-queue admission bound (0 = "
+                       "unlimited); past it ms_dispatch answers "
+                       "('throttled', epoch) and the client backs off"),
+    Option("mgr_stats_period", TYPE_FLOAT, LEVEL_ADVANCED, default=1.0,
+           min=0.01,
+           description="seconds between background StatsAggregator "
+                       "samples (the mgr's tick interval)",
+           see_also=["mgr_stats_window"]),
+    Option("mgr_stats_window", TYPE_UINT, LEVEL_ADVANCED, default=120,
+           min=2,
+           description="perf-counter samples retained in the rolling "
+                       "rate window (rates span first..last sample)",
+           see_also=["mgr_stats_period"]),
+    Option("mgr_throttle_saturation_ratio", TYPE_FLOAT, LEVEL_ADVANCED,
+           default=0.9, min=0.0, max=1.0,
+           description="THROTTLE_SATURATED health check fires when a "
+                       "throttle's in-use/limit ratio reaches this"),
+    Option("mgr_recompile_storm_compiles", TYPE_UINT, LEVEL_ADVANCED,
+           default=8, min=1,
+           description="RECOMPILE_STORM health check fires when jit "
+                       "compilations within the stats window reach this "
+                       "many AND this rate per minute (shape churn "
+                       "defeating the size buckets)"),
+    Option("mgr_hbm_pressure_ratio", TYPE_FLOAT, LEVEL_ADVANCED,
+           default=0.85, min=0.0, max=1.0,
+           description="HBM_PRESSURE health check fires when a device's "
+                       "high-water memory mark reaches this fraction of "
+                       "its reported capacity"),
+    Option("mgr_flight_capacity", TYPE_UINT, LEVEL_ADVANCED, default=8,
+           min=1,
+           description="flight-recorder bundles kept in the in-memory "
+                       "ring (disk dumps are additionally bounded by "
+                       "the operator's data dir)"),
+    Option("mgr_hot_shard_ratio", TYPE_FLOAT, LEVEL_ADVANCED, default=4.0,
+           min=1.0,
+           description="HOT_SHARD health check fires when one OSD's "
+                       "primary-op rate reaches this multiple of the "
+                       "median OSD load over the stats window",
+           see_also=["mgr_hot_shard_min_ops"]),
+    Option("mgr_hot_shard_min_ops", TYPE_FLOAT, LEVEL_ADVANCED,
+           default=16.0, min=0.0,
+           description="HOT_SHARD requires the hottest OSD to sustain at "
+                       "least this many primary op/s before skew alone "
+                       "can fire the check (idle clusters never page)",
+           see_also=["mgr_hot_shard_ratio"]),
+    Option("mgr_cluster_log_max", TYPE_UINT, LEVEL_ADVANCED, default=500,
+           min=1,
+           description="cluster log (clog) entries kept in the bounded "
+                       "ring; the on-disk clusterlog file compacts back "
+                       "to this bound"),
+    Option("mgr_ts_interval", TYPE_FLOAT, LEVEL_ADVANCED, default=1.0,
+           min=0.0,
+           description="minimum seconds between embedded time-series "
+                       "points (status ticks closer together are "
+                       "coalesced)",
+           see_also=["mgr_ts_capacity", "mgr_ts_coarse_every"]),
+    Option("mgr_ts_capacity", TYPE_UINT, LEVEL_ADVANCED, default=360,
+           min=2,
+           description="points per time-series ring (fine and coarse "
+                       "archives each hold this many; round-robin "
+                       "eviction past it)",
+           see_also=["mgr_ts_interval"]),
+    Option("mgr_ts_coarse_every", TYPE_UINT, LEVEL_ADVANCED, default=12,
+           min=1,
+           description="fine time-series points folded (mean+max) into "
+                       "one coarse archive point",
+           see_also=["mgr_ts_capacity"]),
+    Option("slo_fast_window", TYPE_FLOAT, LEVEL_ADVANCED, default=60.0,
+           min=0.05,
+           description="seconds of the FAST burn-rate window: SLO_BURN "
+                       "needs both the fast and slow windows past "
+                       "slo_burn_rate_threshold (multi-window agreement "
+                       "— a blip trips the fast window alone and stays "
+                       "silent)",
+           see_also=["slo_slow_window", "slo_burn_rate_threshold"]),
+    Option("slo_slow_window", TYPE_FLOAT, LEVEL_ADVANCED, default=600.0,
+           min=0.1,
+           description="seconds of the SLOW burn-rate window (budget "
+                       "remaining and SLO_EXHAUSTED are judged over it)",
+           see_also=["slo_fast_window"]),
+    Option("slo_burn_rate_threshold", TYPE_FLOAT, LEVEL_ADVANCED,
+           default=2.0, min=1.0,
+           description="error-budget burn multiple past which SLO_BURN "
+                       "raises when BOTH windows agree (1.0 = spending "
+                       "exactly the sustainable rate)",
+           see_also=["slo_exhausted_burn_rate"]),
+    Option("slo_exhausted_burn_rate", TYPE_FLOAT, LEVEL_ADVANCED,
+           default=10.0, min=1.0,
+           description="slow-window burn multiple past which "
+                       "SLO_EXHAUSTED (HEALTH_ERR) raises: the budget "
+                       "is gone at any plausible compliance period",
+           see_also=["slo_burn_rate_threshold"]),
+    Option("slo_min_ops", TYPE_UINT, LEVEL_ADVANCED, default=8, min=1,
+           description="minimum ops in BOTH burn windows before the SLO "
+                       "checks can page (an idle class holds no "
+                       "evidence either way)"),
 ]
+
+# per-owner-class latency objectives (mgr/slo.py): slo_<class>_p99_ms is
+# the bound (0 = no objective), slo_<class>_target the fraction of ops
+# that must meet it — the error budget is 1 - target.  Generated for the
+# canonical owner classes (common/device_attribution.OWNER_CLASSES,
+# inlined here so the schema stays import-light).
+for _cls in ("client", "serving", "recovery", "scrub", "rebalance"):
+    OPTIONS.append(Option(
+        f"slo_{_cls}_p99_ms", TYPE_FLOAT, LEVEL_ADVANCED, default=0.0,
+        min=0.0,
+        description=f"latency objective for {_cls}-class ops in "
+                    f"milliseconds (0 disables the objective; "
+                    f"slo_{_cls}_target sets the compliance fraction)",
+        see_also=[f"slo_{_cls}_target"]))
+    OPTIONS.append(Option(
+        f"slo_{_cls}_target", TYPE_FLOAT, LEVEL_ADVANCED, default=0.999,
+        min=0.0, max=1.0,
+        description=f"fraction of {_cls}-class ops that must complete "
+                    f"within slo_{_cls}_p99_ms (error budget = "
+                    f"1 - target)",
+        see_also=[f"slo_{_cls}_p99_ms"]))
 
 SCHEMA: dict[str, Option] = {o.name: o for o in OPTIONS}
 

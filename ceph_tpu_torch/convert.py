@@ -24,6 +24,11 @@ dump of the reference's ``MemStore``s, read by
 :func:`shard_stores_from_reference`, which rebuilds the pickled PG log
 entries and rollback records as the port's classes without importing
 the reference package (``OSDShard`` boots its PG log from them).
+
+A cluster's state is its pools and each OSD's one store, which holds a
+collection (``pg.<pool>.<ps>``) per PG shard it hosts and the daemon's
+superblock: :func:`cluster_from_reference` loads a dump of every OSD's
+store into a port ``MiniCluster`` built with the same pools.
 """
 from __future__ import annotations
 
@@ -156,3 +161,66 @@ def shard_stores_from_reference(dump: dict) -> dict[int, MemStore]:
         stores[int(shard)] = store
     return stores
 
+
+def cluster_from_reference(meta: dict, stores: dict, cct=None,
+                           device: str | None = None):
+    """A port ``MiniCluster`` holding the state of a reference one.
+
+    ``meta`` is the cluster's shape: ``n_osds``, ``osds_per_host``,
+    ``chunk_size`` and ``pools``, a list in creation order of dicts with
+    ``name``, ``type``, ``size``, ``pg_num``, ``params`` (the pool's
+    profile or options), ``snap_seq``, ``snaps`` and ``removed_snaps``
+    (the reference's own cluster metadata).  ``stores`` maps an OSD id
+    to a dump of its one ``MemStore`` in the form
+    :func:`shard_stores_from_reference` reads: every PG collection's
+    objects under their collection-prefixed oids, and the superblock,
+    whose ``sb`` attribute lists the OSD's PGs as ``(pool, ps)`` pairs.
+
+    Every store is loaded before the pools are created, so each PG shard
+    boots its PG log from its collection.  An EC pool of the ``jax_rs``
+    plugin becomes ``torch_rs`` (the same GF(2^8) codes and layouts);
+    ``device``, when given, replaces each EC profile's ``device`` key.
+    The cluster's object list is rediscovered from the primaries' stores,
+    as a reopened reference cluster does."""
+    from .cluster import MiniCluster
+    from .osd.hit_set import is_hit_set_oid
+    from .osd.osd_daemon import OSDDaemon
+    from .osd.primary_log_pg import is_clone_oid
+    from .osdmap import PG, POOL_TYPE_REPLICATED
+    c = MiniCluster(n_osds=int(meta["n_osds"]),
+                    osds_per_host=int(meta["osds_per_host"]),
+                    chunk_size=int(meta["chunk_size"]), cct=cct)
+    for osd, objects in stores.items():
+        store = c.osds[int(osd)].store
+        for rec in objects:
+            obj = GObject(str(rec["oid"]), int(rec["shard"]))
+            xattrs = dict(rec["xattrs"])
+            if obj.oid == OSDDaemon.SUPERBLOCK and "sb" in xattrs:
+                sb = dict(xattrs["sb"])
+                sb["pgids"] = [PG(int(pool), int(ps))
+                               for pool, ps in sb["pgids"]]
+                xattrs["sb"] = sb
+            store.objects[obj] = _Object(
+                bytearray(rec["data"]), xattrs,
+                {k: _omap_value(k, v) for k, v in rec["omap"].items()},
+                bytes(rec["omap_header"]))
+    for p in meta["pools"]:
+        params = dict(p["params"])
+        if p["type"] == POOL_TYPE_REPLICATED:
+            pid = c.create_replicated_pool(p["name"], int(p["size"]),
+                                           int(p["pg_num"]), params=params)
+        else:
+            if params.get("plugin") == "jax_rs":
+                params["plugin"] = "torch_rs"
+            if device is not None:
+                params["device"] = device
+            pid = c.create_ec_pool(p["name"], params, int(p["pg_num"]))
+        pool = c.pools[pid]["pool"]
+        pool.snap_seq = int(p.get("snap_seq", 0))
+        pool.snaps = {int(s): str(n) for s, n in p.get("snaps", {}).items()}
+        pool.removed_snaps = {int(s) for s in p.get("removed_snaps", ())}
+        for g in c.pools[pid]["pgs"].values():
+            c.objects.setdefault(pid, set()).update(
+                o for o in g.backend._local_oids()
+                if not is_clone_oid(o) and not is_hit_set_oid(o))
+    return c

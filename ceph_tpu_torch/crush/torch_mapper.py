@@ -241,9 +241,13 @@ class BulkMapper:
         if op not in _KINDS:
             raise ValueError(f"unsupported op {op} on the bulk path")
         indep, leaf = _KINDS[op]
-        if leaf and arg2 == 0:
-            # chooseleaf over failure-domain osd: the reference copies the
-            # chosen device straight into the leaf vector (mapper.c:592-596)
+        if leaf and arg2 == 0 and not indep:
+            # chooseleaf firstn over failure-domain osd is a plain choose:
+            # the reference copies the chosen device straight into the leaf
+            # vector (mapper.c:592-596) and emits only the positions it
+            # placed; indep keeps leaf, whose kernel emits the last device
+            # a position rejected when its tries run out, as the reference
+            # does
             leaf = False
         numrep = arg1
         if numrep <= 0:

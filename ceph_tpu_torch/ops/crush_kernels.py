@@ -36,7 +36,12 @@ optimal local-retry tunables):
 - with ``leaf`` the chosen bucket is descended once more to a device
   (firstn: r = (stable ? 0 : outpos) + (r >> (vary_r - 1)), position
   outpos; indep: r = rep + r, position rep), and the device must not be
-  out under ``reweights`` (``is_out``).
+  out under ``reweights`` (``is_out``);
+- indep with ``leaf`` over ``target_type`` 0 (the chosen item is already
+  a device) returns the reference's leaf vector, which takes each
+  device that does not collide before its ``is_out`` check: a position
+  whose tries run out ends on the last device rejected there (NONE only
+  if none was), and one device may so end two positions.
 
 ``launches`` counts kernel launches; only a launch adds to it.
 """
@@ -264,7 +269,10 @@ class _Plain:
                     torch.zeros_like(x))
                 good = ok & ~(out[act] == item[:, None]).any(1)
                 leaf_item = item.clone()
-                if s.leaf:
+                if s.leaf and s.target_type == 0:
+                    out2[act[good], rep] = item[good]
+                    good &= ~self.is_out(item, x)
+                elif s.leaf:
                     k = torch.nonzero(good)[:, 0]
                     lf, lok, _ = self.descend(self.bucket_row(item[k]), x[k],
                                               rep + r[k], 0,

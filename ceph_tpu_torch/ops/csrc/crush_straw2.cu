@@ -53,6 +53,11 @@
 //   - the tables (items, hash ids, reciprocals [P, B, S], sizes, types,
 //     row_of_id, reweights and the 65,536-entry int64 ln table, 512 KiB
 //     that stays in L2) are read through __ldg.
+//   - chooseleaf indep over type 0 runs as the interpreter does
+//     (ceph_tpu/crush/mapper.py crush_choose_indep, mapper.c), not as
+//     the JAX mapper's shortcut to a plain choose: the result row is
+//     the leaf vector, which takes each non-colliding device before its
+//     is_out check, and the bucket row holds the accepted ones.
 // Limits (the wrapper raises first): n >= 1, B, S, P, n_rows,
 // n_reweights >= 1; ln has 65,536 entries.
 
@@ -331,6 +336,16 @@ __global__ void __launch_bounds__(THREADS)
       } else if (!l.ok ||
                  bkt.holds<INDEP>(INDEP ? m.out_size : outpos, l.item)) {
         reject();
+      } else if (INDEP && LEAF && m.target_type == 0) {
+        // chooseleaf indep over type 0 (mapper.c crush_choose_indep): the
+        // leaf row takes the device before its is_out check, so a
+        // position whose tries run out ends on the last device rejected
+        // there; the bucket row alone says which positions are settled
+        res[rep] = l.item;
+        if (is_out(m, l.item, x))
+          reject();
+        else
+          place(l.item, l.item);
       } else if (LEAF) {
         // descend the chosen bucket once more to a device (firstn: r =
         // (stable ? 0 : outpos) + r >> (vary_r - 1) at position outpos;

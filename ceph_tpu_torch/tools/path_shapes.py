@@ -31,6 +31,17 @@ For each launch of ``chip_smoke.py``'s main paths, on ``cuda:0``:
   degraded read with shards 1 and 9 down [4, 8] x [8, 512 Ki]; and a
   recovery wave of the 64 objects rebuilding shard 3 [1, 8] x
   [8, 32 Mi];
+- cluster: every launch of ``chip_smoke.py``'s phase ``cluster`` (the
+  MiniCluster of 12 OSDs, pg_num 32, the same codec at a 4 KiB stripe
+  unit, 64 objects of 4 MiB), one row per matrix shape and width with its
+  count in the phase (``launches``): the puts' encodes and crcs, the
+  degraded gets, and the repairs of osd.3, which run per PG, so a wave
+  holds one to three objects: a one-object wave's decode [1, 8] x
+  [8, 512 Ki] and its sources' leave-one-out check (11 decodes [2, 8]),
+  a wave of two or three objects' decode [1, 8] and spare-equation check
+  [4, 8] x [8, 1 or 1.5 Mi], its chain hops [1, 1] x [1, 1 or 1.5 Mi];
+  the pm_regen pool's encode [20, 9], a helper's projection [1, 4], the
+  newcomer's combine [4, 4] and a get's solve [9, 9] over its stripes;
 - ``crc32c_rows``: one object's shards under ``hinfo_append`` [12, 512 Ki],
   the fused encode + checksum's data and parity rows [8, 32 Mi] and
   [4, 32 Mi], and the rebuilt shards' hash check of a recovery wave
@@ -71,6 +82,8 @@ shapes alone.  Without a CUDA device it exits 2.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import importlib
 import json
 import os
@@ -157,6 +170,7 @@ def launch_shapes(pkg) -> list[dict]:
                             cols=p, stripes=1))
     out += repair_shapes(pkg, registry)
     out += backend_shapes(registry)
+    out += cluster_shapes(registry)
     for s in out:
         s["mat"] = np.ascontiguousarray(s["mat"], dtype=np.uint8)
     return out
@@ -361,9 +375,136 @@ def sm_clock_max_mhz() -> float:
     return float(out.strip().splitlines()[0])
 
 
+CLUSTER_UNIT = 4096                # phase cluster's stripe unit
+# osd.3's repairs in phase cluster, per down / overwrite / up cycle: the
+# scheduler runs a wave per PG, and the PGs of the 64 objects' names give
+# 15 waves of one object, 8 of two and 11 of three
+# (tests/test_torch_cluster.py and the phase count them in a run)
+CLUSTER_WAVES = {1: 15, 2: 8, 3: 11}
+CLUSTER_SMALL = 16                 # phase cluster's serving and regen objects
+REGEN_VICTIM_OBJECTS = 4           # the pm_regen victim's objects
+
+
+def cluster_shapes(registry, obj_bytes: int = OBJ_BYTES) -> list[dict]:
+    """The launches of ``chip_smoke.py``'s phase ``cluster`` at
+    ``obj_bytes`` objects, each row with its count in the phase
+    (``launches``).  A PG's acting set decides which chunk osd.3 holds,
+    so the decode matrices differ by PG; each row carries the matrix for
+    chunk 3 (the kernel's time does not depend on the values: two table
+    lookups a data byte whatever they are).  The puts: (a) 64, the (c)
+    and (d) overwrites 64 each, (f) 16 through the serving engine, each
+    an encode [4, 8] x [8, obj], and (a) and (f) a crc [12, obj]; the
+    degraded gets with chunks 1 and 9 down, (b) 64, rebuild 1, 9, 10 and
+    11 [4, 8], and through the serving engine (f) 16 rebuild 1 [1, 8].  Each repair cycle: a one-object wave decodes
+    [1, 8] after checking its 11 sources, each rebuilt from 10 others
+    ([2, 8]: it and chunk 3); a wave of n objects decodes [1, 8] x
+    [8, n obj] and checks the 3 spare chunks ([4, 8]: they and 3), or
+    with chains (d) runs 8 hops [1, 1] x [1, n obj].  (e) pm_regen k=3
+    m=2 d=4 MBR, 16 objects written and overwritten ([20, 9]), the
+    victim's 4 regenerated by 4 helper projections each and a combine,
+    and the 16 read back ([9, 9]: the message from the stored rows)."""
+    ec = registry.factory("torch_rs", "", {"k": "8", "m": "4",
+                                           "technique": "reed_sol_van",
+                                           "device": "numpy"})
+    obj = obj_bytes // 8
+    others = [c for c in range(12) if c != 3]
+    dec = ec.codec.decode_matrix
+    hop = np.array(ec.partial_sum_coefficients({3}, others[:8])[0][0],
+                   np.uint8).reshape(-1, 1)
+    single, cycles = CLUSTER_WAVES[1], 2
+    rows = [("op encode", ec.codec.parity_mat, obj,
+             3 * 64 + CLUSTER_SMALL),
+            ("degraded get [1, 9] down",
+             dec([1, 9, 10, 11], [0, *range(2, 9)])[0], obj, 64),
+            ("serving degraded get [1, 9] down",
+             dec([1], [0, *range(2, 9)])[0], obj, CLUSTER_SMALL),
+            ("wave of one object", dec([3], others[:8])[0], obj,
+             cycles * single),
+            ("source check", dec([0, 3], others[1:9])[0], obj,
+             cycles * single * len(others))]
+    for n in (2, 3):
+        waves = CLUSTER_WAVES[n]
+        rows += [(f"wave of {n} objects", dec([3], others[:8])[0], n * obj,
+                  waves),
+                 (f"spare equations, {n} objects",
+                  dec([3, 9, 10, 11], others[:8])[0], n * obj, waves),
+                 (f"chain hop, {n} objects", hop, n * obj, 8 * waves)]
+    out = [dict(kernel="gf_apply", path="cluster", label=label, mat=mat,
+                rows=mat.shape[1], cols=cols, stripes=1, launches=n)
+           for label, mat, cols, n in rows]
+    pm = registry.factory("pm_regen", "", {
+        "k": "3", "m": "2", "d": "4", "mode": "mbr", "device": "numpy"})
+    chunk = pm.get_chunk_size(pm.k * CLUSTER_UNIT)
+    stripes = -(-obj_bytes // (pm.k * chunk))
+    cols = stripes * pm.get_stored_chunk_size(chunk) \
+        // pm.get_sub_chunk_count()
+    for label, mat, n in (
+            ("pm_regen encode", pm._enc, 2 * CLUSTER_SMALL),
+            ("pm_regen project", pm.repair_projection(0),
+             pm.d * REGEN_VICTIM_OBJECTS),
+            ("pm_regen combine", pm.repair_combine(0, [1, 2, 3, 4]),
+             REGEN_VICTIM_OBJECTS),
+            ("pm_regen get", pm._decode_plan((0, 1, 2))[1],
+             CLUSTER_SMALL)):
+        out.append(dict(kernel="gf_apply", path="cluster", label=label,
+                        mat=mat, rows=mat.shape[1], cols=cols, stripes=1,
+                        launches=n))
+    out.append(dict(kernel="crc32c_rows", path="cluster",
+                    label="put hinfo_append", mat=np.zeros((0, 0), np.uint8),
+                    rows=12, cols=obj, stripes=1,
+                    launches=64 + CLUSTER_SMALL))
+    return out
+
+
+def launch_key(kernel: str, rows: int, cols: int, mat_shape=()) -> tuple:
+    """A launch as (kernel, matrix shape, data rows, data columns)."""
+    return (kernel, tuple(mat_shape), rows, cols)
+
+
+def shape_counts(shapes: list[dict]) -> collections.Counter:
+    """The launches of ``shapes`` (rows with ``launches``) by
+    :func:`launch_key`."""
+    out = collections.Counter()
+    for s in shapes:
+        mat = s["mat"].shape if s["kernel"] == "gf_apply" else ()
+        out[launch_key(s["kernel"], s["rows"], s["cols"], mat)] += \
+            s["launches"]
+    return out
+
+
+@contextlib.contextmanager
+def recorded_launches(K):
+    """Count every ``K.gf_apply`` and ``K.crc32c_rows`` call made while
+    inside by :func:`launch_key`; the wrappers run unchanged (and count
+    their own launches as always)."""
+    seen = collections.Counter()
+    apply, crc = K.gf_apply, K.crc32c_rows
+
+    def gf_apply(mat, data):
+        seen[launch_key("gf_apply", *data.shape, mat.shape)] += 1
+        return apply(mat, data)
+
+    def crc32c_rows(rows):
+        seen[launch_key("crc32c_rows", *rows.shape)] += 1
+        return crc(rows)
+
+    K.gf_apply, K.crc32c_rows = gf_apply, crc32c_rows
+    try:
+        yield seen
+    finally:
+        K.gf_apply, K.crc32c_rows = apply, crc
+
+
 def measure(pkg, shape: dict, dev, seed: int = 3) -> dict:
     """Time one launch shape; the kernel's output is held against its plain
-    version first."""
+    version first.  A shape's count on its path (``launches``) is kept."""
+    row = _measure(pkg, shape, dev, seed)
+    if "launches" in shape:
+        row["launches"] = shape["launches"]
+    return row
+
+
+def _measure(pkg, shape: dict, dev, seed: int) -> dict:
     if shape["kernel"] == "crush_straw2":
         return _measure_straw2(pkg, shape, dev)
     K, SK = pkg.rs_kernels, pkg.sweep_kernels

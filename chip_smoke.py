@@ -60,10 +60,36 @@ drives the port end to end:
                 pm_regen k=3 m=2 d=4, MBR and MSR, 64 objects written and
                 shard 1 rebuilt from the helpers' ECRegenRead legs; (f)
                 (a) and (b) again through a ServingEngine (option
-                defaults), no pipeline error.  Each sub-phase prints a
-                backend.<name> line with its host time by function, and
-                backend.timing splits the phase's wall time into set-up,
-                timed runs and checks;
+                defaults), no pipeline error.  Shard repair runs
+                through the port's RecoveryScheduler (one wave of every
+                object).  Each sub-phase prints a backend.<name> line
+                with its host time by function, and backend.timing
+                splits the phase's wall time into set-up, timed runs and
+                checks;
+5b. cluster  -- a Ceph user's main path through the port's MiniCluster:
+                12 OSDs on 4 hosts, enable_recovery_scheduler() with the
+                option defaults, an EC pool torch_rs k=8 m=4
+                reed_sol_van with no device key and pg_num 32 (rule
+                chooseleaf_indep 12 type 0: every OSD holds a shard of
+                every PG), 4 KiB stripe unit, 64 objects of 4 MiB:
+                (a) put each, every OSD's chunk against the numpy encode
+                and every HashInfo against the host crc32c, one gf_apply
+                and one crc32c_rows launch a put; (b) get each, then each
+                with the OSDs of its PG's chunks 1 and 9 down (a down
+                primary serves nothing until a monitor re-peers, so the
+                OSDs are taken down PG by PG), one gf_apply decode a get;
+                (c) osd.3 (primary of no PG) down, every object
+                overwritten (11 of 12 shards; an overwrite clears the
+                chunk hashes: one gf_apply and no crc32c_rows), osd.3 up:
+                the scheduler's waves repair it centrally, its chunks
+                against the numpy encode, every object read back, wire
+                bytes per repaired byte, the scheduler drained; (d) the
+                same by chains; (e) a pm_regen k=3 m=2 d=4 MBR pool on a
+                cluster of its own, 16 objects, the same cycle by regen
+                legs; (f) a replicated pool of size 3 (16 objects, no
+                kernel), then 16 EC writes and degraded reads through
+                enable_serving(), no pipeline error.  cluster.<name>
+                lines: host seconds by function, launches, wire bytes;
 6. serving   -- the serving path at RBD-on-EC size: ServingEngine (option
                 defaults: depth-4 CUDA codec pipeline, 64-op batches, 2 ms
                 deadline, 64 MiB throttle) over torch_rs k=8 m=4 with no
@@ -120,8 +146,14 @@ drives the port end to end:
                 from the plain version's draw count at the least issue
                 time of a draw's instructions (path_shapes.py), and the
                 kernel's draw loop recounted from cuobjdump -sass: the
-                phase fails if the build needs less than that bound.
-                Sub-phases print placement.<name> lines.
+                phase fails if the build needs less than that bound;
+                (g) MiniCluster's EC rule, chooseleaf_indep 12 type 0 on
+                4 hosts x 3 OSDs with osd.3 at reweight 0x8000 and osd.7
+                at 0x4000: the kernel against its plain version and both
+                against the host interpreter at 256 PGs (every PG, and
+                map_pool against the scalar chain) and at 2^20 PGs
+                (every PG against the plain version, 256 against the
+                interpreter).  Sub-phases print placement.<name> lines.
 
 Each phase prints one JSON line, and a ``walls`` line gives every phase's
 wall seconds; any failure raises and the script exits non-zero.  Before
@@ -1501,12 +1533,13 @@ class CallTimer:
                 for name in self.targets if self.calls[name]}
 
 
-def backend_timer() -> CallTimer:
+def backend_timer(extra: dict | None = None) -> CallTimer:
     """Where a backend op's host time goes: the codec calls (card encode,
     crc, decode, repair legs), the host crc32c, the store's transaction
     apply and the rollback capture, the transaction generation, the
     shards' message handling and the bus's whole delivery loop
-    (inclusive times; nested calls count in both)."""
+    (inclusive times; nested calls count in both); ``extra`` names more
+    (name -> (owner, attribute))."""
     from ceph_tpu_torch.backend import ec_backend as ecb, ecutil as eu
     from ceph_tpu_torch.backend import memstore as ms, pg_backend as pgb
     from ceph_tpu_torch.backend.messages import MessageBus
@@ -1522,7 +1555,8 @@ def backend_timer() -> CallTimer:
         "host_crc32c": (eu, "crc32c"), "host_crc32c_ec": (ecb, "crc32c"),
         "shard_handle_message": (pgb.OSDShard, "handle_message"),
         "store_apply": (ms.MemStore, "queue_transaction"),
-        "rollback_capture": (pgb.OSDShard, "_capture_rollback")})
+        "rollback_capture": (pgb.OSDShard, "_capture_rollback"),
+        **(extra or {})})
 
 
 def _host_crcs(host_enc) -> list[list[int]]:
@@ -1617,13 +1651,13 @@ def _backend_reads(K, be, bus, bufs, name, lost=()) -> dict:
 def _backend_repair(K, be, bus, wire, host_enc, crcs, name, victim: int,
                     label: str) -> dict:
     """Replace ``victim``'s disk and let its repair run to completion
-    through the scheduler stand-in; every rebuilt chunk against
+    through the backend's recovery scheduler; every rebuilt chunk against
     ``host_enc`` (so its crc32c is the one in ``crcs``) and that crc
     against the stored HashInfo."""
     from ceph_tpu_torch.backend import GObject
     from ceph_tpu_torch.backend import ecutil as eu
+    from ceph_tpu_torch.backend import OSDShard
     from ceph_tpu_torch.backend.pg_backend import shard_store
-    from ceph_tpu_torch.tools.wave_driver import replace_disk
     perf0 = {key: be.perf.get(key) for key in (
         "recoveries", "recovery_bytes", "chain_objects", "chain_fallbacks",
         "regen_objects", "regen_fallbacks")}
@@ -1631,10 +1665,14 @@ def _backend_repair(K, be, bus, wire, host_enc, crcs, name, victim: int,
     types0 = wire.per_type()
     torch.cuda.synchronize()
     before = dict(K.launches)
-    waves0 = be.recovery_scheduler.waves
+    waves0 = be.recovery_scheduler.perf.get("waves")
     with backend_timer() as timer:
         t0 = time.perf_counter()
-        replace_disk(bus, victim)
+        # the disk is replaced: the OSD comes back empty, with an empty
+        # PG log, and its revival starts the repair
+        bus.mark_down(victim)
+        OSDShard(victim, bus)
+        bus.mark_up(victim)
         rop = be.shard_repairs.get(victim)
         bus.deliver_all()
         torch.cuda.synchronize()
@@ -1663,13 +1701,29 @@ def _backend_repair(K, be, bus, wire, host_enc, crcs, name, victim: int,
              if v["tx_bytes"] != types0.get(t, {}).get("tx_bytes", 0)}
     return {"victim": victim, "plan": rop.plan,
             "objects_repaired": rop.objects_repaired,
-            "waves": be.recovery_scheduler.waves - waves0,
+            "waves": be.recovery_scheduler.perf.get("waves") - waves0,
             "seconds": elapsed, "rebuilt_MiBps": repaired / MIB / elapsed,
             "rebuilt_bytes": repaired, "wire_tx_bytes": tx,
             "wire_bytes_per_repaired_byte": tx / repaired,
             "wire_tx_bytes_by_type": types, "perf": perf,
             "launches": launches, "host_breakdown": timer.report(),
             "check_s": check_s}
+
+
+def attach_scheduler(be, bus, wave: int):
+    """The recovery scheduler over one backend of make_cluster, as
+    MiniCluster.enable_recovery_scheduler attaches it: its waves of
+    ``wave`` objects (osd_recovery_max_active) queue on the primary's OSD
+    daemon, which runs before every bus delivery."""
+    from ceph_tpu_torch.osd.osd_daemon import OSDDaemon
+    from ceph_tpu_torch.osdmap import PG
+    from ceph_tpu_torch.recovery import RecoveryScheduler
+    daemon = OSDDaemon(be.whoami)
+    bus.pre_deliver_hooks.append(daemon.drain)
+    be.cct.conf.set("osd_recovery_max_active", wave)
+    sched = RecoveryScheduler(cct=be.cct)
+    sched.attach_backend(be, pgid=PG(1, 0), daemon=daemon)
+    return sched
 
 
 def phase_backend(K, ecutil, registry_cls, pipeline_cls, objects: int = 64,
@@ -1691,7 +1745,6 @@ def phase_backend(K, ecutil, registry_cls, pipeline_cls, objects: int = 64,
     from ceph_tpu_torch.common import Context
     from ceph_tpu_torch.common.wire_accounting import WireAccounting
     from ceph_tpu_torch.exec import ServingEngine
-    from ceph_tpu_torch.tools.wave_driver import WaveScheduler
     t_phase = time.perf_counter()
     registry = registry_cls.instance()
     k, m, unit = 8, 4, 4096
@@ -1711,7 +1764,7 @@ def phase_backend(K, ecutil, registry_cls, pipeline_cls, objects: int = 64,
     if ec.get_profile()["device"] != "cuda" or len(bus.handlers) != k + m:
         raise AssertionError("backend: not torch_rs on the card over "
                              "12 shards")
-    be.recovery_scheduler = WaveScheduler(size=objects)
+    sched = attach_scheduler(be, bus, objects)
     wire = WireAccounting(cct, name="backend")
     bus.wire_stats = wire
     lines = {}
@@ -1792,7 +1845,7 @@ def phase_backend(K, ecutil, registry_cls, pipeline_cls, objects: int = 64,
         rcct = Context({"osd_recovery_regen_enable": True})
         rchunk = pm.get_chunk_size(3 * unit)
         rbe, rbus = make_cluster(pm, chunk_size=rchunk, cct=rcct)
-        rbe.recovery_scheduler = WaveScheduler(size=regen_objects)
+        rsched = attach_scheduler(rbe, rbus, regen_objects)
         rwire = WireAccounting(rcct, name=f"backend.{mode}")
         rbus.wire_stats = rwire
         rbufs = bufs[:regen_objects]
@@ -1816,6 +1869,7 @@ def phase_backend(K, ecutil, registry_cls, pipeline_cls, objects: int = 64,
                       "code_wire_per_repaired_byte": d / alpha,
                       "write": w, "repair": rep})
         rwire.close()
+        rsched.close()
     lines["repair_regen"] = regen
     torch.cuda.synchronize()
     launches = dict(K.launches)
@@ -1824,6 +1878,7 @@ def phase_backend(K, ecutil, registry_cls, pipeline_cls, objects: int = 64,
             raise AssertionError(f"backend path launched no {key}")
     lines["launches"] = launches
     wire.close()
+    sched.close()
     del bufs, host_enc
     torch.cuda.empty_cache()
     runs = [lines["write"], *lines["reads"].values(), *turns,
@@ -1834,6 +1889,370 @@ def phase_backend(K, ecutil, registry_cls, pipeline_cls, objects: int = 64,
         "timed_s": sum(r["seconds"] for r in runs),
         "checks_s": sum(r.get("check_s", 0.0) for r in runs)}
     return lines, launches["gf_apply"], launches["crc32c_rows"]
+
+
+# -- phase cluster ------------------------------------------------------------
+
+def cluster_timer() -> CallTimer:
+    """backend_timer's functions and the cluster's own: the client entry
+    points, the daemons' op-queue drains and the scheduler's waves."""
+    from ceph_tpu_torch import cluster as cl
+    from ceph_tpu_torch.osd import osd_daemon as od
+    from ceph_tpu_torch.recovery import scheduler as rs
+    return backend_timer({
+        "put": (cl.MiniCluster, "put"), "get": (cl.MiniCluster, "get"),
+        "daemon_drain": (od.OSDDaemon, "drain"),
+        "scheduler_wave": (rs.RecoveryScheduler, "_run_wave")})
+
+
+class ClusterRun:
+    """One timed, launch-counted and wire-counted sub-phase of the
+    cluster phase: ``with ClusterRun(K, c) as run: ...`` then
+    ``run.line(**fields)``."""
+
+    def __init__(self, K, c):
+        self.K, self.c = K, c
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        self.launches0 = dict(self.K.launches)
+        self.wire0 = (self.c.wire.totals(), self.c.wire.class_bytes())
+        self.timer = cluster_timer().__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.seconds = time.perf_counter() - self.t0
+        self.timer.__exit__(*exc)
+        self.launches = {k: self.K.launches[k] - self.launches0[k]
+                         for k in self.K.launches}
+        tot, cls = self.c.wire.totals(), self.c.wire.class_bytes()
+        self.wire = {"tx_bytes": tot["tx_bytes"] - self.wire0[0]["tx_bytes"],
+                     "tx_msgs": tot["tx_msgs"] - self.wire0[0]["tx_msgs"],
+                     "class_bytes": {k: v - self.wire0[1][k]
+                                     for k, v in cls.items()
+                                     if v != self.wire0[1][k]}}
+        return False
+
+    def line(self, **fields) -> dict:
+        return {"seconds": self.seconds, "launches": self.launches,
+                "wire": self.wire, "host_breakdown": self.timer.report(),
+                **fields}
+
+
+def _cluster_check_chunks(c, pid, oids, encs, crcs, osds=None,
+                          hashes: bool = True) -> int:
+    """Every chunk of ``oids`` on the OSDs of its PG's acting set (or only
+    ``osds``) against ``encs`` (the numpy encodes); each HashInfo against
+    ``crcs`` (the host crc32c of each chunk) with ``hashes``, else (the
+    chunk hashes an overwrite clears) against the primary's HashInfo.
+    Returns the bytes checked."""
+    from ceph_tpu_torch.backend import GObject
+    from ceph_tpu_torch.backend.ecutil import HINFO_KEY
+    from ceph_tpu_torch.backend.pg_backend import shard_store
+    checked = 0
+    for oid, want, crc in zip(oids, encs, crcs):
+        g = c.pg_group(pid, oid)
+        prim = shard_store(g.bus, g.acting[0]).getattr(
+            GObject(oid, g.acting[0]), HINFO_KEY)
+        for chunk, osd in enumerate(g.acting):
+            if osds is not None and osd not in osds:
+                continue
+            store = shard_store(g.bus, osd)
+            got = store.read(GObject(oid, osd))
+            if got != want[chunk].tobytes():
+                raise AssertionError(f"cluster: {oid} chunk {chunk} on "
+                                     f"osd.{osd} != numpy encode")
+            h = store.getattr(GObject(oid, osd), HINFO_KEY)
+            if hashes and h["cumulative_shard_hashes"][chunk] != crc[chunk]:
+                raise AssertionError(f"cluster: {oid} chunk {chunk} "
+                                     f"HashInfo != host crc32c")
+            if not hashes and h != prim:
+                raise AssertionError(f"cluster: {oid} osd.{osd} HashInfo "
+                                     f"!= the primary's")
+            checked += len(got)
+    return checked
+
+
+def _cluster_degraded_gets(c, pid, data: dict, chunks=(1, 9)) -> list:
+    """Every object of ``data`` read with the OSDs of its PG's ``chunks``
+    down (one PG at a time: a down OSD is down for every PG it serves,
+    and a down primary serves nothing); returns the objects that
+    differ."""
+    by_pg: dict = {}
+    for oid in data:
+        by_pg.setdefault(c.object_pg(pid, oid), []).append(oid)
+    bad = []
+    for ps, oids in sorted(by_pg.items()):
+        g = c.pools[pid]["pgs"][ps]
+        down = [g.acting[i] for i in chunks]
+        for o in down:
+            c.bus.mark_down(o)
+        for oid in oids:
+            if c.get(pid, oid, len(data[oid])) != data[oid]:
+                bad.append(oid)
+        for o in down:
+            c.bus.mark_up(o)
+        c.deliver_all()
+    return bad
+
+
+def _cluster_down_overwrite_up(K, c, pid, victim, data: dict, new: dict
+                               ) -> tuple[dict, dict]:
+    """``victim`` goes down, every object of ``new`` is overwritten
+    (degraded writes: its PGs run one shard short), ``victim`` comes
+    back and the scheduler's waves repair it; the scheduler must drain.
+    Returns the overwrite's and the repair's runs' fields."""
+    if any(g.backend.whoami == victim
+           for g in c.pools[pid]["pgs"].values()):
+        raise AssertionError(f"cluster: osd.{victim} is a primary")
+    c.bus.mark_down(victim)
+    with ClusterRun(K, c) as w:
+        for oid, d in new.items():
+            c.put(pid, oid, d)
+    states = c.status()["pgmap"]["pgs_by_state"]
+    data.update(new)
+    perf0 = _cluster_perf(c, pid)
+    with ClusterRun(K, c) as r:
+        c.bus.mark_up(victim)
+        c.deliver_all()
+    perf = {k: v - perf0[k] for k, v in _cluster_perf(c, pid).items()}
+    summary = c.recovery.summary()
+    if c.recovery.jobs or summary["reservations"]["granted"] or any(
+            g.backend.stale for g in c.pools[pid]["pgs"].values()):
+        raise AssertionError(f"cluster: scheduler did not drain: "
+                             f"{c.recovery.dump()}")
+    return (w.line(objects=len(new), pgs_by_state=states,
+                   ms_per_op=w.seconds / len(new) * 1e3),
+            r.line(victim=victim, perf=perf, recovery=summary,
+                   waves=c.recovery.perf.get("waves")))
+
+
+def _cluster_perf(c, pid) -> dict:
+    keys = ("recoveries", "recovery_bytes", "chain_objects",
+            "chain_fallbacks", "regen_objects", "regen_fallbacks",
+            "log_repair_objects")
+    out = dict.fromkeys(keys, 0)
+    for g in c.pools[pid]["pgs"].values():
+        for k in keys:
+            out[k] += g.backend.perf.get(k)
+    return out
+
+
+def phase_cluster(K, ecutil, registry_cls, objects: int = 64,
+                  obj_bytes: int = 4 * MIB, regen_objects: int = 16,
+                  small_objects: int = 16) -> tuple[dict, int, int]:
+    """A Ceph user's main path through the port's MiniCluster: 12 OSDs on
+    4 hosts, the recovery scheduler with the option defaults, an EC pool
+    torch_rs k=8 m=4 reed_sol_van with no device key (the card), pg_num
+    32 (osd_pool_default_pg_num), whose rule is chooseleaf_indep 12 type
+    0 (every OSD holds one shard of every PG), 4 KiB stripe unit,
+    ``objects`` objects of 4 MiB (the RBD object size).  (a) put each
+    object; (b) get each, then each with the OSDs of its chunks 1 and 9
+    down; (c) osd.3 (primary of no PG) down, every object overwritten,
+    osd.3 up: the scheduler's waves repair it centrally, (d) the same by
+    chains; (e) a pm_regen k=3 m=2 d=4 MBR pool on a cluster of its own,
+    the same cycle; (f) a replicated pool of size 3, then EC writes and
+    degraded reads through ``enable_serving()``.  The launch counts are
+    zeroed after the payloads and their numpy encodes are made and read
+    at the end.  Returns the sub-phase lines and the gf_apply and
+    crc32c_rows launches."""
+    from ceph_tpu_torch.cluster import MiniCluster
+    from ceph_tpu_torch.common import Context
+    t_phase = time.perf_counter()
+    registry = registry_cls.instance()
+    k, m, unit, victim = 8, 4, 4096, 3
+    profile = {"k": str(k), "m": str(m), "technique": "reed_sol_van"}
+    host = registry.factory("torch_rs", "", profile | {"device": "numpy"})
+    chunk = host.get_chunk_size(k * unit)
+    rng = np.random.default_rng(12)
+    bufs = [rng.integers(0, 256, obj_bytes, dtype=np.uint8)
+            for _ in range(objects)]
+    host_enc = ecutil.encode_many(ecutil.StripeInfo(k, chunk), host, bufs)
+    crcs = _host_crcs(host_enc)
+    oids = [f"rbd_data.{i:04x}" for i in range(objects)]
+    setup_s = time.perf_counter() - t_phase
+    c = MiniCluster(n_osds=12, osds_per_host=3, chunk_size=unit,
+                    cct=Context())
+    lines = {}
+    try:
+        c.enable_recovery_scheduler()
+        pid = c.create_ec_pool("rbd", dict(profile), pg_num=32)
+        ec = c.pools[pid]["ec"]
+        steps = c.osdmap.crush.rules[c.pools[pid]["pool"].crush_rule].steps
+        if ec.get_profile()["device"] != "cuda" or steps[1][1:] != (12, 0):
+            raise AssertionError(f"cluster: not torch_rs on the card over "
+                                 f"chooseleaf_indep 12 type 0: {steps}")
+        torch.cuda.synchronize()
+        K.reset_launches()
+        # (a) writes
+        with ClusterRun(K, c) as run:
+            for oid, buf in zip(oids, bufs):
+                c.put(pid, oid, buf.tobytes())
+        t0 = time.perf_counter()
+        checked = _cluster_check_chunks(c, pid, oids, host_enc, crcs)
+        check_s = time.perf_counter() - t0
+        if run.launches["gf_apply"] != objects or \
+                run.launches["crc32c_rows"] != objects:
+            raise AssertionError(f"cluster writes: {run.launches}")
+        lines["write"] = run.line(objects=objects, checked_bytes=checked,
+                                  ms_per_op=run.seconds / objects * 1e3,
+                                  MiBps=objects * obj_bytes / MIB /
+                                  run.seconds, check_s=check_s)
+        # (b) reads, then degraded reads
+        data = {oid: buf.tobytes() for oid, buf in zip(oids, bufs)}
+        with ClusterRun(K, c) as run:
+            bad = [oid for oid, d in data.items()
+                   if c.get(pid, oid, len(d)) != d]
+        healthy = run.line(objects=objects,
+                           ms_per_op=run.seconds / objects * 1e3)
+        with ClusterRun(K, c) as run:
+            bad += _cluster_degraded_gets(c, pid, data)
+        if bad or run.launches["gf_apply"] != objects or \
+                healthy["launches"]["gf_apply"]:
+            raise AssertionError(f"cluster reads: {bad[:4]} "
+                                 f"{healthy['launches']} {run.launches}")
+        lines["read"] = {"healthy": healthy, "degraded": run.line(
+            objects=objects, lost_chunks=[1, 9],
+            ms_per_op=run.seconds / objects * 1e3)}
+        # (c) centralized repair, (d) chain repair: each overwrite moves
+        # every object to another payload (object i takes payload i + s)
+        for s, chain in ((1, False), (2, True)):
+            c.cct.conf.set("osd_recovery_chain_enable", chain)
+            order = [(i + s) % objects for i in range(objects)]
+            new = {oid: bufs[j].tobytes() for oid, j in zip(oids, order)}
+            w, r = _cluster_down_overwrite_up(K, c, pid, victim, data, new)
+            t0 = time.perf_counter()
+            repaired = _cluster_check_chunks(
+                c, pid, oids, [host_enc[j] for j in order],
+                [crcs[j] for j in order], osds={victim}, hashes=False)
+            bad = [oid for oid, d in data.items()
+                   if c.get(pid, oid, len(d)) != d]
+            check_s = time.perf_counter() - t0
+            # a wave of one object takes the per-object path (nothing to
+            # fuse), so chains carry the objects of multi-object waves
+            if bad or r["perf"]["recoveries"] != objects or \
+                    (chain and not r["perf"]["chain_objects"]):
+                raise AssertionError(f"cluster repair: {bad[:4]} "
+                                     f"{r['perf']}")
+            lines["repair_chain" if chain else "repair_wave"] = {
+                "overwrite": w, "repair": r | {
+                    "repaired_bytes": repaired,
+                    "rebuilt_MiBps": repaired / MIB / r["seconds"],
+                    "wire_bytes_per_repaired_byte":
+                        r["wire"]["class_bytes"].get("recovery", 0.0)
+                        / repaired, "check_s": check_s}}
+        # (f) a replicated pool (no kernel), then serving
+        rep = c.create_replicated_pool("rep", size=3, pg_num=32)
+        small = {f"rep.{i}": bufs[i].tobytes()
+                 for i in range(small_objects)}
+        with ClusterRun(K, c) as run:
+            for oid, d in small.items():
+                c.put(rep, oid, d)
+            bad = [oid for oid, d in small.items()
+                   if c.get(rep, oid, len(d)) != d]
+        if bad or any(run.launches.values()):
+            raise AssertionError(f"replicated pool: {bad} {run.launches}")
+        lines["replicated"] = run.line(objects=small_objects)
+        eng = c.enable_serving()
+        eng0, pipe0 = eng.perf.dump(), eng.pipeline.perf.dump()
+        served = {f"srv.{i}": bufs[-1 - i].tobytes()
+                  for i in range(small_objects)}
+        with ClusterRun(K, c) as run:
+            for oid, d in served.items():
+                c.put(pid, oid, d)
+            bad = _cluster_degraded_gets(c, pid, served)
+            eng.flush()
+        engine = _perf_delta(eng0, eng.perf.dump(), ENGINE_KEYS)
+        epipe = _perf_delta(pipe0, eng.pipeline.perf.dump(), PIPE_KEYS)
+        if bad or epipe["errors"] or engine["ops_failed"] or \
+                epipe["completed"] != epipe["submitted"] or \
+                not engine["batches"]:
+            raise AssertionError(f"cluster serving: {bad} {engine} {epipe}")
+        lines["serving"] = run.line(objects=small_objects, engine=engine,
+                                    pipeline=epipe)
+        launches = dict(K.launches)
+        lines["status"] = c.status()["pgmap"]
+        lines["health"] = c.health()
+    finally:
+        c.shutdown()
+    # (e) regenerating repair: pm_regen k=3 m=2 d=4 MBR on a cluster whose
+    # chunk size fits the code (its own, as the reference's tests build)
+    prof = {"plugin": "pm_regen", "k": "3", "m": "2", "d": "4",
+            "mode": "mbr"}
+    pm_host = registry.factory("pm_regen", "", prof | {"device": "numpy"})
+    rchunk = pm_host.get_chunk_size(3 * unit)
+    rsinfo = ecutil.StripeInfo(3, rchunk)
+    rsinfo.stored_chunk_size = pm_host.get_stored_chunk_size(rchunk)
+    pad = -obj_bytes % rsinfo.stripe_width
+    t0 = time.perf_counter()
+    rbufs = [np.concatenate([b, np.zeros(pad, np.uint8)])
+             for b in bufs[:regen_objects + 1]]
+    renc = [ecutil.encode(rsinfo, pm_host, b) for b in rbufs]
+    setup_s += time.perf_counter() - t0
+    rc = MiniCluster(n_osds=12, osds_per_host=3, chunk_size=rchunk,
+                     cct=Context())
+    try:
+        rc.enable_recovery_scheduler()
+        rpid = rc.create_ec_pool("regen", dict(prof), pg_num=32)
+        roids = [f"regen.{i}" for i in range(regen_objects)]
+        K.reset_launches()
+        rdata = {}
+        with ClusterRun(K, rc) as run:
+            for oid, b in zip(roids, rbufs):
+                rdata[oid] = b[:obj_bytes].tobytes()
+                rc.put(rpid, oid, rdata[oid])
+        rw = run.line(objects=regen_objects)
+        pgs = rc.pools[rpid]["pgs"]
+        prim = {g.backend.whoami for g in pgs.values()}
+        load: dict = {}
+        for oid in roids:
+            for o in rc.pg_group(rpid, oid).acting[1:]:
+                if o not in prim:
+                    load[o] = load.get(o, 0) + 1
+        rvictim = min(load, key=lambda o: (-load[o], o))
+        new = {oid: rbufs[i + 1][:obj_bytes].tobytes()
+               for i, oid in enumerate(roids)}
+        w, r = _cluster_down_overwrite_up(K, rc, rpid, rvictim, rdata, new)
+        repaired = _cluster_check_chunks(
+            rc, rpid, roids, renc[1:], [None] * regen_objects,
+            osds={rvictim}, hashes=False)
+        bad = [oid for oid, d in rdata.items()
+               if rc.get(rpid, oid, len(d)) != d]
+        if bad or r["perf"]["regen_objects"] != load[rvictim]:
+            raise AssertionError(f"cluster regen: {bad[:4]} {r['perf']} "
+                                 f"{load[rvictim]}")
+        lines["repair_regen"] = {
+            "profile": prof, "chunk_size": rchunk, "write": rw,
+            "overwrite": w, "repair": r | {
+                "repaired_bytes": repaired,
+                "wire_bytes_per_repaired_byte":
+                    r["wire"]["class_bytes"].get("recovery", 0.0)
+                    / repaired}}
+        for key in launches:
+            launches[key] += K.launches[key]
+    finally:
+        rc.shutdown()
+    del bufs, host_enc, rbufs, renc
+    torch.cuda.empty_cache()
+    lines["launches"] = launches
+    lines["timing"] = {"seconds": time.perf_counter() - t_phase,
+                       "setup_s": setup_s}
+    return lines, launches["gf_apply"], launches["crc32c_rows"]
+
+
+def cluster_launch_shapes(PS, registry_cls, seen) -> dict:
+    """Phase cluster's kernel calls by (kernel, matrix shape, data rows,
+    columns), as recorded, against ``path_shapes.cluster_shapes``, whose
+    rows phase ``shapes`` times: every call must be at a shape timed
+    there, as often as the rows say."""
+    want = PS.shape_counts(PS.cluster_shapes(registry_cls.instance()))
+    if dict(seen) != dict(want):
+        raise AssertionError(f"cluster: launches by shape {dict(seen)} != "
+                             f"path_shapes.cluster_shapes {dict(want)}")
+    return {"checked": [[kernel, list(mat), rows, cols, n] for
+                        (kernel, mat, rows, cols), n in sorted(seen.items())]}
 
 
 # -- phase placement ----------------------------------------------------------
@@ -1989,6 +2408,111 @@ def placement_balancer(mgr, CK, tracer, m) -> dict:
     return out
 
 
+def placement_type0(PS, dev, sample: int = 256) -> dict:
+    """(g) chooseleaf indep over type 0, the rule MiniCluster gives an EC
+    pool wider than its hosts: 4 hosts x 3 OSDs, an EC pool of size 12
+    on chooseleaf_indep 12 type 0, osd.3 at reweight 0x8000 and osd.7 at
+    0x4000.  At 256 PGs the kernel against its plain version on every
+    PG, both against the host interpreter on every PG, and map_pool
+    against the scalar OSDMap chain (PG 1.0 has osd.7 at position 7);
+    at PS.PLACEMENT_PGS PGs with the same reweights, the kernel against
+    its plain version on every PG and ``sample`` PGs against the
+    interpreter (the interpreter takes about 20 ms an x on this map: 12
+    positions, up to 50 tries each).  Returns the sub-phase's line; its
+    launches are outside the main path's count."""
+    from ceph_tpu_torch.crush import (CRUSH_BUCKET_STRAW2,
+                                      CRUSH_RULE_CHOOSELEAF_INDEP,
+                                      CRUSH_RULE_EMIT, CRUSH_RULE_TAKE,
+                                      CrushMap, crush_do_rule)
+    from ceph_tpu_torch.ops import crush_kernels as CK
+    from ceph_tpu_torch.osdmap import (PG, POOL_TYPE_ERASURE, BulkPGMapper,
+                                       OSDMap, Pool)
+    cmap = CrushMap()
+    cmap.set_type_name(1, "host")
+    cmap.set_type_name(2, "root")
+    hosts = [cmap.add_bucket(CRUSH_BUCKET_STRAW2, 1,
+                             list(range(3 * h, 3 * h + 3)), [0x10000] * 3)
+             for h in range(4)]
+    root = cmap.add_bucket(CRUSH_BUCKET_STRAW2, 2, hosts, [0x30000] * 4)
+    cmap.finalize()
+    ruleno = cmap.add_rule([(CRUSH_RULE_TAKE, root, 0),
+                            (CRUSH_RULE_CHOOSELEAF_INDEP, 12, 0),
+                            (CRUSH_RULE_EMIT, 0, 0)])
+    rows = []
+    for pg_num in (256, PS.PLACEMENT_PGS):
+        m = OSDMap(crush=cmap)
+        for o in range(12):
+            m.create_osd(o)
+        m.add_pool(Pool(pool_id=1, type=POOL_TYPE_ERASURE, size=12,
+                        min_size=9, pg_num=pg_num, crush_rule=ruleno))
+        m.osd_weight[3], m.osd_weight[7] = 0x8000, 0x4000
+        mapper = BulkPGMapper(m, device=dev.type)
+        pool = m.pools[1]
+        pps = mapper.pool_pps(pool)
+        xs = torch.from_numpy(pps.astype(np.int64)).to(dev)
+        shape = mapper.bulk.rule_shape(ruleno, 12)
+        if not (shape.indep and shape.leaf and shape.target_type == 0):
+            raise AssertionError(f"not chooseleaf indep over type 0: {shape}")
+        tables = mapper.bulk.tables(None)
+        rw = torch.from_numpy(np.asarray(m.osd_weight,
+                                         dtype=np.int64)).to(dev)
+        got = CK.straw2_map(xs, tables, rw, shape)
+        # the plain version on the card at 2^20 x's; at 256, where its
+        # small launches would take ~10 s, on the same inputs on the host
+        pdev = dev if pg_num > sample else torch.device("cpu")
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = CK.straw2_map_plain(xs.to(pdev), mapper.bulk.tables(
+            None, device=pdev.type), rw.to(pdev), shape, stats=stats)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(max_abs_err(got[0], want[0].to(dev)),
+                  max_abs_err(got[1], want[1].to(dev)))
+        if err:
+            raise AssertionError(f"crush_straw2 disagrees with its plain "
+                                 f"version on type-0 indep at {pg_num}")
+        out = got[0].cpu().numpy()
+        pss = np.arange(pg_num) if pg_num <= sample else \
+            np.random.default_rng(6).choice(pg_num, sample, replace=False)
+        weights = list(m.osd_weight)
+        for ps in pss.tolist():
+            if out[ps].tolist() != crush_do_rule(cmap, ruleno, int(pps[ps]),
+                                                 12, weights):
+                raise AssertionError(f"type-0 indep ps {ps}: kernel != "
+                                     f"interpreter")
+        chain = None
+        if pg_num == 256:
+            pm = mapper.map_pool(1)
+            differ = 0
+            for ps in range(pg_num):
+                up, upp, act, actp = m.pg_to_up_acting_osds(PG(1, ps))
+                differ += (pm.up[ps][:len(up)].tolist() != up or
+                           pm.acting[ps][:len(act)].tolist() != act or
+                           int(pm.up_primary[ps]) != upp or
+                           int(pm.acting_primary[ps]) != actp)
+            if differ or pm.acting[0][7] != 7:
+                raise AssertionError(f"type-0 indep map_pool: {differ} PGs "
+                                     f"differ from the chain, PG 1.0 "
+                                     f"{pm.acting[0].tolist()}")
+            chain = {"pgs": pg_num, "differ": differ,
+                     "pg_1_0": pm.acting[0].tolist()}
+        ms = cuda_ms(lambda: CK.straw2_map(xs, tables, rw, shape), 10)
+        bound = PS.straw2_bound(stats["draws"], pg_num, shape.out_size,
+                                tables, rw)
+        rows.append({"kernel": "crush_straw2", "path": "placement",
+                     "label": f"ec12 type-0 indep {pg_num}",
+                     "pool": "ec12_type0", "variant": "reweights",
+                     "shape": [pg_num, shape.out_size], "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms,
+                     "plain_device": pdev.type, **bound,
+                     "share_of_bound": bound["bound_ms"] / ms,
+                     "draws_per_x": stats["draws"] / pg_num,
+                     "interpreter_checked": len(pss), "chain": chain,
+                     "none_items": int((out == CK.NONE).sum())})
+    return {"rows": rows}
+
+
 def phase_placement(PS, cuda_build, dev, sample: int = 4096
                     ) -> tuple[dict, int, list]:
     """CRUSH bulk placement on a 1024-OSD map with rep3 and ec84 at
@@ -2064,6 +2588,8 @@ def phase_placement(PS, cuda_build, dev, sample: int = 4096
         result_max=m.pools[pid].size)) for pid in pms}
     lines["interpreter"] = placement_interpreter(m, raws, crush_do_rule, PG,
                                                  CRUSH_ITEM_NONE, sample)
+    # (g) the type-0 chooseleaf indep rule, outside the counted window
+    lines["type0"] = placement_type0(PS, dev)
     lines["timings"] = timings
     base = [r for r in rows if r["variant"] == "base"]
     sass = PS.straw2_sass_counts(cuda_build.library_path("crush_straw2"),
@@ -2076,7 +2602,7 @@ def phase_placement(PS, cuda_build, dev, sample: int = 4096
                           "pool", "draws", "draws_per_x", "ms", "bound_ms",
                           "bound_by", "ops_bound_ms", "bytes_bound_ms",
                           "share_of_bound")} for r in base]}
-    return lines, launches, rows
+    return lines, launches, rows + lines["type0"]["rows"]
 
 
 def main() -> int:
@@ -2134,6 +2660,14 @@ def main() -> int:
         emit(f"backend.{name}", **(line if isinstance(line, dict)
                                    else {"runs": line}), gpu=smi)
     lap("backend")
+    with PS.recorded_launches(K) as seen:
+        clus, n_cluster, n_cluster_crc = phase_cluster(
+            K, ecutil, ErasureCodePluginRegistry)
+    clus["shapes"] = cluster_launch_shapes(PS, ErasureCodePluginRegistry,
+                                           seen)
+    for name, line in clus.items():
+        emit(f"cluster.{name}", **line, gpu=smi)
+    lap("cluster")
     serving, n_serving = phase_serving(K, ecutil, ErasureCodePluginRegistry)
     emit("serving", **serving, gpu=smi)
     lap("serving")
@@ -2165,7 +2699,8 @@ def main() -> int:
                    "ceph_tpu/ops/pallas_kernels.py:156",
                    "ecutil", n_apply, on("gf_apply"))
         | {"launches_by_path": {"ecutil": n_apply, "serving": n_serving,
-                                "repair": n_repair, "backend": n_backend}},
+                                "repair": n_repair, "backend": n_backend,
+                                "cluster": n_cluster}},
         kernel_row("gf_apply_stripes", "gf_apply.cu",
                    "ceph_tpu/ops/pallas_kernels.py:80",
                    "headline", n_stripes, on("gf_apply_stripes")),
@@ -2177,7 +2712,8 @@ def main() -> int:
                    "ceph_tpu/ops/rs_kernels.py:302", "ecutil", n_crc,
                    on("crc32c_rows"))
         | {"launches_by_path": {"ecutil": n_crc, "repair": n_repair_crc,
-                                "backend": n_backend_crc},
+                                "backend": n_backend_crc,
+                                "cluster": n_cluster_crc},
            "library": "no PyTorch call computes crc32c"},
         {"name": "crush_straw2", "route": "cuda",
          "source": "ceph_tpu_torch/ops/csrc/crush_straw2.cu",

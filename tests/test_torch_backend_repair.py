@@ -1,7 +1,9 @@
 """Shard repair through the port's ECBackend against the JAX package's.
 
-``start_shard_repair`` with a wave driver (the recovery scheduler's
-pacing, without reservations) runs the three repair paths of
+``start_shard_repair`` under each package's ``RecoveryScheduler``
+(reservations, priorities and waves of ``osd_recovery_max_active``
+objects queued on the primary's OSD daemon) runs the three repair paths
+of
 ``_recover_many``: centralized recovery waves (``decode_shards_many``),
 chained partial sums (``recovery/chain.py``, ``osd_recovery_chain_enable``)
 and regenerating repair (``recovery/regen.py``,
@@ -16,15 +18,45 @@ not have (a ``torch_rs`` or ``pm_regen`` pool with no ``device`` key).
 """
 from __future__ import annotations
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
 from ceph_tpu_torch import convert
 from ceph_tpu_torch.ops import rs_kernels
-from ceph_tpu_torch.tools.wave_driver import WaveScheduler, replace_disk
 from test_torch_ec_backend import (CHUNK, JAX, PORT, STRIPE, Env, norm,
                                    payload, run_both)
+
+
+def attach_scheduler(side, be, bus, wave: int | None = None):
+    """``side``'s recovery scheduler over make_cluster's one PG, as
+    ``MiniCluster.enable_recovery_scheduler`` attaches it: the waves
+    queue on the primary's OSD daemon, which runs before every bus
+    delivery (the cluster's pre-deliver hook); ``wave`` sets
+    ``osd_recovery_max_active``, the objects a wave."""
+    pkg = side.pkg
+    daemon = importlib.import_module(f"{pkg}.osd.osd_daemon").OSDDaemon(
+        be.whoami)
+    bus.pre_deliver_hooks.append(daemon.drain)
+    if wave is not None:
+        be.cct.conf.set("osd_recovery_max_active", wave)
+    sched = importlib.import_module(f"{pkg}.recovery").RecoveryScheduler(
+        cct=be.cct)
+    pg = importlib.import_module(f"{pkg}.osdmap").PG(1, 0)
+    sched.attach_backend(be, pgid=pg, daemon=daemon)
+    return sched
+
+
+def replace_disk(bus, shard: int, osd_shard) -> None:
+    """The OSD behind ``shard`` dies and comes back on an empty disk: a
+    fresh ``osd_shard`` (an empty store and an empty PG log) takes its
+    bus slot, and its revival starts the repair through the backend's
+    scheduler."""
+    bus.mark_down(shard)
+    osd_shard(shard, bus)
+    bus.mark_up(shard)
 
 
 def cluster_from_stores(ec, stores, chunk_size, cct):
@@ -46,7 +78,9 @@ def _repair_env(env, chunk, chain, regen, n_objects, obj_bytes, seed):
     be, bus = env.cluster(chunk=chunk, conf={
         "osd_recovery_chain_enable": chain,
         "osd_recovery_regen_enable": regen})
-    sched = be.recovery_scheduler = WaveScheduler()
+    # one wave for all the objects, as the reference's own repair tests
+    # pace them
+    sched = attach_scheduler(env.S, be, bus, wave=n_objects)
     rng = np.random.default_rng(seed)
     data = {f"o{i}": rng.integers(0, 256, obj_bytes, np.uint8).tobytes()
             for i in range(n_objects)}
@@ -80,7 +114,7 @@ def repair_scenario(path: str, victims=(3,), n_objects: int = 6,
         for v in victims:
             replace_disk(bus, v, env.S.OSDShard)
             rop = be.shard_repairs[v]
-            assert rop.driver is sched
+            assert rop.driver.scheduler is sched
             bus.deliver_all()
             assert rop.state == env.S.RepairState.COMPLETE, rop.state
             done.append((v, rop.state, rop.plan, rop.objects_repaired))
@@ -94,7 +128,9 @@ def repair_scenario(path: str, victims=(3,), n_objects: int = 6,
         else:
             assert perf["chain_objects"] == perf["regen_objects"] == 0
             assert perf["recoveries"] == n_objects * len(victims)
-        return {"repairs": done, "waves": sched.waves,
+        assert sched.jobs == {}
+        assert sched.summary()["reservations"]["granted"] == 0
+        return {"repairs": done, "waves": sched.perf.get("waves"),
                 "reads": _states(env, be, bus, data)}
     return scenario
 
@@ -138,9 +174,11 @@ def test_chain_hop_death_falls_back_like_reference():
                                            regen=False, n_objects=4,
                                            obj_bytes=3 * STRIPE, seed=5)
         replace_disk(bus, 3, env.S.OSDShard)
+        daemon = be._recovery_ctx["daemon"]
         chain = next(iter(be._recovery_chains.values()), None)
         while chain is None:
-            assert bus.deliver_one(0) or bus.deliver_one(3)
+            assert daemon.drain() or bus.deliver_one(0) or \
+                bus.deliver_one(3)
             chain = next(iter(be._recovery_chains.values()), None)
         bus.mark_down(chain.hop_shards[-1])
         bus.deliver_all()
@@ -309,7 +347,7 @@ def test_no_card_repair_legs_fail(monkeypatch, plugin, profile, path):
     cct.conf.set("osd_recovery_chain_enable", path == "chain")
     cct.conf.set("osd_recovery_regen_enable", path == "regen")
     be, bus = cluster_from_stores(ec, stores, chunk, cct)
-    be.recovery_scheduler = WaveScheduler()
+    attach_scheduler(PORT, be, bus)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     rs_kernels.reset_launches()
     env = Env(PORT)
@@ -334,7 +372,7 @@ def test_no_card_hashless_verify_fails_not_rot(monkeypatch, op):
     cct = PORT.Context()
     cct.conf.set("osd_recovery_chain_enable", False)
     be, bus = cluster_from_stores(ec, stores, chunk, cct)
-    be.recovery_scheduler = WaveScheduler()
+    attach_scheduler(PORT, be, bus)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     rs_kernels.reset_launches()
     with pytest.raises(RuntimeError, match="cuda"):
@@ -363,7 +401,7 @@ def test_path_shapes_name_the_backends_launches(monkeypatch):
         "k": "8", "m": "4", "technique": "reed_sol_van", "device": "cpu"})
     be, bus = PORT.make_cluster(ec, chunk_size=4096, cct=PORT.Context(
         {"osd_recovery_chain_enable": False}))
-    be.recovery_scheduler = WaveScheduler(size=objects)
+    attach_scheduler(PORT, be, bus, wave=objects)
     seen = []
     apply, crc = rs_kernels.gf_apply, rs_kernels.crc32c_rows
     monkeypatch.setattr(rs_kernels, "gf_apply", lambda mat, data: (

@@ -191,6 +191,12 @@ class KernelReplay:
                         self.rep, self.ftotal = self.rep + 1, 0
                 elif not ok or item in self.bkt[:upto]:
                     self.reject()
+                elif s.indep and s.leaf and s.target_type == 0:
+                    self.res[self.rep] = item
+                    if self.is_out(item, x):
+                        self.reject()
+                    else:
+                        self.place(item, item)
                 elif s.leaf:
                     self.leaf_stage, self.d_item = True, item
                     self.row = self.bucket_row(item)
@@ -535,3 +541,146 @@ def test_issue_floor_is_the_least_pipe_assignment(seed):
 def _path_shapes():
     from ceph_tpu_torch.tools import path_shapes
     return path_shapes
+
+
+# -- chooseleaf indep over type 0, against the interpreter -------------------
+#
+# The reference's crush_choose_indep writes a device into the leaf vector
+# before its is_out check, so a position whose tries run out keeps the
+# last device rejected there.  The oracle is the CRUSH interpreter of the
+# JAX package (ceph_tpu.crush.mapper.crush_do_rule, a mirror of mapper.c);
+# the JAX bulk mapper runs this rule as a plain choose and is not used.
+
+def _ref_cluster_map(n_hosts=4, per_host=3, tunables=None):
+    """MiniCluster's CRUSH tree in the JAX package: hosts of straw2 OSDs
+    of weight 0x10000 under one straw2 root."""
+    from ceph_tpu.crush import CrushMap as RefCrushMap
+    cmap = RefCrushMap(tunables=tunables)
+    cmap.set_type_name(1, "host")
+    cmap.set_type_name(2, "root")
+    hosts = [cmap.add_bucket(CRUSH_BUCKET_STRAW2, 1,
+                             list(range(h * per_host, (h + 1) * per_host)),
+                             [0x10000] * per_host) for h in range(n_hosts)]
+    root = cmap.add_bucket(CRUSH_BUCKET_STRAW2, 2, hosts,
+                           [0x10000 * per_host] * n_hosts)
+    cmap.finalize()
+    return cmap, root
+
+
+def _against_interpreter(ref_map, ruleno, result_max, xs, weights):
+    """Plain version == kernel replay (``_replay_against_plain``) ==
+    crush_do_rule of the JAX package, x by x."""
+    from ceph_tpu.crush.mapper import crush_do_rule as ref_do_rule
+    from ceph_tpu_torch import convert
+    cmap = convert.crushmap_from_reference(ref_map.to_dict())
+    out = _replay_against_plain(cmap, ruleno, result_max, xs,
+                                weights=weights)
+    w = [int(v) for v in weights]
+    bad = 0
+    for x, row in zip(xs, out):
+        want = ref_do_rule(ref_map, ruleno, int(x), result_max, w)
+        want = want + [CK.NONE] * (out.shape[1] - len(want))
+        bad += row.tolist() != want[:out.shape[1]]
+    assert bad == 0, f"{bad} of {len(xs)} x's differ from the interpreter"
+    return out
+
+
+def test_type0_indep_repro_matches_the_chain():
+    """4 hosts x 3 OSDs, an EC pool of size 12 with 256 PGs on rule
+    chooseleaf_indep 12 type 0, osd 3 at reweight 0x8000 and osd 7 at
+    0x4000: the bulk PG mapper equals the OSDMap chain on every PG, PG
+    1.0 has device 7 at position 7, and the plain version and the kernel
+    replay equal the interpreter on the pool's seeds."""
+    from ceph_tpu.crush import CRUSH_RULE_CHOOSELEAF_INDEP as REF_INDEP
+    from ceph_tpu.osdmap import PG as RefPG
+    from ceph_tpu.osdmap import POOL_TYPE_ERASURE, OSDMap as RefOSDMap
+    from ceph_tpu.osdmap import Pool as RefPool
+    from ceph_tpu_torch import convert
+    from ceph_tpu_torch.osdmap import BulkPGMapper
+    cmap, root = _ref_cluster_map()
+    ruleno = cmap.add_rule([(CRUSH_RULE_TAKE, root, 0), (REF_INDEP, 12, 0),
+                            (CRUSH_RULE_EMIT, 0, 0)])
+    m = RefOSDMap(crush=cmap)
+    for o in range(12):
+        m.create_osd(o)
+    m.add_pool(RefPool(pool_id=1, type=POOL_TYPE_ERASURE, size=12,
+                       min_size=9, pg_num=256, crush_rule=ruleno))
+    m.osd_weight[3] = 0x8000
+    m.osd_weight[7] = 0x4000
+    got = BulkPGMapper(convert.osdmap_from_reference(m.to_dict()),
+                       device="cpu").map_pool(1)
+    differ = 0
+    for ps in range(256):
+        up, upp, act, actp = m.pg_to_up_acting_osds(RefPG(1, ps))
+        differ += (got.up[ps][:len(up)].tolist() != up or
+                   got.acting[ps][:len(act)].tolist() != act or
+                   got.up_primary[ps] != upp or
+                   got.acting_primary[ps] != actp)
+    assert differ == 0, f"{differ} of 256 PGs differ from the chain"
+    assert got.acting[0].tolist() == [8, 5, 10, 1, 3, 2, 0, 7, 9, 6, 11, 4]
+    assert got.acting[0][7] == 7
+    # the first 32 PGs' seeds through the plain version, the kernel replay
+    # (a Python loop per x) and the interpreter
+    _against_interpreter(cmap, ruleno, 12,
+                         got.pps[:32].astype(np.uint64).astype(np.uint32),
+                         np.asarray(m.osd_weight, dtype=np.int64))
+
+
+# the random cases run 20 tries a position (choose_total_tries 19, the
+# legacy tunable) over 16 x's: the replay walks every try of every
+# position that runs out in Python
+_TRIES19 = {"choose_local_tries": 0, "choose_local_fallback_tries": 0,
+            "choose_total_tries": 19, "chooseleaf_descend_once": 1,
+            "chooseleaf_vary_r": 1, "chooseleaf_stable": 1}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("numrep,result_max", [
+    (12, 12),     # every device
+    (14, 14),     # numrep past the device count
+    (1, 3),       # one position, result_max 3 (the fuzz's smallest case)
+    (6, 3),       # out_size < numrep: the stride keeps numrep
+    (0, 5),       # numrep from result_max
+])
+def test_type0_indep_random_reweights(seed, numrep, result_max):
+    """Random reweights (zero, fractional, full) on chooseleaf_indep over
+    type 0, plain and kernel replay against the interpreter."""
+    from ceph_tpu.crush import CRUSH_RULE_CHOOSELEAF_INDEP as REF_INDEP
+    cmap, root = _ref_cluster_map(tunables=_TRIES19)
+    ruleno = cmap.add_rule([(CRUSH_RULE_TAKE, root, 0),
+                            (REF_INDEP, numrep, 0),
+                            (CRUSH_RULE_EMIT, 0, 0)])
+    rng = np.random.default_rng(100 + seed)
+    weights = rng.choice([0, 0x1000, 0x4000, 0x8000, 0xC000, 0x10000],
+                         size=cmap.max_devices)
+    _against_interpreter(cmap, ruleno, result_max, XS[:16], weights)
+
+
+def test_type0_indep_keeps_duplicate_last_tries():
+    """is_out depends only on (x, device): with one device in and every
+    other at reweight 0, the positions that run out of tries end on
+    rejected devices, and one device may end two of them, as in the
+    interpreter."""
+    from ceph_tpu.crush import CRUSH_RULE_CHOOSELEAF_INDEP as REF_INDEP
+    cmap, root = _ref_cluster_map(n_hosts=2, per_host=2, tunables=_TRIES19)
+    ruleno = cmap.add_rule([(CRUSH_RULE_TAKE, root, 0), (REF_INDEP, 4, 0),
+                            (CRUSH_RULE_EMIT, 0, 0)])
+    weights = np.array([0, 0x10000, 0, 0], dtype=np.int64)
+    out = _against_interpreter(cmap, ruleno, 4, XS[:16], weights)
+    assert CK.NONE not in out
+    assert any(len(set(r)) < len(r) for r in out.tolist())
+
+
+def test_type0_firstn_and_plain_choose_are_unchanged():
+    """Firstn emits only placed positions, and choose indep (no leaf)
+    keeps NONE for a position out of tries: both stay as they were, equal
+    to the interpreter."""
+    from ceph_tpu.crush import CRUSH_RULE_CHOOSELEAF_FIRSTN as REF_LF
+    from ceph_tpu.crush import CRUSH_RULE_CHOOSE_INDEP as REF_CI
+    cmap, root = _ref_cluster_map(tunables=_TRIES19)
+    rng = np.random.default_rng(9)
+    weights = rng.choice([0, 0x4000, 0x10000], size=cmap.max_devices)
+    for op, numrep in ((REF_LF, 5), (REF_CI, 12)):
+        ruleno = cmap.add_rule([(CRUSH_RULE_TAKE, root, 0), (op, numrep, 0),
+                                (CRUSH_RULE_EMIT, 0, 0)])
+        _against_interpreter(cmap, ruleno, numrep, XS[:16], weights)

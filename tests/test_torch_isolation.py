@@ -137,10 +137,12 @@ st = osdmaptool.test_map_pgs(om, out=report, device="cpu")
 assert st["total"] == 3 * 64 and "pool 1 pg_num 64" in report.getvalue()
 crushtool.test_rule(cm, 0, 3, 0, 63, device="cpu")
 calc_pg_upmaps(om, max_iterations=2, device="cpu")
-from ceph_tpu_torch.backend import PGTransaction, make_cluster
+from ceph_tpu_torch.backend import OSDShard, PGTransaction, make_cluster
 from ceph_tpu_torch.backend.ec_backend import RepairState
 from ceph_tpu_torch.common import Context
-from ceph_tpu_torch.tools.wave_driver import WaveScheduler, replace_disk
+from ceph_tpu_torch.osd.osd_daemon import OSDDaemon
+from ceph_tpu_torch.osdmap import PG
+from ceph_tpu_torch.recovery import RecoveryScheduler
 for name, profile, path in (
         ("torch_rs", {"k": "4", "m": "2"}, "wave"),
         ("torch_rs", {"k": "4", "m": "2"}, "chain"),
@@ -150,7 +152,10 @@ for name, profile, path in (
                    "osd_recovery_regen_enable": path == "regen"})
     ec = reg.factory(name, "", profile | {"device": "cpu"})
     be, bus = make_cluster(ec, chunk_size=384, cct=cct)
-    be.recovery_scheduler = WaveScheduler()
+    daemon = OSDDaemon(0)
+    bus.pre_deliver_hooks.append(daemon.drain)
+    RecoveryScheduler(cct=cct).attach_backend(be, pgid=PG(1, 0),
+                                              daemon=daemon)
     k = ec.get_data_chunk_count()
     data = {f"o{i}": bytes([i]) * (3 * 384 * k) for i in range(3)}
     for oid, d in data.items():
@@ -163,12 +168,48 @@ for name, profile, path in (
         lambda result, errors: got.update(result))
     bus.deliver_all()
     assert all(got[o][0][2] == d for o, d in data.items()), path
-    replace_disk(bus, 1)              # an empty disk comes back
+    bus.mark_down(1)                  # an empty disk comes back
+    OSDShard(1, bus)
+    bus.mark_up(1)
     rop = be.shard_repairs[1]
     bus.deliver_all()
     assert rop.state == RepairState.COMPLETE and not be.stale, path
     assert be.perf.get({"wave": "recoveries", "chain": "chain_objects",
                         "regen": "regen_objects"}[path]) == 3, path
+from ceph_tpu_torch.cluster import MiniCluster
+for profile, path in (({"k": "4", "m": "2"}, "wave"),
+                      ({"k": "4", "m": "2"}, "chain"),
+                      ({"plugin": "pm_regen", "k": "3", "m": "2", "d": "4",
+                        "mode": "mbr"}, "regen")):
+    c = MiniCluster(n_osds=12, osds_per_host=3, chunk_size=384,
+                    cct=Context({"osd_recovery_chain_enable": path == "chain",
+                                 "osd_recovery_regen_enable":
+                                     path == "regen"}))
+    c.enable_recovery_scheduler()
+    pid = c.create_ec_pool("p", profile | {"device": "cpu"}, pg_num=2)
+    k = int(profile["k"])
+    data = {f"o{i}": bytes([i + 1]) * (3 * 384 * k) for i in range(4)}
+    for oid, d in data.items():
+        c.put(pid, oid, d)
+    g = c.pg_group(pid, "o0")
+    for oid, d in data.items():
+        assert c.get(pid, oid, len(d)) == d, path
+    v = g.acting[1]
+    c.bus.mark_down(v)
+    for oid, d in data.items():
+        if c.pg_group(pid, oid) is g:
+            assert c.get(pid, oid, len(d)) == d, path
+            data[oid] = d[::-1]
+            c.put(pid, oid, data[oid])
+    c.bus.mark_up(v)
+    c.deliver_all()
+    assert c.recovery.jobs == {} and not g.backend.stale, path
+    for oid, d in data.items():
+        assert c.get(pid, oid, len(d)) == d, path
+    assert g.backend.perf.get({"wave": "recoveries", "chain":
+                               "chain_objects", "regen":
+                               "regen_objects"}[path]) > 0, path
+    c.shutdown()
 print(json.dumps(sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m == "jaxlib" or m.startswith("jaxlib.")

@@ -93,6 +93,8 @@ def test_path_shapes_launch_shapes_match_the_jax_package():
                                              + ["gf_apply"] * 14
                                              + ["crc32c_rows"] * 4
                                              + ["gf_apply"] * 3
+                                             + ["crc32c_rows"]
+                                             + ["gf_apply"] * 15
                                              + ["crc32c_rows"])
     ecutil, serving, headline = shapes[:3], shapes[3:5], shapes[5:7]
     jvan = JRSCodec(8, 4, technique="reed_sol_van", device="numpy")
@@ -134,7 +136,7 @@ def test_path_shapes_launch_shapes_match_the_jax_package():
     # the OSD backend's: an op's encode and crc; a degraded read with 1
     # and 9 down rebuilds 1, 9, 10 and 11 from 0 and 2-8; a wave of the
     # 64 objects rebuilds 3 alone
-    backend = {s["label"]: s for s in shapes[31:]}
+    backend = {s["label"]: s for s in shapes[31:35]}
     assert {s["path"] for s in backend.values()} == {"backend"}
     assert np.array_equal(backend["op encode"]["mat"], jvan.parity_mat)
     assert np.array_equal(
@@ -144,4 +146,24 @@ def test_path_shapes_launch_shapes_match_the_jax_package():
         [3], [0, 1, 2, 4, 5, 6, 7, 8])[0])
     assert [(s["rows"], s["cols"]) for s in backend.values()] == [
         (8, 2**19), (8, 2**19), (8, 2**25), (12, 2**19)]
+    # the MiniCluster's: the backend's per PG, so a repair wave holds one
+    # to three objects of 512 Ki a chunk
+    cluster = {s["label"]: s for s in shapes[35:]}
+    assert {s["path"] for s in cluster.values()} == {"cluster"}
+    survivors = [0, 1, 2, 4, 5, 6, 7, 8]
+    for label, want in (
+            ("op encode", jvan.parity_mat),
+            ("serving degraded get [1, 9] down",
+             jvan.decode_matrix([1], [0, 2, 3, 4, 5, 6, 7, 8])[0]),
+            ("wave of one object", jvan.decode_matrix([3], survivors)[0]),
+            ("source check",
+             jvan.decode_matrix([0, 3], [1, 2, 4, 5, 6, 7, 8, 9])[0]),
+            ("wave of 3 objects", jvan.decode_matrix([3], survivors)[0]),
+            ("spare equations, 2 objects",
+             jvan.decode_matrix([3, 9, 10, 11], survivors)[0])):
+        assert np.array_equal(cluster[label]["mat"], want), label
+    assert [cluster[f"chain hop, {n} objects"]["cols"] for n in (2, 3)] \
+        == [2**20, 3 * 2**19]
+    assert sum(s["launches"] for s in cluster.values()
+               if s["kernel"] == "gf_apply") == 906
     json.dumps([{k: v for k, v in s.items() if k != "mat"} for s in shapes])
