@@ -11,19 +11,17 @@ acting set CRUSH chose.  Objects route to PGs with the librados placement
 (ceph_str_hash_rjenkins + ceph_stable_mod).
 
 Every OSD runs one daemon (sharded mClock op queue + superblock) over
-ONE MemStore that holds each hosted PG shard as a collection, and every
-PG talks over one cluster-wide MessageBus through its own channel.
+ONE ObjectStore that holds each hosted PG shard as a collection (a
+MemStore, or in durable mode a FileStore or BlueStoreLite under
+``data_dir``), and every PG talks over one cluster-wide MessageBus
+through its own channel.
 
-The port's copy of ``ceph_tpu.cluster``, in memory mode.  An EC pool
-defaults to the ``torch_rs`` plugin; a profile with no ``device`` key
-runs its encode (``gf_apply``), HashInfo crcs (``crc32c_rows``) and
-reconstructing reads and recovery waves (``gf_apply`` decode) on the
-card, and without a card such a write raises and stores nothing.  Not
-ported yet (ROADMAP Queue 1): durable mode (``data_dir``, ``load``:
-FileStore/BlueStore), ``attach_monitor`` (mon/), ``inject_faults`` (the
-store plane of failure/), ``create_tier`` (tier/), the roofline and
-profiler-capture sources, and the objecter sweep of ``status``
-(client/).
+The port's copy of ``ceph_tpu.cluster``.  An EC pool defaults to the
+``torch_rs`` plugin; a profile with no ``device`` key runs its encode
+(``gf_apply``), HashInfo crcs (``crc32c_rows``) and reconstructing reads
+and recovery waves (``gf_apply`` decode) on the card, and without a card
+such a write raises and stores nothing.  Not ported yet (ROADMAP Queue
+1): the roofline and profiler-capture sources.
 """
 from __future__ import annotations
 
@@ -138,17 +136,23 @@ class PGGroup:
 class MiniCluster:
     def __init__(self, n_osds: int = 12, osds_per_host: int = 3,
                  chunk_size: int = 4096, cct: Context | None = None,
-                 data_dir=None):
-        if data_dir is not None:
-            raise ValueError(
-                "MiniCluster(data_dir=...): durable mode needs the "
-                "FileStore/BlueStore stores, not ported yet (ROADMAP "
-                "Queue 1 item 1, durable stores)")
+                 data_dir=None, store_backend: str = "file"):
         self.cct = cct if cct is not None else default_context()
         self.chunk_size = chunk_size
         self.n_osds = n_osds
         self.osds_per_host = osds_per_host
         self.cluster_id = next(_cluster_ids)
+        # durable-store flavour: "file" (FileStore WAL+snapshot) or
+        # "bluestore" (extent allocator, checksums at rest, compression)
+        if store_backend not in ("file", "bluestore"):
+            raise ValueError(f"unknown store_backend {store_backend!r} "
+                             f"(choose 'file' or 'bluestore')")
+        self.store_backend = store_backend
+        # durable mode: every OSD's store lives under
+        # data_dir/osd.<id>/store and cluster metadata persists to
+        # cluster_meta.pkl — MiniCluster.load() reopens the whole thing
+        from pathlib import Path
+        self.data_dir = Path(data_dir) if data_dir is not None else None
         cmap = CrushMap()
         cmap.set_type_name(1, "host")
         cmap.set_type_name(2, "root")
@@ -197,12 +201,8 @@ class MiniCluster:
         # osd_queue_throttle_ops > 0 bounds every daemon's op queue: past
         # it, ms_dispatch answers ('throttled', epoch) instead of queueing
         qcap = self.cct.conf.get("osd_queue_throttle_ops")
-        from .backend.memstore import MemStore
         for o in range(n_osds):
-            # the OSD's single ObjectStore: superblock at the root
-            # namespace, PG shards as collections (a MemStore: the
-            # durable stores are not ported yet)
-            st = MemStore()
+            st = self._osd_store(o)
             throttle = None
             if qcap:
                 from .exec import Throttle
@@ -216,10 +216,17 @@ class MiniCluster:
         # optional recovery scheduler (enable_recovery_scheduler):
         # reservation-gated, prioritized, batch-fused background repair
         self.recovery = None
+        # optional fault injection campaign (inject_faults): one seeded
+        # FaultInjector spanning the bus, store and device planes
+        self.fault_injector = None
+        # cache tiers (create_tier): cache pool id -> (TierService,
+        # TierAgent); the TIER_* health checks register lazily with the
+        # first tier (the enable_recovery_scheduler discipline)
+        self.tiers: dict[int, tuple] = {}
         # telemetry spine (mgr/stats + mgr/health + flight recorder):
         # status() renders the stats digest, health() is a thin view over
         # the check engine, and any check entering WARN/ERR snapshots a
-        # flight bundle (held in memory)
+        # flight bundle (to data_dir/flight in durable mode)
         self._init_telemetry()
 
     def _init_telemetry(self) -> None:
@@ -232,14 +239,21 @@ class MiniCluster:
         self.stats = StatsAggregator(cct=self.cct,
                                      name=f"c{self.cluster_id}")
         self.flight = FlightRecorder(
-            cct=self.cct, capacity=self.cct.conf.get("mgr_flight_capacity"))
+            cct=self.cct,
+            out_dir=(self.data_dir / "flight")
+            if self.data_dir is not None else None,
+            capacity=self.cct.conf.get("mgr_flight_capacity"))
         self.health_engine = HealthCheckEngine(
             name=f"c{self.cluster_id}", cct=self.cct,
             on_transition=self._on_health_transition,
             on_clear=self._on_health_clear)
         # the cluster log (clog analog): the dozen human-readable lines
-        # an incident reads first (in memory: no data_dir)
-        self.clusterlog = ClusterLog(cct=self.cct)
+        # an incident reads first, persisted under <data_dir>/clusterlog
+        # so `ceph -w` can follow from another process
+        self.clusterlog = ClusterLog(
+            cct=self.cct,
+            path=(self.data_dir / "clusterlog")
+            if self.data_dir is not None else None)
         # workload heat maps over the stats window, scoped to this
         # cluster's PG collections by the c<id> tag
         self.heat = HeatTracker(self.stats, self._heat_topology,
@@ -466,13 +480,19 @@ class MiniCluster:
                                  "pinned near its capacity (guarded "
                                  "watermark sampler: silent on backends "
                                  "without memory stats)")
-        from .mgr.health import device_degraded_check
+        from .mgr.health import device_degraded_check, osd_flapping_check
         eng.register("DEVICE_DEGRADED", device_degraded_check(),
                      description="a codec pipeline circuit-broke its "
                                  "device path: batches fail fast until "
                                  "half-open probes re-close the breaker")
-        # OSD_FLAPPING reads the monitor's mark-down limiter: it registers
-        # with attach_monitor, which comes with mon/ (ROADMAP Queue 1)
+        eng.register("OSD_FLAPPING",
+                     osd_flapping_check(
+                         lambda: getattr(getattr(self, "monitor", None),
+                                         "markdown", None)),
+                     description="an OSD was marked down too often "
+                                 "within osd_markdown_window: boots are "
+                                 "damped until the operator clears the "
+                                 "markdown record")
         from .mgr.slo import slo_burn_check, slo_exhausted_check
         eng.register("SLO_BURN", slo_burn_check(self.slo),
                      description="a class's latency error budget is "
@@ -540,11 +560,59 @@ class MiniCluster:
             g.backend, pgid=g.pgid, daemon=self.osds[g.backend.whoami],
             pool_params=pool.params)
 
+    # -- cache tiering (tier/) ---------------------------------------------
+
+    def create_tier(self, cache_pool: int, base_pool: int, *,
+                    mode: str = "writeback"):
+        """Bind a replicated cache pool over an EC base pool (the mon's
+        ``osd tier add`` + ``cache-mode``): returns the
+        :class:`~ceph_tpu_torch.tier.TierService` with its flush/evict
+        agent attached as ``.agent``.  The ``TIER_FULL`` /
+        ``TIER_FLUSH_BACKLOG`` health checks and the ``tier status``
+        admin command register with the FIRST tier (lazily, the
+        enable_recovery_scheduler discipline: clusters without tiering
+        never evaluate them)."""
+        from .tier import TierAgent, TierService
+        if cache_pool in self.tiers:
+            raise ValueError(f"pool {cache_pool} is already a cache tier")
+        svc = TierService(self, cache_pool, base_pool, mode=mode,
+                          name=f"c{self.cluster_id}.p{cache_pool}")
+        svc.agent = TierAgent(svc)
+        first = not self.tiers
+        self.tiers[cache_pool] = (svc, svc.agent)
+        if first:
+            from .mgr.health import (tier_flush_backlog_check,
+                                     tier_full_check)
+            self.health_engine.register(
+                "TIER_FULL", tier_full_check(lambda: self.tiers),
+                description="a cache tier's residency is at/over its "
+                            "tier_full_ratio watermark")
+            self.health_engine.register(
+                "TIER_FLUSH_BACKLOG",
+                tier_flush_backlog_check(lambda: self.tiers),
+                description="a tier agent keeps ending its passes over "
+                            "tier_dirty_ratio_high: the base pool is "
+                            "not absorbing flushes fast enough")
+
+            def _tier_status(**kw):
+                return {str(pid): s.stats()
+                        for pid, (s, _a) in sorted(self.tiers.items())}
+            self._slo_admin_fns["tier status"] = _tier_status
+            self.cct.admin_socket.unregister("tier status")
+            self.cct.admin_socket.register(
+                "tier status", _tier_status,
+                "per-tier cache mode, residency, hit rate, and "
+                "promotion/flush/evict counters")
+        self.clusterlog.info(
+            f"pool {cache_pool} is now a {mode} cache tier over pool "
+            f"{base_pool}", channel="mon")
+        return svc
+
     # -- pool parameter updates (the mon's 'osd pool set') ------------------
 
     def pool_set(self, pool_id: int, key: str, value) -> None:
         """``ceph osd pool set <pool> <key> <value>``: update one pool
-        param LIVE.  The ``hit_set_*`` family re-arms
+        param LIVE and persist it.  The ``hit_set_*`` family re-arms
         per-PG hit-set accumulation in place (the observer hook pool
         params get in lieu of ConfigProxy observers): the accumulating
         set restarts under the new geometry, the persisted archive ring
@@ -563,6 +631,77 @@ class MiniCluster:
                     g.engine.hit_set_params = None
         self.clusterlog.info(
             f"pool '{pool.name}' set {key} = {value}", channel="mon")
+        self._save_meta()
+
+    # -- fault injection (failure/) ----------------------------------------
+
+    def inject_faults(self, plan=None):
+        """Arm (or, with ``None``, disarm) cluster-wide fault injection
+        from ONE seeded :class:`~ceph_tpu_torch.failure.config.FaultPlan`:
+
+        - the bus plane drives the shared MessageBus (reorder/dup/drop,
+          stamping its events into the campaign log);
+        - the store plane wraps every PG shard store in a
+          :class:`~ceph_tpu_torch.failure.store.FaultyStore` (EIO / torn
+          writes / slow reads);
+        - the device plane rides the serving/recovery pipelines when
+          those subsystems are enabled.
+
+        The transport plane comes with the messenger (not ported yet).
+        Returns the :class:`~ceph_tpu_torch.failure.injector.FaultInjector`
+        (or None)."""
+        from .failure import FaultInjector
+        from .failure.store import FaultyStore, unwrap
+        if plan is None:
+            self.bus.inject_faults(None)
+            self.bus.fault_log = None
+            for g in (g for p in self.pools.values()
+                      for g in p["pgs"].values()):
+                for h in g.bus.handlers.values():
+                    st = getattr(h, "store", None)
+                    if isinstance(st, FaultyStore):
+                        h.store = unwrap(st)
+            if self.serving is not None:
+                self.serving.inject_device_faults(None)
+            if self.recovery is not None:
+                self.recovery.inject_device_faults(None)
+            old, self.fault_injector = self.fault_injector, None
+            if old is not None:
+                old.close()
+            return None
+        if self.fault_injector is not None:
+            # re-arming with a new plan: disarm first, so store wrappers
+            # rebind to the NEW injector (stale wrappers would keep
+            # rolling the old plan's faults into the old event log) and
+            # the old perf collection is released before its replacement
+            # registers under the same name
+            self.inject_faults(None)
+        inj = FaultInjector(plan, clusterlog=self.clusterlog,
+                            cct=self.cct, name=f"c{self.cluster_id}")
+        self.fault_injector = inj
+        self.bus.inject_faults(plan)
+        self.bus.fault_log = inj.record
+        for g in (g for p in self.pools.values()
+                  for g in p["pgs"].values()):
+            self._wrap_stores(g, inj)
+        if self.serving is not None:
+            self.serving.inject_device_faults(inj)
+        if self.recovery is not None:
+            self.recovery.inject_device_faults(inj)
+        self.clusterlog.info(
+            f"fault injection armed (seed {plan.seed})", channel="faults")
+        return inj
+
+    @staticmethod
+    def _wrap_stores(g: PGGroup, injector) -> None:
+        """Every shard store of one PG behind a FaultyStore (idempotent:
+        an already-wrapped store is left alone)."""
+        from .failure.store import FaultyStore
+        for shard, h in g.bus.handlers.items():
+            st = getattr(h, "store", None)
+            if st is not None and not isinstance(st, FaultyStore):
+                h.store = FaultyStore(st, injector,
+                                      target=f"osd.{shard}/{g.pgid}")
 
     # -- pool creation (the mon's osd pool create path) --------------------
 
@@ -646,12 +785,20 @@ class MiniCluster:
                 pgs[ps].backend.attach_serving(self.serving)
             if self.recovery is not None:
                 self._attach_recovery(pgs[ps], pool)
+            if self.fault_injector is not None:
+                # the store plane covers pools created mid-campaign too
+                self._wrap_stores(pgs[ps], self.fault_injector)
         self.pools[pool.pool_id] = {"pool": pool, "pgs": pgs, "ec": ec}
         self.pool_ids[name] = pool.pool_id
-        self.clusterlog.info(
-            f"pool '{name}' created (id {pool.pool_id}, "
-            f"{'ec' if ec is not None else 'replicated'}, "
-            f"{pool.pg_num} pgs)", channel="mon")
+        if not getattr(self, "_restoring", False):
+            # reopens restore pools through this same path: only a
+            # GENUINELY new pool is a cluster-log event (a "created"
+            # line per reopen would bury the real history)
+            self.clusterlog.info(
+                f"pool '{name}' created (id {pool.pool_id}, "
+                f"{'ec' if ec is not None else 'replicated'}, "
+                f"{pool.pg_num} pgs)", channel="mon")
+        self._save_meta()
         return pool.pool_id
 
     @staticmethod
@@ -668,7 +815,7 @@ class MiniCluster:
                 int(pool.params.get("hit_set_target_size", 1000)),
                 float(pool.params.get("hit_set_fpp", 0.05)))
 
-    # -- daemons and stores ------------------------------------------------
+    # -- daemons, stores and durability (data_dir mode) ------------------
 
     def _drain_live_daemons(self) -> None:
         """Run every live OSD's queued client ops (dead OSDs stay
@@ -688,6 +835,109 @@ class MiniCluster:
         def factory(osd, _pid=pool_id, _ps=ps):
             return Collection(self.osds[osd].store, f"pg.{_pid}.{_ps}")
         return factory
+
+    def _osd_store(self, osd: int):
+        """The OSD's single ObjectStore: superblock at the root namespace,
+        PG shards as collections (FileStore or BlueStore-lite in durable
+        mode, per ``store_backend``)."""
+        if self.data_dir is None:
+            from .backend.memstore import MemStore
+            return MemStore()
+        if self.store_backend == "bluestore":
+            from .backend.bluestore import BlueStoreLite
+            return BlueStoreLite(self.data_dir / f"osd.{osd}" / "store")
+        from .backend.filestore import FileStore
+        return FileStore(self.data_dir / f"osd.{osd}" / "store")
+
+    def _save_meta(self) -> None:
+        """Persist what cannot be rebuilt from the shard stores: the pool
+        definitions (the mon's role; object bookkeeping is rediscovered
+        from the primaries' stores at load)."""
+        if self.data_dir is None:
+            return
+        import os
+        import pickle
+        self.data_dir.mkdir(parents=True, exist_ok=True)
+        meta = {
+            "n_osds": self.n_osds,
+            "osds_per_host": self.osds_per_host,
+            "chunk_size": self.chunk_size,
+            "store_backend": self.store_backend,
+            # operator state the data path cannot rebuild: muted health
+            # checks survive a reopen (the mon persists mutes the same way)
+            "health_mutes": sorted(self.health_engine.muted),
+            "pools": [{"name": p["pool"].name,
+                       "type": p["pool"].type,
+                       "size": p["pool"].size,
+                       "params": dict(p["pool"].params),
+                       "pg_num": p["pool"].pg_num,
+                       "snap_seq": p["pool"].snap_seq,
+                       "snaps": dict(p["pool"].snaps),
+                       "removed_snaps": set(p["pool"].removed_snaps)}
+                      for _, p in sorted(self.pools.items())],
+        }
+        tmp = self.data_dir / "cluster_meta.pkl.tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump(meta, f, protocol=pickle.HIGHEST_PROTOCOL)
+        os.replace(tmp, self.data_dir / "cluster_meta.pkl")
+
+    @classmethod
+    def load(cls, data_dir, cct: Context | None = None) -> "MiniCluster":
+        """Reopen a durable cluster: rebuild the maps from the persisted
+        pool definitions (deterministic CRUSH -> identical placements),
+        reopen every shard's FileStore, replay PG logs (OSDShard boot),
+        and run a boot-time repair pass so any shard that restarted stale
+        catches up through the ordinary log path before serving."""
+        import pickle
+        from pathlib import Path
+        with open(Path(data_dir) / "cluster_meta.pkl", "rb") as f:
+            meta = pickle.load(f)
+        c = cls(n_osds=meta["n_osds"], osds_per_host=meta["osds_per_host"],
+                chunk_size=meta["chunk_size"], cct=cct, data_dir=data_dir,
+                store_backend=meta.get("store_backend", "file"))
+        for key in meta.get("health_mutes", ()):
+            c.health_engine.mute(key)
+        c._restoring = True
+        try:
+            for p in meta["pools"]:
+                if p["type"] == POOL_TYPE_REPLICATED:
+                    pid = c.create_replicated_pool(p["name"], p["size"],
+                                                   p["pg_num"],
+                                                   params=p.get("params"))
+                else:
+                    pid = c.create_ec_pool(p["name"], p["params"],
+                                           p["pg_num"])
+                pool = c.pools[pid]["pool"]
+                pool.snap_seq = p.get("snap_seq", 0)
+                pool.snaps = dict(p.get("snaps", {}))
+                pool.removed_snaps = set(p.get("removed_snaps", ()))
+        finally:
+            c._restoring = False
+        # re-persist: pool creation above rewrote the meta file BEFORE the
+        # snap fields were restored; without this, the next process would
+        # load a cluster whose pool snaps were silently wiped
+        c._save_meta()
+        for pid, pool in c.pools.items():
+            for g in pool["pgs"].values():
+                # crash recovery first: elect the authoritative log and
+                # roll back any write persisted on < min_size shards (it
+                # was never acked); only then repair stale shards
+                g.backend.start_boot_peering()
+                g.bus.deliver_all()
+                from .osd.hit_set import is_hit_set_oid
+                from .osd.primary_log_pg import is_clone_oid
+                c.objects.setdefault(pid, set()).update(
+                    o for o in g.backend._local_oids()
+                    if not is_clone_oid(o) and not is_hit_set_oid(o))
+                for osd in g.acting:
+                    if osd != g.backend.whoami:
+                        g.backend.start_shard_repair(osd)
+                # the primary itself may have restarted stale (peering
+                # adopted a peer's log): repair its own shard too
+                if g.backend.local_shard.pg_log.head < g.backend.pg_log.head:
+                    g.backend.start_shard_repair(g.backend.whoami)
+                g.bus.deliver_all()
+        return c
 
     # -- object placement (librados object_locator -> pg) ------------------
 
@@ -1014,11 +1264,15 @@ class MiniCluster:
         return self.health_engine.evaluate()
 
     def mute_health(self, key: str) -> None:
-        """'ceph health mute <KEY>'."""
+        """'ceph health mute <KEY>': mute AND persist in one step — any
+        surface that mutes through the engine alone would lose the mute
+        at the next reopen."""
         self.health_engine.mute(key)
+        self._save_meta()
 
     def unmute_health(self, key: str) -> None:
         self.health_engine.unmute(key)
+        self._save_meta()
 
     # -- scrub (PG::scrub scheduling through the daemons' op queues) --------
 
@@ -1115,6 +1369,7 @@ class MiniCluster:
             raise ValueError(f"pool snap {name!r} already exists")
         pool.snap_seq += 1
         pool.snaps[pool.snap_seq] = name
+        self._save_meta()
         return pool.snap_seq
 
     def remove_pool_snap(self, pool_id: int, name: str) -> None:
@@ -1132,6 +1387,7 @@ class MiniCluster:
             raise ValueError(f"no pool snap named {name!r}")
         del pool.snaps[snapid]
         pool.removed_snaps.add(snapid)
+        self._save_meta()
         live = set(pool.snaps)
         for g in self.pools[pool_id]["pgs"].values():
             daemon = self.osds[g.backend.whoami]
@@ -1223,11 +1479,18 @@ class MiniCluster:
 
     def shutdown(self) -> None:
         """Unhook every PG backend from the (possibly shared) Context so a
-        discarded cluster is collectable and does not shadow later ones."""
+        discarded cluster is collectable and does not shadow later ones;
+        durable stores checkpoint and close."""
         if self.serving is not None:
             self.serving.stop()
         if self.recovery is not None:
             self.recovery.close()
+        if self.fault_injector is not None:
+            self.fault_injector.close()
+            self.fault_injector = None
+        for svc, _agent in self.tiers.values():
+            svc.close()
+        self.tiers.clear()
         # telemetry spine down FIRST: a prometheus scrape racing the
         # teardown must not evaluate checks over half-closed PGs
         self.stats.close()
@@ -1291,9 +1554,9 @@ class MiniCluster:
                             new_acting: list[int], ec) -> None:
         old = self.pools[pool_id]["pgs"][ps]
         damaged = set(getattr(old.backend, "inconsistent_objects", ()))
-        # read everything out of the old layout FIRST: the new group
-        # reuses the same per-(osd, pg) collections, so the old ones must
-        # be drained and closed before the new ones open
+        # read everything out of the old layout FIRST: in durable mode the
+        # new group reopens the same per-(osd, pg) collections, so the old
+        # stores must be drained and closed before the new ones open
         from .backend.ecutil import HINFO_KEY
         from .backend.memstore import GObject
         from .backend.replicated import VERSION_KEY
@@ -1328,7 +1591,7 @@ class MiniCluster:
             header = store.get_omap_header(gobj) if ec is None and \
                 store.exists(gobj) else b""
             metadata[oid] = (attrs, omap, header)
-        old.shutdown()
+        old.shutdown(discard_stores=self.data_dir is not None)
         # destroy the outgoing incarnation's collections: the new group
         # reuses the same collection name, and OSDs present in BOTH
         # acting sets (or rejoining later) would otherwise boot their
@@ -1373,6 +1636,79 @@ class MiniCluster:
             self.osds[old.backend.whoami].write_superblock()
         self.osds[new.backend.whoami].register_pg(new.pgid, new)
 
+    def attach_monitor(self, n_mons: int = 1):
+        """Wire the control plane over this cluster's OSDMap: committed
+        epochs propagate to the data path the way daemons react to osdmap
+        epoch bumps in the reference — down-marks route around the shard,
+        boot-marks repair it before it serves, and weight changes
+        (auto-out) backfill PGs onto their new acting sets.
+
+        ``n_mons > 1`` runs a real Paxos quorum (MonCluster): map commits
+        then require a monitor majority and survive monitor deaths."""
+        from .mon import MonCluster, Monitor
+        from .osdmap import OSD_UP
+        if n_mons > 1:
+            mon = MonCluster(self.osdmap, n_mons=n_mons, cct=self.cct)
+        else:
+            mon = Monitor(self.osdmap, cct=self.cct)
+
+        def on_map(new_map, inc):
+            self.osdmap = new_map
+            affected: dict[int, PGGroup] = {}
+            for o, st in inc.new_state.items():
+                if not (st & OSD_UP):
+                    continue
+                down_now = new_map.is_down(o)
+                for pid, pool in self.pools.items():
+                    for g in pool["pgs"].values():
+                        if o not in g.acting:
+                            continue
+                        if down_now:
+                            g.bus.mark_down(o)
+                        else:
+                            g.bus.mark_up(o)
+                        if new_map.is_down(g.backend.whoami):
+                            # the PRIMARY is dead (this flip or an earlier
+                            # one): its coordinator cannot peer and its
+                            # repairs cannot complete (replies to a down
+                            # shard drop) — the group is moribund until
+                            # the weight/backfill path re-homes it or the
+                            # primary itself boots back
+                            continue
+                        if not down_now:
+                            self._repair_after_boot(pid, g, o)
+                        affected[id(g)] = g
+            # AdvMap: ONE statechart round per affected PG per committed
+            # incremental, however many OSDs it flipped (GetInfo -> ... ->
+            # Active); explicit repairs above just join the repair queues
+            for g in affected.values():
+                g.peering.advance_map(new_map.epoch)
+                g.bus.deliver_all()
+            if inc.new_weight:
+                # CRUSH remapping: re-place every PG, backfill the changed
+                for pid, pool in self.pools.items():
+                    ec = pool["ec"]
+                    for ps, g in list(pool["pgs"].items()):
+                        _, _, acting, _ = new_map.pg_to_up_acting_osds(
+                            PG(pid, ps))
+                        if (acting and NONE_ID not in acting and
+                                list(acting) != list(g.acting)):
+                            self._backfill_pg(pid, ps, list(acting), ec)
+        mon.subscribers.append(on_map)
+        # monitor transitions (up/down/flap damping) land in the cluster
+        # log next to the bus-level lines.  In a quorum, apply_committed
+        # runs on EVERY replica: the clog_gate keeps only the current
+        # leader speaking, so one commit logs once, not n_mons times.
+        if hasattr(mon, "mons"):
+            for pm in mon.mons:
+                pm.service.clog = self.clusterlog
+                pm.service.clog_gate = \
+                    (lambda _pm=pm, _mc=mon: _mc.leader() is _pm)
+        else:
+            mon.clog = self.clusterlog
+        self.monitor = mon
+        return mon
+
     # -- cluster-wide status (ceph -s shape) -------------------------------
 
     def status(self) -> dict:
@@ -1391,8 +1727,14 @@ class MiniCluster:
                 states[self.pg_state(g)] += 1
         self.stats.sample()
         # status IS the mgr tick: the time-series ring records a point
-        # (interval-gated, so a tight status loop stays bounded); the
-        # objecters' op-timeout sweep comes with client/
+        # (interval-gated, so a tight status loop stays bounded), and
+        # every objecter attached to this cluster sweeps its op
+        # timeouts — a parked/black-holed client op ages onto slow_ops
+        # and the SLOW_OPS window delta without anyone polling by hand
+        from .client.objecter import live_objecters
+        for ob in live_objecters():
+            if ob.cluster is self:
+                ob.check_op_timeouts()
         # fold completed traces into the critical-path ledger BEFORE the
         # ts point records: the `slo` series reads the ledger
         self.critpath.refresh()

@@ -285,6 +285,77 @@ OPTIONS: list[Option] = [
            description="minimum ops in BOTH burn windows before the SLO "
                        "checks can page (an idle class holds no "
                        "evidence either way)"),
+    # -- the log (common/log.py; the monitor's dout) ----------------------
+    Option("log_max_recent", TYPE_UINT, LEVEL_ADVANCED, default=500,
+           description="recent log entries kept for crash dump"),
+    Option("debug_osd", TYPE_INT, LEVEL_DEV, default=1,
+           description="osd subsystem log gather level", min=0, max=20),
+    # -- monitor, heartbeats and flap damping (mon/, failure/markdown.py) --
+    Option("osd_heartbeat_interval", TYPE_INT, LEVEL_ADVANCED, default=6,
+           description="seconds between peer heartbeats", min=1, max=60),
+    Option("osd_heartbeat_grace", TYPE_INT, LEVEL_ADVANCED, default=20,
+           description="seconds without heartbeat before reporting down"),
+    Option("mon_osd_min_down_reporters", TYPE_UINT, LEVEL_ADVANCED,
+           default=2, description="failure reports needed to mark down"),
+    Option("mon_osd_min_up_ratio", TYPE_FLOAT, LEVEL_ADVANCED, default=0.3,
+           description="refuse down-marks below this up fraction"),
+    Option("mon_osd_down_out_interval", TYPE_INT, LEVEL_ADVANCED,
+           default=600, description="seconds down before auto-out"),
+    Option("mon_osd_reporter_subtree_level", TYPE_STR, LEVEL_ADVANCED,
+           default="host",
+           description="crush level for counting distinct failure reporters"),
+    Option("osd_markdown_count", TYPE_UINT, LEVEL_ADVANCED, default=5,
+           min=1,
+           description="mark-downs within osd_markdown_window before an "
+                       "OSD is declared flapping: further boots are "
+                       "refused (OSD_FLAPPING) until the operator clears "
+                       "the markdown record (osd_markdown_log analog)",
+           see_also=["osd_markdown_window"]),
+    Option("osd_markdown_window", TYPE_FLOAT, LEVEL_ADVANCED,
+           default=600.0, min=1.0,
+           description="sliding window in seconds over which "
+                       "osd_markdown_count mark-downs count as flapping",
+           see_also=["osd_markdown_count"]),
+    # -- cache tiering (tier/) ---------------------------------------------
+    Option("tier_promote_min_recency", TYPE_UINT, LEVEL_ADVANCED,
+           default=2, min=0,
+           description="consecutive most-recent hit sets a missed "
+                       "object must appear in before the proxy read "
+                       "also promotes it into the cache pool "
+                       "(min_read_recency_for_promote; 0 promotes on "
+                       "first touch, higher values stop one-shot scans "
+                       "from thrashing the tier)"),
+    Option("tier_dirty_ratio_high", TYPE_FLOAT, LEVEL_ADVANCED,
+           default=0.6, min=0.0, max=1.0,
+           description="dirty objects over tier_target_max_objects "
+                       "past which the agent arms flush mode "
+                       "(cache_target_dirty_high_ratio)",
+           see_also=["tier_dirty_ratio_low", "tier_target_max_objects"]),
+    Option("tier_dirty_ratio_low", TYPE_FLOAT, LEVEL_ADVANCED,
+           default=0.4, min=0.0, max=1.0,
+           description="flush mode disarms once the dirty fraction "
+                       "drops under this (hysteresis below "
+                       "tier_dirty_ratio_high: the next absorbed write "
+                       "does not immediately re-arm the agent)",
+           see_also=["tier_dirty_ratio_high"]),
+    Option("tier_full_ratio", TYPE_FLOAT, LEVEL_ADVANCED,
+           default=0.8, min=0.0, max=1.0,
+           description="resident objects over tier_target_max_objects "
+                       "past which the agent evicts cold clean objects "
+                       "(cache_target_full_ratio) and TIER_FULL raises",
+           see_also=["tier_target_max_objects"]),
+    Option("tier_target_max_objects", TYPE_UINT, LEVEL_ADVANCED,
+           default=256, min=1,
+           description="capacity target of the RAM-resident cache pool "
+                       "in objects: the denominator of every tier "
+                       "watermark (target_max_objects)",
+           see_also=["tier_full_ratio", "tier_dirty_ratio_high"]),
+    Option("tier_agent_max_ops", TYPE_UINT, LEVEL_ADVANCED,
+           default=16, min=1,
+           description="flush/evict operations one agent pass may "
+                       "issue (osd_agent_max_ops): the agent shares "
+                       "the cluster with clients and must not convoy "
+                       "them"),
 ]
 
 # per-owner-class latency objectives (mgr/slo.py): slo_<class>_p99_ms is

@@ -38,7 +38,7 @@ import pickle
 import numpy as np
 
 from .backend.ecutil import HashInfo
-from .backend.memstore import GObject, MemStore, _Object
+from .backend.memstore import GObject, MemStore, Transaction, _Object
 from .crush.map import CrushMap
 from .ops.codec import RSCodec, _DecodeTables
 from .osd.pg_log import PGLogEntry
@@ -163,7 +163,8 @@ def shard_stores_from_reference(dump: dict) -> dict[int, MemStore]:
 
 
 def cluster_from_reference(meta: dict, stores: dict, cct=None,
-                           device: str | None = None):
+                           device: str | None = None, data_dir=None,
+                           store_backend: str = "file"):
     """A port ``MiniCluster`` holding the state of a reference one.
 
     ``meta`` is the cluster's shape: ``n_osds``, ``osds_per_host``,
@@ -181,7 +182,13 @@ def cluster_from_reference(meta: dict, stores: dict, cct=None,
     plugin becomes ``torch_rs`` (the same GF(2^8) codes and layouts);
     ``device``, when given, replaces each EC profile's ``device`` key.
     The cluster's object list is rediscovered from the primaries' stores,
-    as a reopened reference cluster does."""
+    as a reopened reference cluster does.
+
+    With ``data_dir`` the cluster is durable: each OSD's objects are
+    written through one transaction into its ``store_backend`` store
+    ("file" or "bluestore") under ``data_dir``, and the pool definitions
+    persist to ``cluster_meta.pkl``, so ``MiniCluster.load(data_dir)``
+    reopens the cluster."""
     from .cluster import MiniCluster
     from .osd.hit_set import is_hit_set_oid
     from .osd.osd_daemon import OSDDaemon
@@ -189,9 +196,10 @@ def cluster_from_reference(meta: dict, stores: dict, cct=None,
     from .osdmap import PG, POOL_TYPE_REPLICATED
     c = MiniCluster(n_osds=int(meta["n_osds"]),
                     osds_per_host=int(meta["osds_per_host"]),
-                    chunk_size=int(meta["chunk_size"]), cct=cct)
+                    chunk_size=int(meta["chunk_size"]), cct=cct,
+                    data_dir=data_dir, store_backend=store_backend)
     for osd, objects in stores.items():
-        store = c.osds[int(osd)].store
+        t = Transaction()
         for rec in objects:
             obj = GObject(str(rec["oid"]), int(rec["shard"]))
             xattrs = dict(rec["xattrs"])
@@ -200,10 +208,17 @@ def cluster_from_reference(meta: dict, stores: dict, cct=None,
                 sb["pgids"] = [PG(int(pool), int(ps))
                                for pool, ps in sb["pgids"]]
                 xattrs["sb"] = sb
-            store.objects[obj] = _Object(
-                bytearray(rec["data"]), xattrs,
-                {k: _omap_value(k, v) for k, v in rec["omap"].items()},
-                bytes(rec["omap_header"]))
+            t.touch(obj)
+            if rec["data"]:
+                t.write(obj, 0, bytes(rec["data"]))
+            for name, value in xattrs.items():
+                t.setattr(obj, name, value)
+            if rec["omap"]:
+                t.omap_setkeys(obj, {k: _omap_value(k, v)
+                                     for k, v in rec["omap"].items()})
+            if rec["omap_header"]:
+                t.omap_setheader(obj, bytes(rec["omap_header"]))
+        c.osds[int(osd)].store.queue_transaction(t)
     for p in meta["pools"]:
         params = dict(p["params"])
         if p["type"] == POOL_TYPE_REPLICATED:
@@ -223,4 +238,6 @@ def cluster_from_reference(meta: dict, stores: dict, cct=None,
             c.objects.setdefault(pid, set()).update(
                 o for o in g.backend._local_oids()
                 if not is_clone_oid(o) and not is_hit_set_oid(o))
+    # the snap fields were set after pool creation persisted the pools
+    c._save_meta()
     return c

@@ -1,12 +1,16 @@
-"""Fault-plane configuration: one seed, the bus and the codec pipeline.
+"""Fault-plane configuration: one seed, the bus, the stores and the codec
+pipeline.
 
-The bus and device halves of ``ceph_tpu.failure.config``: a
+The bus, store and device planes of ``ceph_tpu.failure.config``: a
 :class:`FaultPlan` carries one campaign seed, the **bus** plane
 (:class:`FaultConfig`: the in-process message bus's cross-sender
-reorder, duplicate delivery and silent drops) and the **device** plane
+reorder, duplicate delivery and silent drops), the **store** plane
+(:class:`StoreFaults`, any ObjectStore behind
+:class:`~ceph_tpu_torch.failure.store.FaultyStore`: EIO on read/write,
+torn writes, slow-read latency) and the **device** plane
 (:class:`DeviceFaults`: injected dispatch/completion failures and
-simulated OOM in the codec pipeline).  The JAX package's transport and
-store planes come with the port's messenger and object-store slices.
+simulated OOM in the codec pipeline).  The JAX package's transport plane
+comes with the port's messenger.
 
 Everything here is a plain dataclass of probabilities — stdlib only, no
 runtime state.  The runtime half (seeded decision streams, the injected-
@@ -42,6 +46,17 @@ class FaultConfig:
 
 
 @dataclass
+class StoreFaults:
+    """ObjectStore-plane faults (filestore EIO / bluestore debug read
+    error injection territory)."""
+    eio_read_prob: float = 0.0     # read raises EIO
+    eio_write_prob: float = 0.0    # queue_transaction raises EIO, no apply
+    torn_write_prob: float = 0.0   # a PREFIX of the transaction applies
+    slow_read_prob: float = 0.0    # read stalls ...
+    slow_read_ms: float = 0.0      # ... this long
+
+
+@dataclass
 class DeviceFaults:
     """Device-plane faults injected into the codec pipeline: a failed
     launch, a failed completion and an out-of-memory as reproducible
@@ -53,12 +68,15 @@ class DeviceFaults:
 
 @dataclass
 class FaultPlan:
-    """One campaign: one seed, the bus and device planes.  Hand it to
-    ``MessageBus.inject_faults`` (the bus plane), and a
-    :class:`~ceph_tpu_torch.failure.injector.FaultInjector` over it to
+    """One campaign: one seed, the bus, store and device planes.  Hand
+    it to ``MiniCluster.inject_faults`` (which builds the
+    :class:`~ceph_tpu_torch.failure.injector.FaultInjector` and fans the
+    plan out to bus/store/device), or to ``MessageBus.inject_faults``
+    alone (the bus plane), or a FaultInjector over it to
     ``CodecPipeline.inject_faults`` or ``ServingEngine.inject_device_faults``."""
     seed: int = 0
     bus: FaultConfig = field(default_factory=FaultConfig)
+    store: StoreFaults = field(default_factory=StoreFaults)
     device: DeviceFaults = field(default_factory=DeviceFaults)
 
     def bus_config(self) -> FaultConfig:

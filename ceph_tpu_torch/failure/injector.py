@@ -1,17 +1,20 @@
 """FaultInjector: deterministic, seedable fault decisions + event log.
 
-From ``ceph_tpu.failure.injector``, for the device plane only (the
-planes of the port's :mod:`~ceph_tpu_torch.failure.config`); the port keeps
-its own copy, so it needs nothing of the JAX package.
+The port's copy of ``ceph_tpu.failure.injector`` for the planes the port
+has (the transport plane comes with the messenger).
 
-The runtime half of the :mod:`~ceph_tpu_torch.failure.config` schema.  The
-codec pipeline consults ONE injector, and every injected event is:
+The runtime half of the :mod:`~ceph_tpu_torch.failure.config` schema.  Every
+plane (store/device/bus) consults ONE injector, and every injected event
+is:
 
-- appended to a bounded in-memory event log (``events``): two
-  campaigns with the same seed and the same workload log the same
-  events;
+- appended to a bounded in-memory event log (``events``), whose
+  order-sensitive digest (``event_digest``) is the reproducibility
+  receipt — two campaigns with the same seed and the same workload must
+  produce the same digest;
 - counted in a ``faults.<name>`` perf collection (per-plane counters),
-  so injected failure shows up next to every other perf surface.
+  so injected failure shows up next to every other perf surface;
+- stamped into the clusterlog (DBG channel ``faults``) when one is
+  wired, so ``ceph -w`` shows the chaos interleaved with its effects.
 
 Determinism: one ``random.Random`` stream per (plane, kind), seeded from
 ``f"{seed}:{plane}:{kind}"`` (str seeding is stable across processes).
@@ -21,6 +24,7 @@ that keeps soak repros stable as the fault surface grows.
 """
 from __future__ import annotations
 
+import hashlib
 import random
 import threading
 
@@ -28,25 +32,26 @@ from .config import FaultPlan
 
 MAX_EVENTS = 100_000      # a soak that injects more has lost the plot
 
-PLANES = ("device",)
+PLANES = ("store", "device", "bus")
 
 
 class InjectedFault(RuntimeError):
-    """An injected failure (device dispatch or completion).
+    """An injected failure (device dispatch/completion, store EIO...).
     Distinct type so self-healing tests can tell injected failures from
     real bugs in the machinery under test."""
 
 
 class InjectedOOM(InjectedFault):
-    """Simulated device OOM (the XLA RESOURCE_EXHAUSTED shape)."""
+    """Simulated device OOM (a RESOURCE_EXHAUSTED at dispatch)."""
 
 
 class FaultInjector:
     """Seeded decision streams over a :class:`FaultPlan` + the event log."""
 
-    def __init__(self, plan: FaultPlan | None = None, cct=None,
-                 name: str = "faults"):
+    def __init__(self, plan: FaultPlan | None = None, clusterlog=None,
+                 cct=None, name: str = "faults"):
         self.plan = plan if plan is not None else FaultPlan()
+        self.clusterlog = clusterlog
         self.name = name
         self._lock = threading.Lock()
         self._rngs: dict[tuple[str, str], random.Random] = {}
@@ -99,8 +104,9 @@ class FaultInjector:
     # -- the event log -----------------------------------------------------
 
     def record(self, plane: str, kind: str, target=None, **detail) -> dict:
-        """Stamp one injected event (log + perf).  Called by
-        :meth:`roll` on a hit."""
+        """Stamp one injected event (log + perf + clusterlog).  Called by
+        :meth:`roll` on a hit, and directly by planes that decide with
+        their own RNG (the bus's legacy FaultConfig stream)."""
         with self._lock:
             self._seq += 1
             event = {"seq": self._seq, "plane": plane, "kind": kind,
@@ -113,4 +119,32 @@ class FaultInjector:
             self.perf.inc("injected")
             if plane in PLANES:
                 self.perf.inc(f"{plane}_events")
+        if self.clusterlog is not None:
+            self.clusterlog.debug(
+                f"fault injected: {plane}/{kind}"
+                + (f" @ {event['target']}" if event["target"] else ""),
+                channel="faults")
         return event
+
+    # -- reproducibility ----------------------------------------------------
+
+    def event_digest(self) -> str:
+        """Order-sensitive digest over (plane, kind, target) — the
+        determinism receipt.  Wall-clock detail is deliberately excluded:
+        two same-seed runs differ in timing, never in decisions."""
+        h = hashlib.sha256()
+        with self._lock:
+            for e in self.events:
+                h.update(f"{e['plane']}/{e['kind']}/{e['target']}\n"
+                         .encode())
+        return h.hexdigest()
+
+    def summary(self) -> dict:
+        """{plane: {kind: count}} + total, for campaign reports."""
+        out: dict = {}
+        with self._lock:
+            for e in self.events:
+                out.setdefault(e["plane"], {}).setdefault(e["kind"], 0)
+                out[e["plane"]][e["kind"]] += 1
+            total = len(self.events)
+        return {"total": total, "planes": out}

@@ -27,9 +27,7 @@ at the moment something goes wrong, not when an operator gets around to
 asking.
 
 A copy of ``ceph_tpu.mgr.health``; ``HBM_PRESSURE`` reads the port's
-``common/device_telemetry`` (``torch.cuda``).  ``OSD_FLAPPING``,
-``TIER_FULL`` and ``TIER_FLUSH_BACKLOG`` come with the modules that
-register them (mon/ and tier/).
+``common/device_telemetry`` (``torch.cuda``).
 """
 from __future__ import annotations
 
@@ -395,6 +393,28 @@ def device_degraded_check():
     return check
 
 
+def osd_flapping_check(limiter_getter):
+    """OSD_FLAPPING: the monitor's mark-down limiter has damped one or
+    more OSDs — marked down too often inside ``osd_markdown_window``,
+    they stay down (boots refused) until the operator clears the record
+    (``Monitor.clear_markdown``).  The osd_markdown_log health surface."""
+    def check():
+        lim = limiter_getter()
+        if lim is None:
+            return None
+        damped = sorted(lim.damped)
+        if damped:
+            return CheckResult(
+                f"{len(damped)} osd(s) flapping: boots damped until "
+                f"operator clear",
+                detail=[f"osd.{o} marked down >= {lim.count} times in "
+                        f"{lim.window:.0f}s; down until cleared"
+                        for o in damped],
+                count=len(damped))
+        return None
+    return check
+
+
 def recompile_storm_check(cct, stats, threshold: float | None = None):
     """RECOMPILE_STORM: the traced_jit registry is compiling at more
     than ``mgr_recompile_storm_compiles`` per MINUTE over the stats
@@ -426,5 +446,54 @@ def recompile_storm_check(cct, stats, threshold: float | None = None):
                 f"{dt:.0f}s (~{per_min:.0f}/min, cache hits: "
                 f"{int(hits)}) — check shape bucketing",
                 count=int(compiles))
+        return None
+    return check
+
+
+def tier_full_check(tiers_getter):
+    """TIER_FULL: a cache tier's residency is at or past its
+    ``tier_full_ratio`` watermark — promotions and absorbed writes are
+    about to be paid for with synchronous evictions (or refused), the
+    tier-equivalent of a full OSD.  ``tiers_getter`` returns the live
+    ``{cache_pool: (service, agent)}`` map; residency is counted from
+    object bookkeeping (no I/O on the health path)."""
+    def check():
+        hot: list[str] = []
+        for pid, (svc, agent) in sorted(tiers_getter().items()):
+            full = svc.cct.conf.get("tier_full_ratio")
+            f = agent.fullness()
+            if f >= full:
+                hot.append(f"tier pool {pid} ({svc.name}): "
+                           f"{len(svc.resident())} objects = "
+                           f"{100.0 * f:.0f}% of target "
+                           f"(tier_full_ratio {100.0 * full:.0f}%)")
+        if hot:
+            return CheckResult(
+                f"{len(hot)} cache tier(s) at/over the full watermark",
+                detail=hot, count=len(hot))
+        return None
+    return check
+
+
+def tier_flush_backlog_check(tiers_getter, min_ticks: int = 2):
+    """TIER_FLUSH_BACKLOG: an agent finished ``min_ticks`` consecutive
+    passes still above ``tier_dirty_ratio_high`` — the EC base pool is
+    not absorbing flushes as fast as writeback absorbs writes (base
+    inactive, flush budget too small, or genuine overload).  One
+    over-watermark pass is normal burst behavior; a STREAK is the
+    backlog.  Reads the agent's own tick accounting: no I/O here."""
+    def check():
+        stuck: list[str] = []
+        for pid, (svc, agent) in sorted(tiers_getter().items()):
+            if agent.backlog_ticks >= min_ticks:
+                stuck.append(
+                    f"tier pool {pid} ({svc.name}): dirty ratio "
+                    f"{agent.last.get('dirty_ratio', 0.0):.2f} still "
+                    f"over tier_dirty_ratio_high after "
+                    f"{agent.backlog_ticks} agent passes")
+        if stuck:
+            return CheckResult(
+                f"{len(stuck)} cache tier(s) cannot flush fast enough",
+                detail=stuck, count=len(stuck))
         return None
     return check

@@ -42,6 +42,12 @@ For each launch of ``chip_smoke.py``'s main paths, on ``cuda:0``:
   [4, 8] x [8, 1 or 1.5 Mi], its chain hops [1, 1] x [1, 1 or 1.5 Mi];
   the pm_regen pool's encode [20, 9], a helper's projection [1, 4], the
   newcomer's combine [4, 4] and a get's solve [9, 9] over its stripes;
+- durable: every launch of ``chip_smoke.py``'s phase ``durable`` (the
+  same MiniCluster on BlueStore and FileStore, through ``client.rados``,
+  a monitor quorum, a cache tier and a store fault plan): the writes',
+  overwrites' and tier flushes' encodes and crcs, osd.3's repair by one
+  of phase cluster's chain cycles and the degraded gets under the fault
+  plan;
 - ``crc32c_rows``: one object's shards under ``hinfo_append`` [12, 512 Ki],
   the fused encode + checksum's data and parity rows [8, 32 Mi] and
   [4, 32 Mi], and the rebuilt shards' hash check of a recovery wave
@@ -171,6 +177,7 @@ def launch_shapes(pkg) -> list[dict]:
     out += repair_shapes(pkg, registry)
     out += backend_shapes(registry)
     out += cluster_shapes(registry)
+    out += durable_shapes(registry)
     for s in out:
         s["mat"] = np.ascontiguousarray(s["mat"], dtype=np.uint8)
     return out
@@ -453,6 +460,59 @@ def cluster_shapes(registry, obj_bytes: int = OBJ_BYTES) -> list[dict]:
                     label="put hinfo_append", mat=np.zeros((0, 0), np.uint8),
                     rows=12, cols=obj, stripes=1,
                     launches=64 + CLUSTER_SMALL))
+    return out
+
+
+# phase durable's degraded gets under its store fault plan
+# (chip_smoke.DURABLE_FAULT_SEED, DURABLE_EIO_READ): the gets that reach
+# their decode (tests/test_torch_durable.py counts them in a run)
+DURABLE_FAULT_DECODES = 60
+DURABLE_TIER = 16                  # phase durable's tier objects
+DURABLE_FILE = 16                  # its FileStore cluster's objects
+
+
+def durable_shapes(registry, obj_bytes: int = OBJ_BYTES,
+                   objects: int = OBJECTS) -> list[dict]:
+    """The launches of ``chip_smoke.py``'s phase ``durable`` at
+    ``obj_bytes`` objects, each row with its count in the phase.  The
+    encodes [4, 8] x [8, obj]: (a) the BlueStore cluster's writes, (b)
+    the overwrites while osd.3 is down, (d) the FileStore cluster's
+    ``DURABLE_FILE`` writes and (e) the tier's flushes into the EC pool;
+    a crc [12, obj] with each but the overwrites (an overwrite clears
+    the chunk hashes).  (b)'s repair of osd.3 is one of phase cluster's
+    cycles with chains (the same pool, object names and payload order):
+    a one-object wave decodes [1, 8] after checking its 11 sources
+    ([2, 8]), a wave of n objects runs 8 hops [1, 1] x [1, n obj].  (f)
+    the degraded gets with chunks 1 and 9 down rebuild 1, 9, 10 and 11
+    [4, 8] where the fault plan lets them reach the decode.  The
+    reload's boot repair finds every shard current and launches
+    nothing."""
+    ec = registry.factory("torch_rs", "", {"k": "8", "m": "4",
+                                           "technique": "reed_sol_van",
+                                           "device": "numpy"})
+    obj = obj_bytes // 8
+    others = [c for c in range(12) if c != 3]
+    dec = ec.codec.decode_matrix
+    hop = np.array(ec.partial_sum_coefficients({3}, others[:8])[0][0],
+                   np.uint8).reshape(-1, 1)
+    single = CLUSTER_WAVES[1]
+    rows = [("op encode", ec.codec.parity_mat, obj,
+             2 * objects + DURABLE_FILE + DURABLE_TIER),
+            ("degraded get [1, 9] down, store faults",
+             dec([1, 9, 10, 11], [0, *range(2, 9)])[0], obj,
+             DURABLE_FAULT_DECODES),
+            ("wave of one object", dec([3], others[:8])[0], obj, single),
+            ("source check", dec([0, 3], others[1:9])[0], obj,
+             single * len(others))]
+    rows += [(f"chain hop, {n} objects", hop, n * obj, 8 * CLUSTER_WAVES[n])
+             for n in (2, 3)]
+    out = [dict(kernel="gf_apply", path="durable", label=label, mat=mat,
+                rows=mat.shape[1], cols=cols, stripes=1, launches=n)
+           for label, mat, cols, n in rows]
+    out.append(dict(kernel="crc32c_rows", path="durable",
+                    label="put hinfo_append", mat=np.zeros((0, 0), np.uint8),
+                    rows=12, cols=obj, stripes=1,
+                    launches=objects + DURABLE_FILE + DURABLE_TIER))
     return out
 
 

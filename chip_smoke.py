@@ -90,6 +90,33 @@ drives the port end to end:
                 kernel), then 16 EC writes and degraded reads through
                 enable_serving(), no pipeline error.  cluster.<name>
                 lines: host seconds by function, launches, wire bytes;
+5c. durable  -- a Ceph user's durable deployment (vstart with BlueStore,
+                rados put/get, ceph osd down, a daemon restart) at phase
+                cluster's widths on stores under a temporary directory:
+                (a) MiniCluster(data_dir=..., store_backend="bluestore"),
+                attach_monitor(n_mons=3), 64 IoCtx.write_full through
+                client.rados and 64 reads, every HashInfo against the
+                host crc32c; (b) the heartbeat mesh on a VirtualClock stops
+                hearing osd.3 (primary of no PG) and the quorum commits
+                it down, 64 overwrites, osd.3 answers again, boots and
+                the recovery scheduler repairs it on the card (its chunks
+                against the numpy encode, wire bytes per repaired byte);
+                (c) shutdown() and MiniCluster.load (boot peering and
+                repair), every object read back bitwise, every chunk
+                against the numpy encode and every HashInfo crc present
+                against the host crc32c; (d) (a) and (c) on FileStore
+                (16 objects);
+                (e) a writeback cache tier (replicated, size 3, pg_num 8)
+                over the reloaded EC pool: 16 writes, one agent pass
+                flushing all 16 (an encode and a crc each), evictions,
+                proxied reads and promotes; (f) degraded gets (chunks 1
+                and 9 down) under a seeded StoreFaults read-EIO plan:
+                every get returns its bytes or the injected EIO, no
+                acked write is lost.  durable.<name> lines: ms per op,
+                launches, host seconds by function (the stores' host
+                crc32c among them), wire bytes; every gf_apply and
+                crc32c_rows call of the phase must equal
+                path_shapes.durable_shapes (durable.shapes);
 6. serving   -- the serving path at RBD-on-EC size: ServingEngine (option
                 defaults: depth-4 CUDA codec pipeline, 64-op batches, 2 ms
                 deadline, 64 MiB throttle) over torch_rs k=8 m=4 with no
@@ -1905,24 +1932,32 @@ def cluster_timer() -> CallTimer:
         "scheduler_wave": (rs.RecoveryScheduler, "_run_wave")})
 
 
+def _sync() -> None:
+    """Wait for the card (phase durable's sequence also runs on the CPU,
+    in tests/test_torch_durable.py)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
 class ClusterRun:
     """One timed, launch-counted and wire-counted sub-phase of the
-    cluster phase: ``with ClusterRun(K, c) as run: ...`` then
-    ``run.line(**fields)``."""
+    cluster and durable phases: ``with ClusterRun(K, c) as run: ...``
+    then ``run.line(**fields)``; ``timer`` makes the host-time
+    breakdown's CallTimer."""
 
-    def __init__(self, K, c):
-        self.K, self.c = K, c
+    def __init__(self, K, c, timer=cluster_timer):
+        self.K, self.c, self.make_timer = K, c, timer
 
     def __enter__(self):
-        torch.cuda.synchronize()
+        _sync()
         self.launches0 = dict(self.K.launches)
         self.wire0 = (self.c.wire.totals(), self.c.wire.class_bytes())
-        self.timer = cluster_timer().__enter__()
+        self.timer = self.make_timer().__enter__()
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
-        torch.cuda.synchronize()
+        _sync()
         self.seconds = time.perf_counter() - self.t0
         self.timer.__exit__(*exc)
         self.launches = {k: self.K.launches[k] - self.launches0[k]
@@ -2251,6 +2286,452 @@ def cluster_launch_shapes(PS, registry_cls, seen) -> dict:
     if dict(seen) != dict(want):
         raise AssertionError(f"cluster: launches by shape {dict(seen)} != "
                              f"path_shapes.cluster_shapes {dict(want)}")
+    return {"checked": [[kernel, list(mat), rows, cols, n] for
+                        (kernel, mat, rows, cols), n in sorted(seen.items())]}
+
+
+# -- phase durable ------------------------------------------------------------
+
+# phase durable's store fault campaign (f): one seed, a read-EIO rate a
+# shard read (path_shapes.DURABLE_FAULT_DECODES counts its decodes)
+DURABLE_FAULT_SEED = 7
+DURABLE_EIO_READ = 0.02
+
+
+def durable_timer() -> CallTimer:
+    """cluster_timer's functions and the durable path's: the stores' host
+    crc32c (every BlueStore blob written and read, every FileStore WAL
+    record), their transaction apply, blob reads and checkpoints, the
+    client's IoCtx calls and the tier's flush, evict and promote."""
+    from ceph_tpu_torch.backend import bluestore as bls, filestore as fls
+    from ceph_tpu_torch.client import rados as rd
+    from ceph_tpu_torch.tier import service as ts
+    return CallTimer({
+        **cluster_timer().targets,
+        "store_crc32c_bluestore": (bls, "crc32c"),
+        "store_crc32c_filestore": (fls, "crc32c"),
+        "bluestore_apply": (bls.BlueStoreLite, "queue_transaction"),
+        "bluestore_read": (bls.BlueStoreLite, "read"),
+        "bluestore_checkpoint": (bls.BlueStoreLite, "checkpoint"),
+        "filestore_apply": (fls.FileStore, "queue_transaction"),
+        "filestore_checkpoint": (fls.FileStore, "checkpoint"),
+        "ioctx_write_full": (rd.IoCtx, "write_full"),
+        "ioctx_read": (rd.IoCtx, "read"),
+        "tier_write": (ts.TierService, "write"),
+        "tier_read": (ts.TierService, "read"),
+        "tier_flush": (ts.TierService, "flush"),
+        "tier_evict": (ts.TierService, "evict")})
+
+
+def _durable_check_hinfo(c, pid, oids, crcs, required: bool) -> int:
+    """Every HashInfo of ``oids`` on its PG's acting set: where its chunk
+    hashes are present (an overwrite clears them), each against the host
+    crc32c of the chunk; ``required``: every one must be present.  Reads
+    attributes only (no blob).  Returns the crcs checked."""
+    from ceph_tpu_torch.backend import GObject
+    from ceph_tpu_torch.backend.ecutil import HINFO_KEY
+    from ceph_tpu_torch.backend.pg_backend import shard_store
+    checked = 0
+    for oid, crc in zip(oids, crcs):
+        g = c.pg_group(pid, oid)
+        for chunk, osd in enumerate(g.acting):
+            h = shard_store(g.bus, osd).getattr(GObject(oid, osd), HINFO_KEY)
+            hashes = h["cumulative_shard_hashes"]
+            if not hashes and required:
+                raise AssertionError(f"durable: {oid} osd.{osd} HashInfo "
+                                     f"has no chunk hashes")
+            if hashes and hashes[chunk] != crc[chunk]:
+                raise AssertionError(f"durable: {oid} chunk {chunk} "
+                                     f"HashInfo != host crc32c")
+            checked += bool(hashes)
+    return checked
+
+
+def _durable_writes_reads(K, c, pid, oids, payloads, crcs,
+                          on_card: bool) -> dict:
+    """``rados put`` then ``rados get`` of every object through
+    ``client.rados`` (Rados -> IoCtx -> Objecter -> the OSDs), every
+    HashInfo against the host crc32c (the chunks' bytes are held against
+    the numpy encode after the reload); on the card one gf_apply and one
+    crc32c_rows launch a write, none a read."""
+    from ceph_tpu_torch.client.rados import Rados
+    r = Rados(c)
+    io = r.open_ioctx("rbd")
+    n = len(oids)
+    with ClusterRun(K, c, durable_timer) as w:
+        for oid, d in zip(oids, payloads):
+            io.write_full(oid, d)
+    t0 = time.perf_counter()
+    checked = _durable_check_hinfo(c, pid, oids, crcs, required=True)
+    check_s = time.perf_counter() - t0
+    with ClusterRun(K, c, durable_timer) as rd:
+        bad = [oid for oid, d in zip(oids, payloads) if io.read(oid) != d]
+    r.shutdown()
+    if bad or (on_card and (w.launches["gf_apply"] != n or
+                            w.launches["crc32c_rows"] != n or
+                            rd.launches["gf_apply"])):
+        raise AssertionError(f"durable writes/reads: {bad[:4]} "
+                             f"{w.launches} {rd.launches}")
+    return {"write": w.line(objects=n, hashinfo_crcs_checked=checked,
+                            check_s=check_s, ms_per_op=w.seconds / n * 1e3,
+                            MiBps=sum(map(len, payloads)) / MIB / w.seconds),
+            "read": rd.line(objects=n, ms_per_op=rd.seconds / n * 1e3)}
+
+
+def _durable_reload(K, MiniCluster, Context, d, pid, oids, payloads,
+                    host_enc, crcs) -> tuple:
+    """``MiniCluster.load`` of ``d`` (boot peering, boot repair), then
+    every object read back bitwise and every chunk against the numpy
+    encode; a HashInfo whose chunk hashes are present is held against the
+    host crc32c, one an overwrite cleared against the primary's.  Returns
+    the reopened cluster and the run's fields."""
+    from ceph_tpu_torch.client.rados import Rados
+    _sync()
+    t0 = time.perf_counter()
+    launches0 = dict(K.launches)
+    c = MiniCluster.load(d, cct=Context())
+    _sync()
+    load_s = time.perf_counter() - t0
+    boot = {k: K.launches[k] - launches0[k] for k in K.launches}
+    r = Rados(c)
+    io = r.open_ioctx("rbd")
+    with ClusterRun(K, c, durable_timer) as rd:
+        bad = [oid for oid, d0 in zip(oids, payloads) if io.read(oid) != d0]
+    r.shutdown()
+    t0 = time.perf_counter()
+    hashed = _durable_check_hinfo(c, pid, oids, crcs, required=False)
+    checked = _cluster_check_chunks(c, pid, oids, host_enc, crcs,
+                                    hashes=False)
+    check_s = time.perf_counter() - t0
+    if bad or set(c.objects.get(pid, ())) < set(oids):
+        raise AssertionError(f"durable reload: {bad[:4]}")
+    return c, {"load_s": load_s, "boot_launches": boot,
+               "read": rd.line(objects=len(oids),
+                               ms_per_op=rd.seconds / len(oids) * 1e3),
+               "checked_bytes": checked, "hashinfo_crcs_checked": hashed,
+               "check_s": check_s}
+
+
+def _durable_monitor_cycle(K, c, mon, pid, victim, oids, payloads,
+                           host_enc) -> dict:
+    """``ceph osd down`` the way a cluster does it: the heartbeat mesh on
+    a virtual clock stops hearing ``victim``, its peers report it and the
+    monitor quorum commits it down; every object is overwritten through
+    the client (11 of 12 shards); ``victim`` answers again, boots, the
+    commit marks it up and the recovery scheduler repairs it on the card.
+    Its chunks are then held against the numpy encode."""
+    from ceph_tpu_torch.client.rados import Rados
+    from ceph_tpu_torch.mon.heartbeat import (VirtualClock,
+                                              build_heartbeat_mesh)
+    if any(g.backend.whoami == victim for g in c.pools[pid]["pgs"].values()):
+        raise AssertionError(f"durable: osd.{victim} is a primary")
+    clock = VirtualClock()
+    agents = build_heartbeat_mesh(mon, clock, c.n_osds)
+    net = agents[0].network
+    interval = c.cct.conf.get("osd_heartbeat_interval")
+
+    def beat(until, limit: int = 20) -> int:
+        for n in range(1, limit + 1):
+            clock.advance(interval)
+            for o, a in sorted(agents.items()):
+                if net.get(o) is not None:
+                    a.tick()
+            mon.tick(clock.now())
+            c.deliver_all()
+            if until():
+                return n
+        raise AssertionError(f"durable: the monitor did not commit osd."
+                             f"{victim} after {limit} heartbeats")
+    beat(lambda: True, 2)                    # every peer heard once
+    epoch0 = mon.osdmap.epoch
+    net[victim] = None
+    with ClusterRun(K, c, durable_timer) as dn:
+        beats_down = beat(lambda: mon.osdmap.is_down(victim))
+    if victim not in c.bus.down:
+        raise AssertionError("durable: the commit did not reach the PGs")
+    r = Rados(c)
+    io = r.open_ioctx("rbd")
+    with ClusterRun(K, c, durable_timer) as w:
+        for oid, d in zip(oids, payloads):
+            io.write_full(oid, d)
+    r.shutdown()
+    perf0 = _cluster_perf(c, pid)
+    net[victim] = agents[victim]
+    with ClusterRun(K, c, durable_timer) as rep:
+        beats_up = beat(lambda: mon.osdmap.is_up(victim))
+        c.deliver_all()
+    perf = {k: v - perf0[k] for k, v in _cluster_perf(c, pid).items()}
+    summary = c.recovery.summary()
+    if c.recovery.jobs or summary["reservations"]["granted"] or any(
+            g.backend.stale for g in c.pools[pid]["pgs"].values()):
+        raise AssertionError(f"durable: scheduler did not drain: "
+                             f"{c.recovery.dump()}")
+    t0 = time.perf_counter()
+    repaired = _cluster_check_chunks(c, pid, oids, host_enc,
+                                     [None] * len(oids), osds={victim},
+                                     hashes=False)
+    check_s = time.perf_counter() - t0
+    if perf["recoveries"] != len(oids):
+        raise AssertionError(f"durable repair: {perf}")
+    n = len(oids)
+    return {"down": dn.line(beats=beats_down, epochs=mon.osdmap.epoch - epoch0,
+                            quorum=sorted(mon.quorum_ranks())),
+            "overwrite": w.line(objects=n, ms_per_op=w.seconds / n * 1e3),
+            "repair": rep.line(
+                victim=victim, beats=beats_up, perf=perf, recovery=summary,
+                waves=c.recovery.perf.get("waves"), repaired_bytes=repaired,
+                rebuilt_MiBps=repaired / MIB / rep.seconds,
+                wire_bytes_per_repaired_byte=rep.wire["class_bytes"].get(
+                    "recovery", 0.0) / repaired, check_s=check_s),
+            "epoch": mon.osdmap.epoch,
+            "clusterlog": [e["message"] for e in c.clusterlog.last(500)
+                           if e["channel"] == "mon"][-4:]}
+
+
+def _durable_tier(K, c, pid, bufs, host_enc, crcs, objects: int) -> dict:
+    """A writeback cache tier (a replicated pool, size 3, pg_num 8) over
+    the EC pool: ``objects`` writes absorbed by the tier (no kernel), one
+    agent pass flushing them all into the EC pool (an encode and a crc
+    each, every chunk against the numpy encode), then every object
+    evicted and read through the tier: a proxied read of the EC pool
+    and a promote."""
+    conf = c.cct.conf
+    for key, value in (("tier_target_max_objects", 2 * objects),
+                       ("tier_dirty_ratio_high", 0.25),
+                       ("tier_dirty_ratio_low", 0.0),
+                       ("tier_agent_max_ops", objects),
+                       ("tier_promote_min_recency", 1)):
+        conf.set(key, value)
+    cache = c.create_replicated_pool(
+        "cache", size=3, pg_num=8,
+        params={"hit_set_count": "2", "hit_set_period": "8"})
+    svc = c.create_tier(cache, pid)
+    oids = [f"tier.{i:04x}" for i in range(objects)]
+    data = {oid: bufs[i].tobytes() for i, oid in enumerate(oids)}
+    with ClusterRun(K, c, durable_timer) as w:
+        for oid, d in data.items():
+            svc.write(oid, d)
+    with ClusterRun(K, c, durable_timer) as fl:
+        agent = svc.agent.tick()
+    checked = _cluster_check_chunks(c, pid, oids, host_enc[:objects],
+                                    crcs[:objects])
+    with ClusterRun(K, c, durable_timer) as ev:
+        for oid in oids:
+            svc.evict(oid)
+    with ClusterRun(K, c, durable_timer) as pr:
+        bad = [oid for oid, d in data.items() if svc.read(oid) != d]
+    stats = svc.stats()
+    ctr = stats["counters"]
+    if bad or agent["flushes"] != objects or any(svc.is_dirty(o)
+                                                 for o in oids) or \
+            (ctr["evict"], ctr["proxy_read"], ctr["promote"]) != \
+            (objects, objects, objects) or any(w.launches.values()):
+        raise AssertionError(f"durable tier: {bad[:4]} {agent} {ctr} "
+                             f"{w.launches}")
+    return {"write": w.line(objects=objects,
+                            ms_per_op=w.seconds / objects * 1e3),
+            "flush": fl.line(objects=objects, agent=agent,
+                             checked_bytes=checked,
+                             ms_per_op=fl.seconds / objects * 1e3),
+            "evict": ev.line(objects=objects),
+            "proxy_promote": pr.line(objects=objects,
+                                     ms_per_op=pr.seconds / objects * 1e3),
+            "stats": stats}
+
+
+def _durable_faults(K, c, pid, oids, payloads) -> dict:
+    """Degraded gets (the OSDs of chunks 1 and 9 down, PG by PG) under a
+    seeded StoreFaults read-EIO rate on every shard store: a get returns
+    its bytes or raises the injected EIO; any other error, or an EIO the
+    injector did not log, fails the phase.  Disarmed, every object reads
+    back bitwise: no acked write is lost."""
+    import errno
+    from ceph_tpu_torch.failure import FaultPlan, StoreFaults
+    data = dict(zip(oids, payloads))
+    inj = c.inject_faults(FaultPlan(seed=DURABLE_FAULT_SEED,
+                                    store=StoreFaults(
+                                        eio_read_prob=DURABLE_EIO_READ)))
+    outcome = {"ok": 0, "injected_eio": 0, "drain_eio": 0}
+
+    def injected(e) -> bool:
+        return getattr(e, "errno", None) == errno.EIO and \
+            str(e).startswith("injected EIO")
+
+    def drain():
+        for _ in range(64):
+            try:
+                c.deliver_all()
+                return
+            except IOError as e:
+                if not injected(e):
+                    raise
+                outcome["drain_eio"] += 1
+        raise AssertionError("durable faults: the bus did not drain")
+    by_pg: dict = {}
+    for oid in oids:
+        by_pg.setdefault(c.object_pg(pid, oid), []).append(oid)
+    with ClusterRun(K, c, durable_timer) as run:
+        for ps, pg_oids in sorted(by_pg.items()):
+            g = c.pools[pid]["pgs"][ps]
+            down = [g.acting[i] for i in (1, 9)]
+            for o in down:
+                c.bus.mark_down(o)
+            for oid in pg_oids:
+                try:
+                    got = c.get(pid, oid, len(data[oid]))
+                except IOError as e:
+                    if not injected(e):
+                        raise
+                    outcome["injected_eio"] += 1
+                    drain()
+                    continue
+                if got != data[oid]:
+                    raise AssertionError(f"durable faults: {oid} differs")
+                outcome["ok"] += 1
+            for o in down:
+                c.bus.mark_up(o)
+            drain()
+    events = inj.summary()
+    c.inject_faults(None)
+    c.deliver_all()
+    bad = [oid for oid, d in data.items() if c.get(pid, oid, len(d)) != d]
+    eio = events["planes"].get("store", {}).get("eio_read", 0)
+    if bad or not eio or \
+            outcome["injected_eio"] + outcome["drain_eio"] > eio:
+        raise AssertionError(f"durable faults: {bad[:4]} {outcome} {events}")
+    return run.line(objects=len(oids), outcome=outcome, injected=events,
+                    seed=DURABLE_FAULT_SEED, eio_read_prob=DURABLE_EIO_READ,
+                    digest=inj.event_digest(), lost_acked_writes=len(bad),
+                    ms_per_op=run.seconds / len(oids) * 1e3)
+
+
+def phase_durable(K, ecutil, registry_cls, objects: int = 64,
+                  obj_bytes: int = 4 * MIB, device: str | None = None
+                  ) -> tuple[dict, int, int]:
+    """A Ceph user's durable deployment through the port: ``vstart`` with
+    BlueStore, ``rados put/get``, ``ceph osd down``, a daemon restart.
+    Phase cluster's widths (12 OSDs on 4 hosts, torch_rs k=8 m=4
+    reed_sol_van with no device key, pg_num 32, 4 KiB stripe unit,
+    ``objects`` of 4 MiB) on durable stores in a temporary directory:
+    (a) a BlueStore cluster with the recovery scheduler and a 3-monitor
+    quorum, every object written and read through ``client.rados``;
+    (b) osd.3 reported by the heartbeat mesh and committed down, every
+    object overwritten, osd.3 booted and repaired on the card;
+    (c) shutdown, ``MiniCluster.load`` (boot peering and repair), every
+    object read back and every chunk and HashInfo checked; (d) (a) and
+    (c) on FileStore (``path_shapes.DURABLE_FILE`` objects: cut from 64
+    to keep the script's time, PERF.md §4); (e) a writeback cache tier
+    over the reloaded EC pool, ``DURABLE_TIER`` writes, one agent flush
+    pass, evictions, proxied reads and promotes; (f) degraded gets under
+    a seeded store read-EIO plan.  ``device`` None runs the pool on the
+    card (tests run the sequence with "cpu").  Returns the sub-phase
+    lines and the gf_apply and crc32c_rows launches."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+    from ceph_tpu_torch.cluster import MiniCluster
+    from ceph_tpu_torch.common import Context
+    from ceph_tpu_torch.tools.path_shapes import (DURABLE_FILE,
+                                                  DURABLE_TIER)
+    t_phase = time.perf_counter()
+    on_card = device is None
+    registry = registry_cls.instance()
+    k, m, unit, victim = 8, 4, 4096, 3
+    profile = {"k": str(k), "m": str(m), "technique": "reed_sol_van"}
+    if device is not None:
+        profile["device"] = device
+    host = registry.factory("torch_rs", "", profile | {"device": "numpy"})
+    chunk = host.get_chunk_size(k * unit)
+    rng = np.random.default_rng(12)
+    bufs = [rng.integers(0, 256, obj_bytes, dtype=np.uint8)
+            for _ in range(objects)]
+    sinfo = ecutil.StripeInfo(k, chunk)
+    host_enc = ecutil.encode_many(sinfo, host, bufs)
+    crcs = _host_crcs(host_enc)
+    oids = [f"rbd_data.{i:04x}" for i in range(objects)]
+    payloads = [b.tobytes() for b in bufs]
+    # (b)'s overwrite: object i takes payload i + 1
+    order = [(i + 1) % objects for i in range(objects)]
+    setup_s = time.perf_counter() - t_phase
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_durable."))
+    lines: dict = {}
+    launches = dict.fromkeys(K.launches, 0)
+    _sync()
+    K.reset_launches()
+    c = None
+    try:
+        # (a) BlueStore: vstart, rados put/get
+        c = MiniCluster(n_osds=12, osds_per_host=3, chunk_size=unit,
+                        cct=Context(), data_dir=root / "blue",
+                        store_backend="bluestore")
+        c.enable_recovery_scheduler()
+        pid = c.create_ec_pool("rbd", dict(profile), pg_num=32)
+        if c.pools[pid]["ec"].get_profile()["device"] != (device or "cuda"):
+            raise AssertionError("durable: the pool is not on the card")
+        mon = c.attach_monitor(n_mons=3)
+        lines["bluestore"] = _durable_writes_reads(
+            K, c, pid, oids, payloads, crcs, on_card)
+        # (b) down and up through the monitor
+        lines["monitor"] = _durable_monitor_cycle(
+            K, c, mon, pid, victim, oids, [payloads[j] for j in order],
+            [host_enc[j] for j in order])
+        # (c) restart
+        t0 = time.perf_counter()
+        c.shutdown()
+        shutdown_s = time.perf_counter() - t0
+        c = None
+        c, reload = _durable_reload(
+            K, MiniCluster, Context, root / "blue", pid, oids,
+            [payloads[j] for j in order], [host_enc[j] for j in order],
+            [crcs[j] for j in order])
+        lines["bluestore_reload"] = reload | {"shutdown_s": shutdown_s}
+        # (e) cache tier over the reloaded EC pool
+        lines["tier"] = _durable_tier(K, c, pid, bufs, host_enc, crcs,
+                                      DURABLE_TIER)
+        # (f) store faults during degraded gets
+        lines["faults"] = _durable_faults(K, c, pid, oids,
+                                          [payloads[j] for j in order])
+        lines["status"] = c.status()["pgmap"]
+        c.shutdown()
+        c = None
+        # (d) FileStore: the same as (a) and (c)
+        fo = oids[:DURABLE_FILE]
+        c = MiniCluster(n_osds=12, osds_per_host=3, chunk_size=unit,
+                        cct=Context(), data_dir=root / "file",
+                        store_backend="file")
+        c.enable_recovery_scheduler()
+        fpid = c.create_ec_pool("rbd", dict(profile), pg_num=32)
+        lines["filestore"] = _durable_writes_reads(
+            K, c, fpid, fo, payloads[:DURABLE_FILE], crcs[:DURABLE_FILE],
+            on_card)
+        t0 = time.perf_counter()
+        c.shutdown()
+        shutdown_s = time.perf_counter() - t0
+        c = None
+        c, reload = _durable_reload(
+            K, MiniCluster, Context, root / "file", fpid, fo,
+            payloads[:DURABLE_FILE], host_enc[:DURABLE_FILE],
+            crcs[:DURABLE_FILE])
+        lines["filestore_reload"] = reload | {"shutdown_s": shutdown_s}
+        launches = dict(K.launches)
+        disk = sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
+    finally:
+        if c is not None:
+            c.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    lines["launches"] = launches
+    lines["timing"] = {"seconds": time.perf_counter() - t_phase,
+                       "setup_s": setup_s, "disk_bytes": disk}
+    return lines, launches["gf_apply"], launches["crc32c_rows"]
+
+
+def durable_launch_shapes(PS, registry_cls, seen) -> dict:
+    """Phase durable's kernel calls by (kernel, matrix shape, data rows,
+    columns), as recorded, against ``path_shapes.durable_shapes``."""
+    want = PS.shape_counts(PS.durable_shapes(registry_cls.instance()))
+    if dict(seen) != dict(want):
+        raise AssertionError(f"durable: launches by shape {dict(seen)} != "
+                             f"path_shapes.durable_shapes {dict(want)}")
     return {"checked": [[kernel, list(mat), rows, cols, n] for
                         (kernel, mat, rows, cols), n in sorted(seen.items())]}
 
@@ -2668,6 +3149,14 @@ def main() -> int:
     for name, line in clus.items():
         emit(f"cluster.{name}", **line, gpu=smi)
     lap("cluster")
+    with PS.recorded_launches(K) as seen:
+        dur, n_durable, n_durable_crc = phase_durable(
+            K, ecutil, ErasureCodePluginRegistry)
+    dur["shapes"] = durable_launch_shapes(PS, ErasureCodePluginRegistry,
+                                          seen)
+    for name, line in dur.items():
+        emit(f"durable.{name}", **line, gpu=smi)
+    lap("durable")
     serving, n_serving = phase_serving(K, ecutil, ErasureCodePluginRegistry)
     emit("serving", **serving, gpu=smi)
     lap("serving")
@@ -2700,7 +3189,8 @@ def main() -> int:
                    "ecutil", n_apply, on("gf_apply"))
         | {"launches_by_path": {"ecutil": n_apply, "serving": n_serving,
                                 "repair": n_repair, "backend": n_backend,
-                                "cluster": n_cluster}},
+                                "cluster": n_cluster,
+                                "durable": n_durable}},
         kernel_row("gf_apply_stripes", "gf_apply.cu",
                    "ceph_tpu/ops/pallas_kernels.py:80",
                    "headline", n_stripes, on("gf_apply_stripes")),
@@ -2713,7 +3203,8 @@ def main() -> int:
                    on("crc32c_rows"))
         | {"launches_by_path": {"ecutil": n_crc, "repair": n_repair_crc,
                                 "backend": n_backend_crc,
-                                "cluster": n_cluster_crc},
+                                "cluster": n_cluster_crc,
+                                "durable": n_durable_crc},
            "library": "no PyTorch call computes crc32c"},
         {"name": "crush_straw2", "route": "cuda",
          "source": "ceph_tpu_torch/ops/csrc/crush_straw2.cu",

@@ -644,7 +644,7 @@ def test_put_without_a_card_raises_and_stores_nothing(monkeypatch):
         c.shutdown()
 
 
-def test_default_plugin_is_torch_rs_and_durable_mode_is_absent():
+def test_default_plugin_is_torch_rs(tmp_path):
     c = PORT.MiniCluster(n_osds=6, osds_per_host=2, chunk_size=CHUNK,
                          cct=PORT.Context())
     try:
@@ -652,11 +652,24 @@ def test_default_plugin_is_torch_rs_and_durable_mode_is_absent():
         assert c.pools[pid]["pool"].params["plugin"] == "torch_rs"
         for name in ("load", "attach_monitor", "inject_faults",
                      "create_tier"):
-            assert not hasattr(c, name), name
+            assert callable(getattr(c, name)), name
     finally:
         c.shutdown()
-    with pytest.raises(ValueError, match="ROADMAP"):
-        PORT.MiniCluster(n_osds=6, osds_per_host=2, data_dir="/nonexistent")
+    from ceph_tpu_torch.backend.bluestore import BlueStoreLite
+    from ceph_tpu_torch.backend.filestore import FileStore
+    for backend, cls in (("file", FileStore), ("bluestore", BlueStoreLite)):
+        d = tmp_path / backend
+        c = PORT.MiniCluster(n_osds=6, osds_per_host=2, chunk_size=CHUNK,
+                             cct=PORT.Context(), data_dir=d,
+                             store_backend=backend)
+        try:
+            assert all(isinstance(o.store, cls) for o in c.osds.values())
+            assert (d / "osd.0" / "store").is_dir()
+        finally:
+            c.shutdown()
+    with pytest.raises(ValueError, match="store_backend"):
+        PORT.MiniCluster(n_osds=6, osds_per_host=2, data_dir=tmp_path / "x",
+                         store_backend="rocksdb")
 
 
 def test_device_telemetry_without_a_card():

@@ -210,6 +210,65 @@ for profile, path in (({"k": "4", "m": "2"}, "wave"),
                                "chain_objects", "regen":
                                "regen_objects"}[path]) > 0, path
     c.shutdown()
+import tempfile
+from ceph_tpu_torch.client.rados import Rados
+from ceph_tpu_torch.client.striper import RadosStriper
+from ceph_tpu_torch.failure import FaultPlan, StoreFaults
+from ceph_tpu_torch.mon.heartbeat import VirtualClock, build_heartbeat_mesh
+with tempfile.TemporaryDirectory() as d:
+    c = MiniCluster(n_osds=12, osds_per_host=3, chunk_size=128,
+                    cct=Context(), data_dir=d, store_backend="bluestore")
+    c.enable_recovery_scheduler()
+    pid = c.create_ec_pool("ec", {"k": "4", "m": "2", "device": "cpu"},
+                           pg_num=8)
+    cache = c.create_replicated_pool("cache", 3, 4,
+                                     params={"hit_set_count": "2"})
+    mon = c.attach_monitor(n_mons=3)
+    io = Rados(c).open_ioctx("ec")
+    data = {f"r{i}": bytes([i + 1]) * (1500 + i) for i in range(8)}
+    for oid, d0 in data.items():
+        io.write_full(oid, d0)
+    assert all(io.read(oid) == d0 for oid, d0 in data.items())
+    st = RadosStriper(io, stripe_unit=512, stripe_count=2, object_size=1024)
+    st.write_full("striped", bytes(range(256)) * 20)
+    assert st.read("striped") == bytes(range(256)) * 20
+    clock = VirtualClock()
+    agents = build_heartbeat_mesh(mon, clock, 12)
+    prim = {g.backend.whoami for g in c.pools[pid]["pgs"].values()}
+    v = min(o for o in range(12) if o not in prim)
+    for step in range(10):
+        if step == 2:
+            agents[0].network[v] = None
+        if step == 7:
+            agents[0].network[v] = agents[v]
+        clock.advance(6)
+        for o, a in agents.items():
+            if agents[0].network.get(o) is not None:
+                a.tick()
+        mon.tick(clock.now())
+        c.deliver_all()
+    assert mon.osdmap.is_up(v) and mon.osdmap.epoch > 1
+    svc = c.create_tier(cache, pid)
+    svc.write("hot", b"h" * 700)
+    c.cct.conf.set("tier_dirty_ratio_high", 0.0)
+    c.cct.conf.set("tier_dirty_ratio_low", 0.0)
+    assert svc.agent.tick(max_ops=16)["flushes"] == 1
+    assert not svc.is_dirty("hot")
+    inj = c.inject_faults(FaultPlan(seed=3, store=StoreFaults(
+        eio_read_prob=0.2)))
+    for oid, d0 in data.items():
+        try:
+            assert c.get(pid, oid, len(d0)) == d0
+        except IOError as e:
+            assert "injected" in str(e)
+    assert inj.summary()["total"] > 0
+    c.inject_faults(None)
+    c.shutdown()
+    c = MiniCluster.load(d, cct=Context())
+    io = Rados(c).open_ioctx("ec")
+    assert all(io.read(oid) == d0 for oid, d0 in data.items())
+    assert c.get(pid, "hot", 700) == b"h" * 700
+    c.shutdown()
 print(json.dumps(sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m == "jaxlib" or m.startswith("jaxlib.")
@@ -252,6 +311,14 @@ def _imports(path):
 def test_no_source_imports_jax_or_ceph_tpu():
     sources = list(_port_sources())
     assert len(sources) > 15 and all(os.path.exists(p) for p in sources)
+    walked = {os.path.relpath(p, PORT) for p in sources}
+    for mod in ("compressor/__init__.py", "backend/filestore.py",
+                "backend/bluestore.py", "mon/monitor.py", "mon/paxos.py",
+                "mon/heartbeat.py", "client/objecter.py", "client/rados.py",
+                "client/striper.py", "failure/markdown.py",
+                "failure/store.py", "osd/tiering.py", "tier/service.py",
+                "tier/agent.py"):
+        assert mod in walked, mod
     bad = []
     for path in sources:
         for name in _imports(path):

@@ -95,6 +95,8 @@ def test_path_shapes_launch_shapes_match_the_jax_package():
                                              + ["gf_apply"] * 3
                                              + ["crc32c_rows"]
                                              + ["gf_apply"] * 15
+                                             + ["crc32c_rows"]
+                                             + ["gf_apply"] * 6
                                              + ["crc32c_rows"])
     ecutil, serving, headline = shapes[:3], shapes[3:5], shapes[5:7]
     jvan = JRSCodec(8, 4, technique="reed_sol_van", device="numpy")
@@ -148,7 +150,7 @@ def test_path_shapes_launch_shapes_match_the_jax_package():
         (8, 2**19), (8, 2**19), (8, 2**25), (12, 2**19)]
     # the MiniCluster's: the backend's per PG, so a repair wave holds one
     # to three objects of 512 Ki a chunk
-    cluster = {s["label"]: s for s in shapes[35:]}
+    cluster = {s["label"]: s for s in shapes[35:51]}
     assert {s["path"] for s in cluster.values()} == {"cluster"}
     survivors = [0, 1, 2, 4, 5, 6, 7, 8]
     for label, want in (
@@ -166,4 +168,26 @@ def test_path_shapes_launch_shapes_match_the_jax_package():
         == [2**20, 3 * 2**19]
     assert sum(s["launches"] for s in cluster.values()
                if s["kernel"] == "gf_apply") == 906
+    # the durable path's: the same cluster on durable stores; its repair
+    # is one of the cluster path's chain cycles
+    durable = {s["label"]: s for s in shapes[51:]}
+    assert {s["path"] for s in durable.values()} == {"durable"}
+    for label, want in (
+            ("op encode", jvan.parity_mat),
+            ("degraded get [1, 9] down, store faults",
+             jvan.decode_matrix([1, 9, 10, 11], [0, 2, 3, 4, 5, 6, 7, 8])[0]),
+            ("wave of one object", jvan.decode_matrix([3], survivors)[0]),
+            ("source check",
+             jvan.decode_matrix([0, 3], [1, 2, 4, 5, 6, 7, 8, 9])[0])):
+        assert np.array_equal(durable[label]["mat"], want), label
+    for n in (2, 3):
+        hop = durable[f"chain hop, {n} objects"]
+        assert np.array_equal(hop["mat"],
+                              cluster[f"chain hop, {n} objects"]["mat"])
+        assert hop["launches"] == cluster[f"chain hop, {n} objects"][
+            "launches"]
+    assert [(s["rows"], s["cols"]) for s in durable.values()][-1] == \
+        (12, 2**19)
+    assert sum(s["launches"] for s in durable.values()
+               if s["kernel"] == "gf_apply") == 160 + 60 + 15 + 165 + 152
     json.dumps([{k: v for k, v in s.items() if k != "mat"} for s in shapes])
