@@ -10,9 +10,10 @@ dead OSD would.
 
 A copy of ``ceph_tpu.backend.messages``.  The chain and regenerating
 repair legs carry the device their GF products run on as one ``device``
-string (cuda | cpu | numpy) instead of a ``use_device`` flag, and wire
-mode (the v2-style frame codec of ``backend/wire.py``) comes with the
-port's messenger: until then ``MessageBus(wire=True)`` raises.
+string (cuda | cpu | numpy) instead of a ``use_device`` flag.  In wire
+mode (``MessageBus(wire=True)``) every message crosses the bus as a
+v2-style frame of ``backend/wire.py`` that pickles the port's own message
+classes.
 """
 from __future__ import annotations
 
@@ -307,7 +308,7 @@ class ECRegenHelper:
 #
 # Every PG message type registers its payload sizer here, next to its
 # definition, so the non-framed in-process bus can charge honest byte
-# counts (a framed transport would use real frame lengths).  The
+# counts (the wire-mode bus and net.py use real frame lengths).  The
 # sizers weigh the fields that dominate on a real wire — chunk buffers,
 # transactions, log entries; fixed-size headers ride the shared
 # MSG_OVERHEAD.  A type without one is still charged, through the
@@ -349,6 +350,15 @@ wire_accounting.register_wire_sizes({
     # the cluster-bus wrapper: header + the routed payload
     "PGEnvelope": lambda m: 16 + wire_accounting.wire_size(m.msg),
 })
+
+
+@dataclass
+class _WireEnvelope:
+    """A framed message in flight (wire-mode bus): real bytes between
+    send and delivery.  from_shard survives outside the frame so the
+    reorder scheduler keeps per-sender FIFO without parsing."""
+    from_shard: int | None
+    frame: bytes
 
 
 @dataclass
@@ -500,16 +510,14 @@ class PGChannel:
 class MessageBus:
     """Per-shard FIFO queues; handlers registered per shard id.
 
-    ``wire=True`` (every message through the v2-style frame codec of
-    ``backend/wire.py``) belongs to the messenger, which the port does
-    not have yet: it raises rather than run unframed."""
+    ``wire=True`` runs every message through the v2-style frame codec
+    (backend/wire.py): send serializes to integrity-protected bytes,
+    delivery parses them back — so codec/registration bugs and corrupted
+    payloads surface as frame errors instead of silent shared-object
+    aliasing.  ``wire_secret`` switches the frames from crc to secure
+    (HMAC) mode, e.g. with a cephx session key."""
 
     def __init__(self, wire: bool = False, wire_secret: bytes | None = None):
-        if wire:
-            raise NotImplementedError(
-                "MessageBus(wire=True) needs backend/wire.py, the frame "
-                "codec of the messenger (ROADMAP Queue 1 item 2), which "
-                "the port does not have yet")
         self.queues: dict[int, deque] = {}
         self.handlers: dict[int, object] = {}
         self.down: set[int] = set()
@@ -591,8 +599,17 @@ class MessageBus:
         # the whole thing the wire carries, envelope included
         inner = msg.msg if isinstance(msg, PGEnvelope) else msg
         ctx = getattr(inner, "trace", None) or getattr(msg, "trace", None)
-        nbytes = wire_accounting.wire_size(msg) if acct is not None \
-            else None
+        # wire-mode buses charge the REAL frame length below: skip the
+        # sizer walk entirely rather than estimate-then-discard
+        nbytes = wire_accounting.wire_size(msg) \
+            if acct is not None and not self.wire else None
+        if self.wire:
+            from .wire import message_encode
+            sender = getattr(msg, "from_shard", None)
+            frame = message_encode(msg, secret=self.wire_secret)
+            if acct is not None:
+                nbytes = len(frame)      # real framed bytes on this bus
+            msg = _WireEnvelope(sender, frame)
         q = self.queues.setdefault(to_shard, deque())
         if acct is not None:
             acct.account_msg(inner, nbytes=nbytes, ctx=ctx)
@@ -624,6 +641,11 @@ class MessageBus:
         if not q or shard in self.down:
             return False
         msg = self._pick(q)
+        if isinstance(msg, _WireEnvelope):
+            from .wire import FrameParser, message_decode
+            parser = FrameParser(self.wire_secret)
+            [(tag, segs)] = parser.feed(msg.frame)
+            msg = message_decode(tag, segs)
         handler = self.handlers[shard]
         handler.handle_message(msg)
         self.delivered += 1

@@ -563,7 +563,7 @@ class MiniCluster:
     # -- cache tiering (tier/) ---------------------------------------------
 
     def create_tier(self, cache_pool: int, base_pool: int, *,
-                    mode: str = "writeback"):
+                    mode: str = "writeback", frontend=None):
         """Bind a replicated cache pool over an EC base pool (the mon's
         ``osd tier add`` + ``cache-mode``): returns the
         :class:`~ceph_tpu_torch.tier.TierService` with its flush/evict
@@ -571,11 +571,14 @@ class MiniCluster:
         ``TIER_FLUSH_BACKLOG`` health checks and the ``tier status``
         admin command register with the FIRST tier (lazily, the
         enable_recovery_scheduler discipline: clusters without tiering
-        never evaluate them)."""
+        never evaluate them).  ``frontend`` (a
+        :class:`~ceph_tpu_torch.msg.frontend.ShardedFrontend`) admits the
+        tier's hits through its shed ladder."""
         from .tier import TierAgent, TierService
         if cache_pool in self.tiers:
             raise ValueError(f"pool {cache_pool} is already a cache tier")
         svc = TierService(self, cache_pool, base_pool, mode=mode,
+                          frontend=frontend,
                           name=f"c{self.cluster_id}.p{cache_pool}")
         svc.agent = TierAgent(svc)
         first = not self.tiers
@@ -647,8 +650,9 @@ class MiniCluster:
         - the device plane rides the serving/recovery pipelines when
           those subsystems are enabled.
 
-        The transport plane comes with the messenger (not ported yet).
-        Returns the :class:`~ceph_tpu_torch.failure.injector.FaultInjector`
+        The TRANSPORT plane lives on the :class:`~ceph_tpu_torch.net.
+        ClusterServer` (``server.inject_faults(cluster.fault_injector)``)
+        — the sockets are its, not ours.  Returns the :class:`~ceph_tpu_torch.failure.injector.FaultInjector`
         (or None)."""
         from .failure import FaultInjector
         from .failure.store import FaultyStore, unwrap

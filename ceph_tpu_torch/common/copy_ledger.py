@@ -33,8 +33,8 @@ prometheus exporter and the stats digest read directly, the same
 live-registry idiom ``wire_accounting`` uses.
 
 A copy of ``ceph_tpu.common.copy_ledger``.  The copy points named above
-belong to the messenger, which the port does not have yet: nothing
-records into the ledger, and ``mgr/stats`` reads 0 copies a byte.
+are the port's messenger's (``net.py``, ``msg/parser.py``,
+``msg/staging.py``); ``relayout`` has no recorder in the port.
 """
 from __future__ import annotations
 

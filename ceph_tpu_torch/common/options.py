@@ -317,6 +317,97 @@ OPTIONS: list[Option] = [
                        "osd_markdown_count mark-downs count as flapping",
            see_also=["osd_markdown_count"]),
     # -- cache tiering (tier/) ---------------------------------------------
+    Option("ms_inject_socket_failures", TYPE_UINT, LEVEL_ADVANCED,
+           default=0,
+           description="inject a connection reset roughly every N "
+                       "post-auth messages on the TCP transport (0 "
+                       "disables) — the reference's 'ms inject socket "
+                       "failures'; the ClusterServer auto-arms its "
+                       "fault hooks when nonzero",
+           see_also=["ms_inject_delay_prob", "ms_inject_delay_ms"]),
+    Option("ms_inject_delay_prob", TYPE_FLOAT, LEVEL_ADVANCED,
+           default=0.0, min=0.0, max=1.0,
+           description="probability a post-auth TCP message is delayed "
+                       "by ms_inject_delay_ms before hitting the wire "
+                       "('ms inject delay' analog)",
+           see_also=["ms_inject_delay_ms"]),
+    Option("ms_inject_delay_ms", TYPE_FLOAT, LEVEL_ADVANCED,
+           default=0.0, min=0.0,
+           description="milliseconds an ms_inject_delay_prob hit stalls "
+                       "the send"),
+    Option("ms_rpc_timeout", TYPE_FLOAT, LEVEL_ADVANCED, default=30.0,
+           min=0.1,
+           description="overall per-RPC deadline on the TCP client: a "
+                       "call not answered (across resends) within this "
+                       "many seconds raises TimeoutError instead of "
+                       "hanging on a black-holed request"),
+    Option("ms_rpc_retry_attempts", TYPE_UINT, LEVEL_ADVANCED, default=4,
+           min=1,
+           description="send attempts per RPC within ms_rpc_timeout: "
+                       "resends after a connection reset or a silent "
+                       "per-attempt timeout (the server dedups resends "
+                       "by (session, rid), so retries never re-apply)",
+           see_also=["ms_rpc_timeout"]),
+    Option("ms_reconnect_max_attempts", TYPE_UINT, LEVEL_ADVANCED,
+           default=8, min=1,
+           description="bounded reconnect attempts after the TCP link "
+                       "drops before the client gives up "
+                       "(full-jitter exponential backoff between tries)",
+           see_also=["ms_reconnect_backoff_base",
+                     "ms_reconnect_backoff_cap"]),
+    Option("ms_reconnect_backoff_base", TYPE_FLOAT, LEVEL_ADVANCED,
+           default=0.05, min=0.0,
+           description="base seconds of the reconnect backoff schedule: "
+                       "attempt n sleeps uniform[0, min(cap, "
+                       "base * 2^n)] (full jitter)"),
+    Option("ms_reconnect_backoff_cap", TYPE_FLOAT, LEVEL_ADVANCED,
+           default=2.0, min=0.0,
+           description="ceiling seconds any single reconnect backoff "
+                       "sleep can reach"),
+    # -- async messenger (msg/) --------------------------------------------
+    Option("ms_async_op_threads", TYPE_UINT, LEVEL_ADVANCED, default=3,
+           min=1,
+           description="dispatch worker threads per async server "
+                       "transport (the reference's ms_async_op_threads): "
+                       "the FIXED pool that executes RPCs off the "
+                       "dmClock dispatch queue — never grows with "
+                       "connection count"),
+    Option("ms_async_dispatch_queue_max", TYPE_UINT, LEVEL_ADVANCED,
+           default=1024, min=1,
+           description="dispatch-queue depth limit the overload-shedding "
+                       "ladder measures against: each dmClock class may "
+                       "occupy only its fraction of this before its "
+                       "arrivals bounce with EBUSY (client ops shed only "
+                       "at the full limit)"),
+    Option("ms_async_write_queue_bytes", TYPE_SIZE, LEVEL_ADVANCED,
+           default=4 * 1024 * 1024,
+           description="per-connection write-queue byte budget "
+                       "(exec/throttle.py): senders block (bounded) when "
+                       "a peer stops draining, and the connection closes "
+                       "when the budget stays exhausted a full send "
+                       "timeout — backpressure instead of unbounded "
+                       "buffering"),
+    Option("ms_async_batch_max", TYPE_UINT, LEVEL_ADVANCED, default=64,
+           min=1,
+           description="max RpcCalls the mux client coalesces into one "
+                       "RpcBatch frame (one pickle, one MAC, one "
+                       "syscall per admission window)"),
+    Option("ms_async_batch_delay_ms", TYPE_FLOAT, LEVEL_ADVANCED,
+           default=0.5, min=0.0,
+           description="how long the mux client's sender waits for more "
+                       "calls to coalesce once one is queued (0 sends "
+                       "immediately)",
+           see_also=["ms_async_batch_max"]),
+    Option("ms_zero_copy", TYPE_BOOL, LEVEL_ADVANCED, default=True,
+           description="serialize batch-frame payloads through the "
+                       "raw sideband segment (length-prefixed bulk data "
+                       "after the pickled control header) so a payload "
+                       "byte is copied ~once between socket and device "
+                       "staging; off forces the legacy all-pickle frame "
+                       "(the bench's 'legacy' arm). Both formats decode "
+                       "regardless of the setting — this only gates the "
+                       "ENCODE side, so mixed-version peers interoperate",
+           see_also=["ms_async_batch_max"]),
     Option("tier_promote_min_recency", TYPE_UINT, LEVEL_ADVANCED,
            default=2, min=0,
            description="consecutive most-recent hit sets a missed "

@@ -29,6 +29,13 @@ A cluster's state is its pools and each OSD's one store, which holds a
 collection (``pg.<pool>.<ps>``) per PG shard it hosts and the daemon's
 superblock: :func:`cluster_from_reference` loads a dump of every OSD's
 store into a port ``MiniCluster`` built with the same pools.
+
+A served cluster's state adds its cephx secrets: the entity keys and
+each service's rotating secrets, read by :func:`keyring_from_reference`
+from a reference ``KeyServer`` (its pickled server file names the
+reference's classes).  A fault campaign's state is its seeded plan:
+:func:`fault_plan_from_reference` copies a reference ``FaultPlan``'s
+planes field by field, so both packages roll the same decisions.
 """
 from __future__ import annotations
 
@@ -241,3 +248,38 @@ def cluster_from_reference(meta: dict, stores: dict, cct=None,
     # the snap fields were set after pool creation persisted the pools
     c._save_meta()
     return c
+
+
+def keyring_from_reference(keyserver, data_dir=None):
+    """A port cephx ``KeyServer`` holding a reference one's secrets: every
+    entity key and every service's rotating generations, current one
+    included.  With ``data_dir`` it also writes the server-only file and
+    the client keyring there as a port ``ClusterServer`` does, so a
+    server over that directory authenticates the reference's clients
+    and a reference client keyring authenticates the port's."""
+    from .auth.cephx import KeyServer, _RotatingSecret
+    ks = KeyServer()
+    ks.entity_keys = {str(n): bytes(k)
+                      for n, k in keyserver.entity_keys.items()}
+    ks.rotating = {
+        str(svc): _RotatingSecret(
+            secrets={int(i): bytes(v) for i, v in rs.secrets.items()},
+            current=int(rs.current))
+        for svc, rs in keyserver.rotating.items()}
+    if data_dir is not None:
+        from .net import save_keys
+        save_keys(ks, data_dir)
+    return ks
+
+
+def fault_plan_from_reference(plan):
+    """A port ``FaultPlan`` with a reference plan's seed and every plane's
+    fields (bus, transport, store, device)."""
+    import dataclasses
+    from .failure import config as fc
+    planes = {"bus": fc.FaultConfig, "transport": fc.TransportFaults,
+              "store": fc.StoreFaults, "device": fc.DeviceFaults}
+    return fc.FaultPlan(seed=int(plan.seed), **{
+        name: klass(**{f.name: getattr(getattr(plan, name), f.name)
+                       for f in dataclasses.fields(klass)})
+        for name, klass in planes.items()})

@@ -1,16 +1,16 @@
-"""Fault-plane configuration: one seed, the bus, the stores and the codec
-pipeline.
+"""Fault-plane configuration: one seed, every plane.
 
-The bus, store and device planes of ``ceph_tpu.failure.config``: a
-:class:`FaultPlan` carries one campaign seed, the **bus** plane
-(:class:`FaultConfig`: the in-process message bus's cross-sender
-reorder, duplicate delivery and silent drops), the **store** plane
+The port's copy of ``ceph_tpu.failure.config``: a :class:`FaultPlan`
+carries one campaign seed, the **bus** plane (:class:`FaultConfig`: the
+in-process message bus's cross-sender reorder, duplicate delivery and
+silent drops), the **transport** plane (:class:`TransportFaults`, the
+TCP messenger in ``net.py``: connection resets, black-holed requests,
+truncated frames, send delays), the **store** plane
 (:class:`StoreFaults`, any ObjectStore behind
 :class:`~ceph_tpu_torch.failure.store.FaultyStore`: EIO on read/write,
 torn writes, slow-read latency) and the **device** plane
 (:class:`DeviceFaults`: injected dispatch/completion failures and
-simulated OOM in the codec pipeline).  The JAX package's transport plane
-comes with the port's messenger.
+simulated OOM in the codec pipeline).
 
 Everything here is a plain dataclass of probabilities — stdlib only, no
 runtime state.  The runtime half (seeded decision streams, the injected-
@@ -46,6 +46,19 @@ class FaultConfig:
 
 
 @dataclass
+class TransportFaults:
+    """TCP-plane faults applied by the server's connection hooks
+    (``ms inject socket failures`` territory).  All probabilities are
+    per-message decisions on the post-auth path — the cephx handshake is
+    never faulted, so a reconnecting client always gets back in."""
+    reset_prob: float = 0.0        # abrupt connection close mid-stream
+    blackhole_prob: float = 0.0    # request swallowed: no reply ever
+    truncate_prob: float = 0.0     # partial frame on the wire, then reset
+    delay_prob: float = 0.0        # per-message send stall ...
+    delay_ms: float = 0.0          # ... of this many milliseconds
+
+
+@dataclass
 class StoreFaults:
     """ObjectStore-plane faults (filestore EIO / bluestore debug read
     error injection territory)."""
@@ -68,14 +81,17 @@ class DeviceFaults:
 
 @dataclass
 class FaultPlan:
-    """One campaign: one seed, the bus, store and device planes.  Hand
-    it to ``MiniCluster.inject_faults`` (which builds the
+    """One campaign: one seed, every plane.  Hand it to
+    ``MiniCluster.inject_faults`` (which builds the
     :class:`~ceph_tpu_torch.failure.injector.FaultInjector` and fans the
-    plan out to bus/store/device), or to ``MessageBus.inject_faults``
-    alone (the bus plane), or a FaultInjector over it to
-    ``CodecPipeline.inject_faults`` or ``ServingEngine.inject_device_faults``."""
+    plan out to bus/store/device) and the injector to
+    ``ClusterServer.inject_faults`` (the transport plane); or to
+    ``MessageBus.inject_faults`` alone (the bus plane), or a
+    FaultInjector over it to ``CodecPipeline.inject_faults`` or
+    ``ServingEngine.inject_device_faults``."""
     seed: int = 0
     bus: FaultConfig = field(default_factory=FaultConfig)
+    transport: TransportFaults = field(default_factory=TransportFaults)
     store: StoreFaults = field(default_factory=StoreFaults)
     device: DeviceFaults = field(default_factory=DeviceFaults)
 

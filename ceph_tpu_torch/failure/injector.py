@@ -1,10 +1,9 @@
 """FaultInjector: deterministic, seedable fault decisions + event log.
 
-The port's copy of ``ceph_tpu.failure.injector`` for the planes the port
-has (the transport plane comes with the messenger).
+The port's copy of ``ceph_tpu.failure.injector``.
 
 The runtime half of the :mod:`~ceph_tpu_torch.failure.config` schema.  Every
-plane (store/device/bus) consults ONE injector, and every injected event
+plane (transport/store/device/bus) consults ONE injector, and every injected event
 is:
 
 - appended to a bounded in-memory event log (``events``), whose
@@ -32,7 +31,7 @@ from .config import FaultPlan
 
 MAX_EVENTS = 100_000      # a soak that injects more has lost the plot
 
-PLANES = ("store", "device", "bus")
+PLANES = ("transport", "store", "device", "bus")
 
 
 class InjectedFault(RuntimeError):

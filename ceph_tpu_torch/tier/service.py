@@ -4,8 +4,12 @@ One service binds a replicated cache pool to an EC base pool on the same
 cluster (the mon's ``osd tier add`` + ``osd tier cache-mode``):
 
 - **read**: the cache pool is tried first — a resident object is a
-  *hit* and serves without touching the EC base at all.  A miss
-  *proxies* the read to the base pool and
+  *hit* and serves without touching the EC base at all.  When a sharded
+  frontend is wired, the hit is admitted through its shed ladder first
+  (:meth:`~ceph_tpu_torch.msg.frontend.ShardedFrontend.serve_read`): the
+  "free" path still competes for admission, so an overloaded shard
+  sheds tier hits by dmClock class instead of letting them bypass
+  overload control.  A miss *proxies* the read to the base pool and
   promotes the object into the cache when its hit-set recency reaches
   ``tier_promote_min_recency`` (PrimaryLogPG::maybe_handle_cache's
   min_read_recency_for_promote) — one cold read does not thrash the
@@ -23,9 +27,7 @@ Dirtiness rides an object xattr (``tier.dirty``, shared with the
 seed agent in osd/tiering.py) so it is exactly as durable as the data
 it describes.
 
-The port's copy of ``ceph_tpu.tier.service`` without the ``frontend``
-argument: admission of tier hits through the sharded frontend's shed
-ladder comes with the port's messenger (``msg/``).
+The port's copy of ``ceph_tpu.tier.service``.
 """
 from __future__ import annotations
 
@@ -52,7 +54,7 @@ class TierService:
     """Promote/proxy paths over a (cache pool, base pool) binding."""
 
     def __init__(self, cluster, cache_pool: int, base_pool: int, *,
-                 mode: str = "writeback",
+                 mode: str = "writeback", frontend=None,
                  name: str | None = None):
         if mode not in MODES:
             raise ValueError(f"unknown cache mode {mode!r} "
@@ -61,6 +63,7 @@ class TierService:
         self.cache = cache_pool
         self.base = base_pool
         self.mode = mode
+        self.frontend = frontend
         self.name = name or f"p{cache_pool}"
         self.cct = cluster.cct
         self._lock = threading.Lock()
@@ -107,7 +110,8 @@ class TierService:
     # -- read path (maybe_handle_cache: hit / proxy / promote) --------------
 
     def read(self, oid: str, op_class: str = CLIENT_OP) -> bytes:
-        """Serve one read through the tier.  Raises IOError(ENOENT) when
+        """Serve one read through the tier.  Raises FrontendBusy when
+        the owning frontend shard sheds the class, IOError(ENOENT) when
         the object exists in neither pool.  A cache PG that went
         INACTIVE (tier OSD deaths below min_size) degrades the read to
         a base-pool proxy instead of blocking the client — and skips
@@ -117,7 +121,11 @@ class TierService:
         with tr.span("tier.read", owner="client", oid=oid):
             degraded = False
             try:
-                data = self._cache_read(oid)[0]
+                if self.frontend is not None:
+                    _sid, data = self.frontend.serve_read(
+                        oid, lambda: self._cache_read(oid)[0], op_class)
+                else:
+                    data = self._cache_read(oid)[0]
             except BlockedWriteError:
                 degraded = True
             except IOError as e:

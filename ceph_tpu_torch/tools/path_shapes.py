@@ -48,6 +48,10 @@ For each launch of ``chip_smoke.py``'s main paths, on ``cuda:0``:
   overwrites' and tier flushes' encodes and crcs, osd.3's repair by one
   of phase cluster's chain cycles and the degraded gets under the fault
   plan;
+- net: every launch of ``chip_smoke.py``'s phase ``net`` (the same
+  BlueStore MiniCluster served over TCP with cephx, the mux client, the
+  transport fault plane and the wire-mode bus): the puts' encodes and
+  crcs at 4 MiB and the mux client's at 64 KiB, and the degraded gets;
 - ``crc32c_rows``: one object's shards under ``hinfo_append`` [12, 512 Ki],
   the fused encode + checksum's data and parity rows [8, 32 Mi] and
   [4, 32 Mi], and the rebuilt shards' hash check of a recovery wave
@@ -178,6 +182,7 @@ def launch_shapes(pkg) -> list[dict]:
     out += backend_shapes(registry)
     out += cluster_shapes(registry)
     out += durable_shapes(registry)
+    out += net_shapes(registry)
     for s in out:
         s["mat"] = np.ascontiguousarray(s["mat"], dtype=np.uint8)
     return out
@@ -513,6 +518,62 @@ def durable_shapes(registry, obj_bytes: int = OBJ_BYTES,
                     label="put hinfo_append", mat=np.zeros((0, 0), np.uint8),
                     rows=12, cols=obj, stripes=1,
                     launches=objects + DURABLE_FILE + DURABLE_TIER))
+    return out
+
+
+# phase net's counts (chip_smoke.phase_net): the served cluster's objects,
+# the zero-copy arm's objects (each arm), the mux client's closed-loop
+# sessions and their object size, the overload arm's ping sessions, the
+# puts under transport faults, the wire-mode bus's writes (each of three
+# buses, plus one write whose frame is corrupted) and the front end's
+# striped objects.  The closed loop's sessions are cut from 1,024 to 256
+# to keep the script's time (1,024 took 64.7 of the phase's 222.3 s on
+# an H100; the cut is listed in PERF.md)
+NET = {"objects": OBJECTS, "obj_bytes": OBJ_BYTES, "zero_copy": 16,
+       "mux_sessions": 256, "mux_bytes": 64 << 10,
+       "overload_sessions": 2000, "fault_puts": 32, "bus_writes": 16,
+       "frontend_objects": 16}
+
+
+def net_shapes(registry, sizes: dict | None = None) -> list[dict]:
+    """The launches of ``chip_smoke.py``'s phase ``net`` (``NET``, or
+    ``sizes`` over it), each row with its count in the phase.  The
+    encodes [4, 8] x [8, obj] and their crcs [12, obj]: (a) the served
+    BlueStore cluster's puts over TCP, (b) the zero-copy arm's puts (off,
+    then on), (d) the puts under transport faults (each applied once
+    whatever the resends), (e) the wire-mode bus's writes on three buses
+    (plain, crc frames, secure frames) and the one write whose corrupted
+    frame is refused; (c) the mux client's closed-loop puts at their
+    own width.  (a) also reads every object with the OSDs of chunks 1
+    and 9 down, rebuilding 1, 9, 10 and 11 [4, 8].  Healthy gets, pings
+    and tier hits launch nothing.  (f)'s striped encodes through the
+    sharded front end's serving engines batch by arrival, so their
+    widths are held against the engines' device batches instead."""
+    sz = dict(NET, **(sizes or {}))
+    ec = registry.factory("torch_rs", "", {"k": "8", "m": "4",
+                                           "technique": "reed_sol_van",
+                                           "device": "numpy"})
+    unit = CLUSTER_UNIT
+    obj = sz["obj_bytes"] // 8
+    mux = -(-sz["mux_bytes"] // (8 * unit)) * unit
+    puts = (sz["objects"] + 2 * sz["zero_copy"] + sz["fault_puts"]
+            + 3 * sz["bus_writes"] + 1)
+    dec = ec.codec.decode_matrix
+    rows = [("op encode", ec.codec.parity_mat, obj, puts),
+            ("mux put encode", ec.codec.parity_mat, mux,
+             sz["mux_sessions"]),
+            ("degraded get [1, 9] down",
+             dec([1, 9, 10, 11], [0, *range(2, 9)])[0], obj,
+             sz["objects"])]
+    out = [dict(kernel="gf_apply", path="net", label=label, mat=mat,
+                rows=mat.shape[1], cols=cols, stripes=1, launches=n)
+           for label, mat, cols, n in rows]
+    for label, cols, n in (("put hinfo_append", obj, puts),
+                           ("mux put hinfo_append", mux,
+                            sz["mux_sessions"])):
+        out.append(dict(kernel="crc32c_rows", path="net", label=label,
+                        mat=np.zeros((0, 0), np.uint8), rows=12, cols=cols,
+                        stripes=1, launches=n))
     return out
 
 

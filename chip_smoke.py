@@ -117,6 +117,45 @@ drives the port end to end:
                 crc32c among them), wire bytes; every gf_apply and
                 crc32c_rows call of the phase must equal
                 path_shapes.durable_shapes (durable.shapes);
+5d. net      -- a Ceph user's networked deployment (vstart with BlueStore
+                and cephx, rados --connect put/get) at phase cluster's
+                widths: the BlueStore cluster (12 OSDs, recovery
+                scheduler, torch_rs k=8 m=4 with no device key, pg_num
+                32) served by net.ClusterServer on a loopback port;
+                (a) a TcpRados client from the server's keyring (cephx,
+                then HMAC frames) puts 64 objects of 4 MiB, every chunk
+                against the numpy encode and every HashInfo against the
+                host crc32c, gets each, then gets each with the OSDs of
+                chunks 1 and 9 down (one gf_apply a degraded get), ms
+                per op split into the client's send (encode + HMAC), the
+                server's dispatch (the cluster call) and the rest;
+                (b) 16 puts and gets through the mux client with
+                ms_zero_copy off, then on: copies per payload byte from
+                the copy ledger; (c) the mux client's closed loop, 256
+                sessions over 8 connections, each one 64 KiB put and a
+                get of it (goodput, p50/p99), then the overload arm (a
+                second server, dispatch queue 64, one worker): 2,000
+                pings while the cluster is busy shed with EBUSY and all
+                complete after their retries; (d) 32 puts through 8 mux
+                sessions over 2 connections under the seeded transport
+                plan (resets, black holes, truncated frames, delays):
+                every put acked and applied once, read back, every
+                fault kind fired, none in the handshake, re-dials; (e)
+                the OSD's EC backend on MessageBus(wire=True), crc and
+                secure frames, 16 writes each against a plain bus's
+                shards, a corrupted frame refused, the frames' host crc
+                and HMAC seconds; (f) a ShardedFrontend over 12
+                ServingEngines (one per OSD) routing by the acting
+                primary: 16 striped encodes against the numpy encode,
+                launches equal to the engines' device batches, a tier
+                bound with frontend= admitting its hits and shedding one
+                on a clamped, busy shard; (g) rados_cli serve as a
+                process, rados_cli --connect mkpool/put/get/ls/stat of a
+                4 MiB file, a client process that never initialises
+                CUDA, rados_bench write and seq (launches equal to the
+                writes).  net.<name> lines; every gf_apply and
+                crc32c_rows call but (f)'s engine batches must equal
+                path_shapes.net_shapes (net.shapes);
 6. serving   -- the serving path at RBD-on-EC size: ServingEngine (option
                 defaults: depth-4 CUDA codec pipeline, 64-op batches, 2 ms
                 deadline, 64 MiB throttle) over torch_rs k=8 m=4 with no
@@ -191,6 +230,7 @@ the package beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
@@ -1527,12 +1567,15 @@ def phase_serving(K, ecutil, registry_cls, ops: int = 256,
 class CallTimer:
     """Inclusive host seconds and calls of named functions, by wrapping
     them in place for the ``with`` block (one perf_counter pair a
-    call)."""
+    call).  With ``role`` (a function naming the calling thread's part),
+    each function's time is kept apart by thread as ``name@role``."""
 
-    def __init__(self, targets: dict):
+    def __init__(self, targets: dict, role=None):
         self.targets = targets          # name -> (owner, attribute)
-        self.seconds = {name: 0.0 for name in targets}
-        self.calls = {name: 0 for name in targets}
+        self.role = role
+        self.seconds = collections.defaultdict(float)
+        self.calls = collections.defaultdict(int)
+        self._lock = threading.Lock()
         self._saved = []
 
     def __enter__(self):
@@ -1545,8 +1588,12 @@ class CallTimer:
                 try:
                     return _fn(*a, **kw)
                 finally:
-                    self.seconds[_name] += time.perf_counter() - t0
-                    self.calls[_name] += 1
+                    dt = time.perf_counter() - t0
+                    key = _name if self.role is None \
+                        else f"{_name}@{self.role()}"
+                    with self._lock:
+                        self.seconds[key] += dt
+                        self.calls[key] += 1
             setattr(owner, attr, wrapped)
         return self
 
@@ -1556,8 +1603,8 @@ class CallTimer:
         return False
 
     def report(self) -> dict:
-        return {name: {"s": self.seconds[name], "calls": self.calls[name]}
-                for name in self.targets if self.calls[name]}
+        return {key: {"s": self.seconds[key], "calls": self.calls[key]}
+                for key in sorted(self.calls) if self.calls[key]}
 
 
 def backend_timer(extra: dict | None = None) -> CallTimer:
@@ -2736,6 +2783,887 @@ def durable_launch_shapes(PS, registry_cls, seen) -> dict:
                         (kernel, mat, rows, cols), n in sorted(seen.items())]}
 
 
+# -- phase net ----------------------------------------------------------------
+
+NET_FAULT_SEED = 11
+NET_FAULTS = {"reset_prob": 0.05, "blackhole_prob": 0.02,
+              "truncate_prob": 0.02, "delay_prob": 0.05, "delay_ms": 5.0}
+# the mux client's options under transport faults (tests/
+# test_async_faults.py's): short attempts, fast reconnects
+NET_FAULT_CONF = {"ms_rpc_timeout": 6.0, "ms_rpc_retry_attempts": 8,
+                  "ms_reconnect_backoff_base": 0.01,
+                  "ms_reconnect_backoff_cap": 0.05}
+# the closed loop's client: one attempt a call may wait out the queue of
+# every session ahead of it (all the sessions' puts on one cluster lock)
+NET_MUX_CONF = {"ms_rpc_timeout": 600.0, "ms_rpc_retry_attempts": 2}
+NET_MUX_CONNS = 8
+NET_OVERLOAD = {"ms_async_dispatch_queue_max": 64, "ms_async_op_threads": 1}
+
+
+def _thread_role() -> str:
+    """The calling thread's part in the TCP path: the caller (the client
+    application), the client's reactor, the mux sender, the server's
+    reactor or one of its dispatch workers."""
+    name = threading.current_thread().name
+    if name == "reactor.client":
+        return "client_reactor"
+    if name.startswith("reactor."):
+        return "server_reactor"
+    if ".dispatch." in name:
+        return "server_dispatch"
+    if name.endswith(".sender"):
+        return "mux_sender"
+    return "caller"
+
+
+def net_timer() -> CallTimer:
+    """durable_timer's functions and the TCP path's, each split by the
+    thread that ran it (``name@role``): a connection's send (encode,
+    HMAC, write-queue enqueue), the stream parser's feed (frame parse,
+    HMAC check), the server's RPC dispatch and the cluster call inside
+    it, and the host crc32c of crc-mode frames."""
+    from ceph_tpu_torch import cluster as cl, net
+    from ceph_tpu_torch.backend import wire
+    from ceph_tpu_torch.msg import connection, parser
+    return CallTimer({
+        **durable_timer().targets,
+        "send": (connection.AsyncConnection, "send"),
+        "parse": (parser.StreamParser, "feed"),
+        "dispatch": (net.ClusterServer, "_dispatch"),
+        "cluster_operate": (cl.MiniCluster, "operate"),
+        "frame_crc": (wire, "_crc"), "stream_crc": (parser, "_crc")},
+        role=_thread_role)
+
+
+class NetRun(ClusterRun):
+    """ClusterRun over the served cluster, with the bytes on its sockets
+    (the server's wire accounting) and the per-op split of the caller's
+    time: the client's send (encode + HMAC), the server's dispatch (the
+    cluster call) and the rest (sockets, frame parsing, reply)."""
+
+    def __init__(self, K, c, server, ops: int):
+        super().__init__(K, c, net_timer)
+        self.server, self.ops = server, ops
+
+    def __enter__(self):
+        self.tcp0 = self.server.wire.totals()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        super().__exit__(*exc)
+        tcp = self.server.wire.totals()
+        self.tcp = {k: tcp[k] - self.tcp0[k]
+                    for k in ("tx_bytes", "rx_bytes", "tx_msgs", "rx_msgs")}
+        return False
+
+    def split_ms(self) -> dict:
+        s = self.timer.seconds
+        n = max(1, self.ops)
+        total = self.seconds / n * 1e3
+        send = s.get("send@caller", 0.0) / n * 1e3
+        dispatch = s.get("dispatch@server_dispatch", 0.0) / n * 1e3
+        return {"ms_per_op": total, "client_send_ms": send,
+                "server_dispatch_ms": dispatch,
+                "cluster_call_ms": s.get("cluster_operate@server_dispatch",
+                                         0.0) / n * 1e3,
+                "rest_ms": total - send - dispatch}
+
+    def line(self, **fields) -> dict:
+        return super().line(ops=self.ops, tcp=self.tcp, **self.split_ms(),
+                            **fields)
+
+
+def _net_degraded_gets(server, r, c, pid, data: dict, chunks=(1, 9)
+                       ) -> list:
+    """``_cluster_degraded_gets`` through the client: the OSDs of each
+    PG's ``chunks`` go down (under the server's cluster lock: no RPC is
+    in flight), then every object of the PG is read over TCP."""
+    by_pg: dict = {}
+    for oid in data:
+        by_pg.setdefault(c.object_pg(pid, oid), []).append(oid)
+    bad = []
+    for ps, oids in sorted(by_pg.items()):
+        with server.lock:
+            g = c.pools[pid]["pgs"][ps]
+            down = [g.acting[i] for i in chunks]
+            for o in down:
+                c.bus.mark_down(o)
+        for oid in oids:
+            if r.get("rbd", oid) != data[oid]:
+                bad.append(oid)
+        with server.lock:
+            for o in down:
+                c.bus.mark_up(o)
+            c.deliver_all()
+    return bad
+
+
+def _net_serve(K, c, server, r, pid, oids, payloads, host_enc, crcs,
+               on_card: bool) -> dict:
+    """(a) ``rados put`` / ``get`` over TCP: every object put, every chunk
+    against the numpy encode and every HashInfo against the host crc32c,
+    every object read back, then read with the OSDs of chunks 1 and 9
+    down; on the card one gf_apply and one crc32c_rows launch a put,
+    none a healthy get, one gf_apply a degraded get."""
+    n = len(oids)
+    data = dict(zip(oids, payloads))
+    with NetRun(K, c, server, n) as w:
+        for oid, d in data.items():
+            if r.put("rbd", oid, d) != len(d):
+                raise AssertionError(f"net: put {oid} short")
+    t0 = time.perf_counter()
+    with server.lock:
+        checked = _cluster_check_chunks(c, pid, oids, host_enc, crcs)
+    check_s = time.perf_counter() - t0
+    with NetRun(K, c, server, n) as rd:
+        bad = [oid for oid, d in data.items() if r.get("rbd", oid) != d]
+    with NetRun(K, c, server, n) as dg:
+        bad += _net_degraded_gets(server, r, c, pid, data)
+    if bad or (on_card and ((w.launches["gf_apply"],
+                             w.launches["crc32c_rows"]) != (n, n) or
+                            any(rd.launches.values()) or
+                            (dg.launches["gf_apply"],
+                             dg.launches["crc32c_rows"]) != (n, 0))):
+        raise AssertionError(f"net serve: {bad[:4]} {w.launches} "
+                             f"{rd.launches} {dg.launches}")
+    return {"put": w.line(checked_bytes=checked, check_s=check_s,
+                          MiBps=sum(map(len, payloads)) / MIB / w.seconds),
+            "get": rd.line(), "degraded_get": dg.line(chunks_down=[1, 9])}
+
+
+def _net_zero_copy(K, c, server, keyring, payloads) -> dict:
+    """(b) the same puts and gets through one mux session with
+    ``ms_zero_copy`` off, then on (the switch is process-wide: the
+    server's config and the client's both set it): the bytes come back
+    equal in both arms; the copy ledger's copies per payload byte served
+    (requests counted where the server dispatches them, replies where
+    the client completes them), by source."""
+    from ceph_tpu_torch.common import Context, copy_ledger
+    from ceph_tpu_torch.msg import MuxClient
+    led = copy_ledger.ledger()
+    conf = c.cct.conf
+    out = {}
+    try:
+        for arm in (False, True):
+            conf.set("ms_zero_copy", arm)
+            mux = MuxClient("127.0.0.1", server.port, keyring,
+                            cct=Context({"ms_zero_copy": arm}), n_conns=1)
+            try:
+                mux.connect()
+                s = mux.session()
+                led.reset()
+                with NetRun(K, c, server, 2 * len(payloads)) as run:
+                    bad = []
+                    for i, d in enumerate(payloads):
+                        oid = f"zc.{int(arm)}.{i:04x}"
+                        s.call("put", {"pool": "rbd", "oid": oid,
+                                       "data": d})
+                        if s.call("get", {"pool": "rbd", "oid": oid}) != d:
+                            bad.append(oid)
+                snap = led.snapshot()
+            finally:
+                mux.close()
+            if bad:
+                raise AssertionError(f"net zero copy {arm}: {bad[:4]}")
+            out["on" if arm else "off"] = run.line(
+                objects=len(payloads),
+                copies_per_byte=snap["copies_per_byte"],
+                copied=snap["copied"], served=snap["served"])
+    finally:
+        conf.set("ms_zero_copy", True)
+    return out
+
+
+def _net_mux(K, c, server, keyring, sessions: int, obj_bytes: int,
+             on_card: bool) -> dict:
+    """(c) ``sessions`` MuxSessions over NET_MUX_CONNS connections, each
+    a closed loop of one put of ``obj_bytes`` into the EC pool and then a
+    get of it; every get must equal its put, and on the card the puts'
+    gf_apply and crc32c_rows launches equal the sessions."""
+    from ceph_tpu_torch.common import Context
+    from ceph_tpu_torch.msg import MuxClient
+    rng = np.random.default_rng(13)
+    payloads = [rng.integers(0, 256, obj_bytes, dtype=np.uint8).tobytes()
+                for _ in range(sessions)]
+    mux = MuxClient("127.0.0.1", server.port, keyring,
+                    cct=Context(dict(NET_MUX_CONF)), n_conns=NET_MUX_CONNS)
+    lock = threading.Lock()
+    state = {"done": 0, "bad": [], "lat": {"put": [], "get": []}}
+    finished = threading.Event()
+
+    def complete(i, kind, call):
+        now = time.monotonic()
+        try:
+            value = call.value()
+            ok = value == len(payloads[i]) if kind == "put" \
+                else value == payloads[i]
+            err = None if ok else f"{kind} {i}: wrong result"
+        except (IOError, ConnectionError, TimeoutError) as e:
+            err = f"{kind} {i}: {e!r}"
+        with lock:
+            state["lat"][kind].append(now - call.t_submit)
+            if err is not None:
+                state["bad"].append(err)
+        if kind == "put" and err is None:
+            mux_sessions[i].call_async(
+                "get", {"pool": "rbd", "oid": f"mux.{i:05x}"},
+                cb=lambda g, i=i: complete(i, "get", g))
+            return
+        with lock:
+            state["done"] += 1
+            if state["done"] == sessions:
+                finished.set()
+
+    try:
+        mux.connect()
+        mux_sessions = [mux.session() for _ in range(sessions)]
+        with NetRun(K, c, server, 2 * sessions) as run:
+            for i, s in enumerate(mux_sessions):
+                s.call_async("put", {"pool": "rbd", "oid": f"mux.{i:05x}",
+                                     "data": payloads[i]},
+                             cb=lambda p, i=i: complete(i, "put", p))
+            if not finished.wait(900):
+                raise AssertionError(f"net mux: {state['done']} of "
+                                     f"{sessions} sessions finished")
+        stats = mux.stats()
+    finally:
+        mux.close()
+    lat = {k: np.asarray(v) * 1e3 for k, v in state["lat"].items()}
+    if state["bad"] or (on_card and (run.launches["gf_apply"],
+                                     run.launches["crc32c_rows"]) !=
+                        (sessions, sessions)):
+        raise AssertionError(f"net mux: {state['bad'][:4]} {run.launches}")
+    return run.line(
+        sessions=sessions, connections=NET_MUX_CONNS, object_bytes=obj_bytes,
+        goodput_ops_s=2 * sessions / run.seconds,
+        p50_ms={k: float(np.percentile(v, 50)) for k, v in lat.items()},
+        p99_ms={k: float(np.percentile(v, 99)) for k, v in lat.items()},
+        client=stats)
+
+
+def _net_overload(c, keyring, sessions: int) -> dict:
+    """(c) the overload arm: a second server on the same cluster with
+    NET_OVERLOAD's options, ``sessions`` sessions of one ping each
+    submitted while the cluster is busy (its lock held, as by a long
+    op): the full dispatch queue sheds with EBUSY, then every refused
+    ping is sent again until all complete."""
+    from ceph_tpu_torch.common import Context
+    from ceph_tpu_torch.msg import EBUSY, MuxClient
+    from ceph_tpu_torch.net import ClusterServer
+    conf = c.cct.conf
+    saved = {k: conf.get(k) for k in NET_OVERLOAD}
+    for k, v in NET_OVERLOAD.items():
+        conf.set(k, v)
+    try:
+        server = ClusterServer(c)
+        server.start()              # the transport reads the options here
+    finally:
+        for k, v in saved.items():
+            conf.set(k, v)
+    mux = MuxClient("127.0.0.1", server.port, keyring,
+                    cct=Context(dict(NET_MUX_CONF)), n_conns=2)
+    t0 = time.perf_counter()
+    try:
+        mux.connect()
+        ss = [mux.session() for _ in range(sessions)]
+        with server.lock:
+            calls = [s.call_async("ping", {"payload": i})
+                     for i, s in enumerate(ss)]
+            deadline = time.monotonic() + 60
+            while mux.stats()["sheds_seen"] == 0 and \
+                    time.monotonic() < deadline:
+                time.sleep(0.01)
+        pending = dict(enumerate(calls))
+        rounds = sheds = 0
+        while pending and rounds < 200:
+            rounds += 1
+            retry = {}
+            for i, call in pending.items():
+                if not call.event.wait(120):
+                    raise AssertionError(f"net overload: ping {i} hung")
+                try:
+                    if call.value() != i:
+                        raise AssertionError(f"net overload: ping {i}")
+                except IOError as e:
+                    if e.errno != EBUSY:
+                        raise
+                    sheds += 1
+                    retry[i] = ss[i].call_async("ping", {"payload": i})
+            pending = retry
+        shed = server._transport.shed.snapshot()
+        stats = mux.stats()
+    finally:
+        mux.close()
+        server.stop()
+    if pending or not sheds or sheds != stats["sheds_seen"]:
+        raise AssertionError(f"net overload: {len(pending)} pending, "
+                             f"{sheds} sheds, {stats}")
+    return {"sessions": sessions, "seconds": time.perf_counter() - t0,
+            "retry_rounds": rounds, "sheds": sheds, "shed": shed,
+            "options": NET_OVERLOAD, "client": stats}
+
+
+def _net_faults(K, c, server, keyring, pid, payloads, on_card: bool
+                ) -> dict:
+    """(d) puts through the mux client (8 sessions over 2 connections)
+    with the seeded transport plan armed on the server: every put acked
+    and applied once (one PG-log entry an object, resends answered from
+    the reqid cache), every object read back bitwise with the faults
+    still armed, then pings until every fault kind has fired; the
+    handshake is never faulted and at least one connection re-dials."""
+    from ceph_tpu_torch.common import Context
+    from ceph_tpu_torch.failure import FaultPlan, TransportFaults
+    from ceph_tpu_torch.msg import MuxClient
+    with server.lock:
+        inj = c.inject_faults(FaultPlan(
+            seed=NET_FAULT_SEED, transport=TransportFaults(**NET_FAULTS)))
+    server.inject_faults(inj)
+    dedup0 = server.rpc_dedup_hits
+    mux = MuxClient("127.0.0.1", server.port, keyring,
+                    cct=Context(dict(NET_FAULT_CONF)), n_conns=2)
+    oids = [f"fault.{i:04x}" for i in range(len(payloads))]
+    kinds = ("delay", "truncate", "reset", "blackhole", "recv_reset")
+
+    def fired() -> dict:
+        return inj.summary()["planes"].get("transport", {})
+
+    def call(s, method, args, tries: int = 8):
+        for _ in range(tries):
+            try:
+                return s.call(method, args)
+            except (ConnectionError, TimeoutError):
+                continue
+        raise AssertionError(f"net faults: {method} {args.get('oid')} "
+                             f"never completed")
+    try:
+        mux.connect()
+        dials = mux.stats()["reconnects"]
+        sessions = [mux.session() for _ in range(8)]
+        with NetRun(K, c, server, len(oids)) as w:
+            for i, (oid, d) in enumerate(zip(oids, payloads)):
+                # one attempt budget a put: an unacked put fails the phase
+                if sessions[i % 8].call("put", {"pool": "rbd", "oid": oid,
+                                                "data": d}) != len(d):
+                    raise AssertionError(f"net faults: put {oid} short")
+        with NetRun(K, c, server, len(oids)) as rd:
+            bad = [oid for i, (oid, d) in enumerate(zip(oids, payloads))
+                   if call(sessions[i % 8], "get",
+                           {"pool": "rbd", "oid": oid}) != d]
+        pings = 0
+        while any(not fired().get(k) for k in kinds) and pings < 400:
+            if call(sessions[pings % 8], "ping", {"payload": pings}) \
+                    != pings:
+                raise AssertionError("net faults: ping echo")
+            pings += 1
+        stats = mux.stats()
+    finally:
+        mux.close()
+        server.inject_faults(None)
+        with server.lock:
+            c.inject_faults(None)
+    with server.lock:
+        entries = {oid: sum(e.oid == oid for e in
+                            c.pg_group(pid, oid).backend.pg_log.entries)
+                   for oid in oids}
+    events = inj.summary()
+    handshake = [e for e in inj.events if e["target"].startswith("Cephx")]
+    if bad or any(n != 1 for n in entries.values()) or \
+            any(not fired().get(k) for k in kinds) or handshake or \
+            not stats["reconnects"] > dials or \
+            (on_card and (w.launches["gf_apply"], w.launches["crc32c_rows"])
+             != (len(oids), len(oids))):
+        raise AssertionError(f"net faults: {bad[:4]} {entries} {events} "
+                             f"{handshake[:2]} {stats} {w.launches}")
+    return {"put": w.line(objects=len(oids)), "get": rd.line(),
+            "pings": pings, "injected": events,
+            "digest": inj.event_digest(), "seed": NET_FAULT_SEED,
+            "faults": NET_FAULTS, "client": stats,
+            "redials": stats["reconnects"] - dials,
+            "rpc_dedup_hits": server.rpc_dedup_hits - dedup0,
+            "pg_log_entries_per_object": 1, "lost_acked_writes": 0}
+
+
+def _net_wire_bus(K, ecutil, registry, profile, unit, bufs, host_enc,
+                  crcs) -> dict:
+    """(e) the OSD's EC backend (the primary and 11 OSDShards, one PG) on
+    three buses: plain, ``MessageBus(wire=True)`` (crc frames) and with
+    a ``wire_secret`` (HMAC frames), ``len(bufs)`` writes each; every
+    shard's bytes equal the plain bus's and the numpy encode, every
+    HashInfo the host crc32c.  Then one write whose sub-write frame is
+    corrupted in flight: delivery raises WireError and the shard never
+    applies it.  The frames' host crc32c and HMAC seconds by bus."""
+    from ceph_tpu_torch.backend import (ECBackend, GObject, OSDShard,
+                                        PGTransaction, wire)
+    from ceph_tpu_torch.backend.ecutil import HINFO_KEY
+    from ceph_tpu_torch.backend.messages import MessageBus
+    from ceph_tpu_torch.backend.pg_backend import shard_store
+    from ceph_tpu_torch.common import Context
+    ec = registry.factory("torch_rs", "", dict(profile))
+    n = ec.get_chunk_count()
+    sinfo = ecutil.StripeInfo(ec.get_data_chunk_count(),
+                              ec.get_chunk_size(8 * unit))
+    secret = bytes(range(32))
+
+    def cluster(**kw):
+        bus = MessageBus(**kw)
+        be = ECBackend(ec, sinfo, bus, acting=list(range(n)), whoami=0,
+                       cct=Context())
+        for s in range(1, n):
+            OSDShard(s, bus)
+        return be, bus
+    out, seen = {}, {}
+    for mode, kw in (("plain", {}), ("crc", {"wire": True}),
+                     ("secure", {"wire": True, "wire_secret": secret})):
+        be, bus = cluster(**kw)
+        timer = CallTimer({"frame_crc": (wire, "_crc"),
+                           "frame_encode": (wire, "frame_encode"),
+                           "frame_parse": (wire.FrameParser, "feed"),
+                           "deliver_all": (MessageBus, "deliver_all")})
+        _sync()
+        l0 = dict(K.launches)
+        with timer:
+            t0 = time.perf_counter()
+            for i, buf in enumerate(bufs):
+                done = []
+                be.submit_transaction(
+                    PGTransaction().write(f"rbd{i}", 0, buf.tobytes()),
+                    on_commit=done.append)
+                bus.deliver_all()
+                if not done:
+                    raise AssertionError(f"net bus {mode}: rbd{i}")
+            _sync()
+            seconds = time.perf_counter() - t0
+        launches = {k: K.launches[k] - l0[k] for k in K.launches}
+        shards = {}
+        for i, want in enumerate(host_enc):
+            for s in range(n):
+                st = shard_store(bus, s)
+                got = st.read(GObject(f"rbd{i}", s))
+                h = st.getattr(GObject(f"rbd{i}", s), HINFO_KEY)
+                if got != want[s].tobytes() or \
+                        list(h["cumulative_shard_hashes"]) != crcs[i]:
+                    raise AssertionError(f"net bus {mode}: rbd{i} shard "
+                                         f"{s} != the numpy encode")
+                shards[(i, s)] = got
+        seen[mode] = shards
+        out[mode] = {"writes": len(bufs), "seconds": seconds,
+                     "ms_per_op": seconds / len(bufs) * 1e3,
+                     "launches": launches, "delivered": bus.delivered,
+                     "host_breakdown": timer.report()}
+    if seen["crc"] != seen["plain"] or seen["secure"] != seen["plain"]:
+        raise AssertionError("net bus: wire-mode shards differ")
+    # a corrupted sub-write frame: detected at delivery, never applied
+    be, bus = cluster(wire=True)
+    be.submit_transaction(PGTransaction().write("bad", 0,
+                                                bufs[0].tobytes()),
+                          on_commit=lambda *_: None)
+    victim = 5
+    env = bus.queues[victim][0]
+    frame = bytearray(env.frame)
+    frame[len(frame) // 2] ^= 0x01
+    env.frame = bytes(frame)
+    try:
+        bus.deliver_all()
+    except wire.WireError as e:
+        detected = str(e)
+    else:
+        raise AssertionError("net bus: a corrupted frame was delivered")
+    if shard_store(bus, victim).exists(GObject("bad", victim)):
+        raise AssertionError("net bus: the corrupted sub-write applied")
+    out["corrupted_frame"] = {"shard": victim, "error": detected}
+    return out
+
+
+def _net_frontend(K, ecutil, c, pid, registry, profile, unit, bufs,
+                  on_card: bool, seen=None) -> dict:
+    """(f) a ShardedFrontend over 12 ServingEngines (one per OSD, option
+    defaults) routing by the acting primary of the object's PG: every
+    object's striped encode (the striper's default layout: 64 KiB units,
+    4 objects a set, 1 MiB objects), each piece's chunks against the
+    numpy encode; then a writeback tier bound with ``frontend=``: every
+    hit admitted through the owning shard's shed ladder, and a shard
+    whose ladder is clamped to one op while its engine has a burst
+    queued sheds a hit with FrontendBusy.  On the card the gf_apply
+    launches equal the engines' device batches.  ``seen`` (the phase's
+    recorded launches) drops the engines' batches, whose widths follow
+    arrival (net_shapes counts none of them)."""
+    from ceph_tpu_torch.exec import ServingEngine
+    from ceph_tpu_torch.msg import FrontendBusy, ShardedFrontend, ShedPolicy
+    host = registry.factory("torch_rs", "", dict(profile) | {
+        "device": "numpy"})
+    ec = c.pools[pid]["ec"]
+    sinfo = ecutil.StripeInfo(8, ec.get_chunk_size(8 * unit))
+    engines = {osd: ServingEngine(cct=c.cct, ec_impl=ec, sinfo=sinfo,
+                                  name=f"net.fe.osd{osd}")
+               for osd in sorted(c.osds)}
+    fe = ShardedFrontend(engines,
+                         locate=lambda name: c.pg_group(pid, name).acting[0])
+    before = collections.Counter(seen) if seen is not None else None
+    pipe0 = {o: e.pipeline.perf.dump() for o, e in engines.items()}
+    data = {f"fe.{i:04x}": b.tobytes() for i, b in enumerate(bufs)}
+    _sync()
+    l0 = dict(K.launches)
+    fe.start()
+    try:
+        with ClusterRun(K, c) as run:
+            routed = {oid: fe.submit_striped_encode(oid, d)
+                      for oid, d in data.items()}
+            results = {oid: [(p, sid, fut.result(600))
+                             for p, sid, fut in pieces]
+                       for oid, pieces in routed.items()}
+            fe.flush()
+        pieces = checked = 0
+        for oid, d in data.items():
+            for (pname, _sid, extents), (p2, _s2, chunks) in zip(
+                    fe.stripe_routes(oid, len(d)), results[oid]):
+                buf = bytearray()
+                for p_off, l_off, n in extents:
+                    if len(buf) < p_off + n:
+                        buf.extend(b"\0" * (p_off + n - len(buf)))
+                    buf[p_off:p_off + n] = d[l_off:l_off + n]
+                want = ecutil.encode_many(sinfo, host, [np.frombuffer(
+                    bytes(buf), np.uint8)])[0]
+                if pname != p2 or any(
+                        np.asarray(chunks[ch]).tobytes() !=
+                        want[ch].tobytes() for ch in want):
+                    raise AssertionError(f"net frontend: {pname} parity")
+                pieces += 1
+                checked += sum(v.nbytes for v in want.values())
+        routes = fe.stats()["routed"]
+        # the tier: every hit through the ladder, then a shed
+        cache = c.create_replicated_pool(
+            "fe.cache", size=3, pg_num=8,
+            params={"hit_set_count": "2", "hit_set_period": "8"})
+        svc = c.create_tier(cache, pid, frontend=fe)
+        tier = {f"tier.fe.{i:04x}": d for i, d in enumerate(data.values())}
+        with ClusterRun(K, c) as tw:
+            for oid, d in tier.items():
+                svc.write(oid, d)
+        admitted0 = sum(p.snapshot()["admitted"] for p in fe.shed.values())
+        with ClusterRun(K, c) as tr:
+            bad = [oid for oid, d in tier.items() if svc.read(oid) != d]
+        admitted = sum(p.snapshot()["admitted"]
+                       for p in fe.shed.values()) - admitted0
+        victim = next(iter(tier))
+        sid = fe.shard_for(victim)
+        fe.shed[sid] = ShedPolicy(1)
+        shed = None
+        for attempt in range(20):
+            burst = [engines[sid].submit_encode(b) for b in bufs[:8]]
+            try:
+                svc.read(victim)
+            except FrontendBusy as e:
+                shed = {"shard": e.shard, "errno": e.errno,
+                        "op_class": e.op_class, "attempts": attempt + 1}
+            for f in burst:
+                f.result(600)
+            if shed is not None:
+                break
+        fe.flush()
+        _sync()
+        launches = {k: K.launches[k] - l0[k] for k in K.launches}
+        pipe = {o: _perf_delta(pipe0[o], e.pipeline.perf.dump(), PIPE_KEYS)
+                for o, e in engines.items()}
+    finally:
+        fe.stop()
+    batches = sum(p["submitted"] for p in pipe.values())
+    errors = sum(p["errors"] for p in pipe.values())
+    fe_shapes = {}
+    if seen is not None:
+        delta = seen - before
+        fe_shapes = {f"{k[0]} {list(k[1])} x [{k[2]}, {k[3]}]": v
+                     for k, v in sorted(delta.items())}
+        seen.subtract(delta)
+        seen += collections.Counter()       # drop the zeroed keys
+    if bad or errors or shed is None or admitted != len(tier) or \
+            any(tw.launches.values()) or any(tr.launches.values()) or \
+            (on_card and (launches["gf_apply"] != batches or
+                          launches["crc32c_rows"])):
+        raise AssertionError(f"net frontend: {bad[:4]} {errors} {shed} "
+                             f"{admitted} {launches} {batches}")
+    return {"encode": run.line(objects=len(data), pieces=pieces,
+                               checked_bytes=checked, routed=routes),
+            "launches": launches, "device_batches": batches,
+            "pipeline_errors": errors, "batch_shapes": fe_shapes,
+            "tier_write": tw.line(objects=len(tier)),
+            "tier_read": tr.line(objects=len(tier), admitted=admitted),
+            "shed": shed}
+
+
+def _net_clis(root, payload: bytes, device: str | None,
+              bench_seconds: float, bench_size: str) -> dict:
+    """(g) the CLIs, each a fresh interpreter: ``rados_cli serve`` over a
+    BlueStore data dir (12 OSDs), then ``rados_cli --connect`` mkpool
+    (k=8 m=4), put, get, ls and stat of a file, which comes back equal; a
+    client process that puts and gets through ``TcpRados`` and reports
+    whether it loaded JAX or initialised CUDA (it must do neither); then
+    ``rados_bench write`` and ``seq`` (k=8 m=4, pg_num 32, 4 KiB chunks,
+    concurrency 16), each output block parsed and its kernel launches
+    equal to the writes it made (on the card)."""
+    import selectors
+    env = dict(os.environ, PYTHONPATH=HERE)
+    d = os.path.join(root, "cli")
+    mod = "ceph_tpu_torch.tools.rados_cli"
+    t0 = time.perf_counter()
+    serve = subprocess.Popen(
+        [sys.executable, "-m", mod, "--data-dir", d, "--store-backend",
+         "bluestore", "--n-osds", "12", "serve", "--port", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=HERE, env=env)
+    out = {}
+    try:
+        sel = selectors.DefaultSelector()
+        sel.register(serve.stdout, selectors.EVENT_READ)
+        deadline, line = time.monotonic() + 300, ""
+        while not line and time.monotonic() < deadline:
+            if sel.select(timeout=1.0):
+                line = serve.stdout.readline()
+            if serve.poll() is not None:
+                raise AssertionError(f"rados_cli serve exited "
+                                     f"{serve.returncode}: "
+                                     f"{serve.stderr.read()}")
+        sel.close()
+        if "serving on" not in line:
+            raise AssertionError(f"rados_cli serve: {line!r}")
+        port = int(line.rsplit(":", 1)[1])
+        keyring = os.path.join(d, "client.admin.keyring")
+        out["serve_ready_s"] = time.perf_counter() - t0
+        src, dst = os.path.join(root, "in.bin"), os.path.join(root,
+                                                               "out.bin")
+        with open(src, "wb") as f:
+            f.write(payload)
+        profile = ["k=8", "m=4", "technique=reed_sol_van"] + (
+            [f"device={device}"] if device else [])
+        verbs = {"mkpool": ["mkpool", "rbd", *profile],
+                 "put": ["put", "rbd", "obj", src],
+                 "get": ["get", "rbd", "obj", dst], "ls": ["ls", "rbd"],
+                 "stat": ["stat", "rbd", "obj"]}
+        seconds, stdout = {}, {}
+        for verb, argv in verbs.items():
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", mod, "--connect",
+                 f"127.0.0.1:{port}", "--keyring", keyring, *argv],
+                capture_output=True, text=True, cwd=HERE, env=env,
+                timeout=300)
+            seconds[verb] = time.perf_counter() - t0
+            if r.returncode:
+                raise AssertionError(f"rados --connect {verb}: {r.stderr}")
+            stdout[verb] = r.stdout.strip()
+        with open(dst, "rb") as f:
+            if f.read() != payload:
+                raise AssertionError("rados --connect get: file differs")
+        if stdout["ls"].split() != ["obj"] or \
+                f"size {len(payload)}" not in stdout["stat"]:
+            raise AssertionError(f"rados --connect: {stdout}")
+        probe = subprocess.run(
+            [sys.executable, "-c", NET_CLIENT_PROBE, str(port), keyring],
+            capture_output=True, text=True, cwd=HERE, env=env, timeout=300)
+        if probe.returncode:
+            raise AssertionError(f"net client probe: {probe.stderr}")
+        client = json.loads(probe.stdout.strip().splitlines()[-1])
+        if client != {"ok": True, "cuda_initialized": False,
+                      "loaded": []}:
+            raise AssertionError(f"net client probe: {client}")
+        out.update(connect_s=seconds, client_process=client)
+    finally:
+        serve.terminate()
+        try:
+            serve.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            serve.kill()
+            serve.wait(timeout=60)
+        serve.stdout.close()
+        serve.stderr.close()
+    bench = [sys.executable, "-m", "ceph_tpu_torch.bench.rados_bench",
+             "--seconds", str(bench_seconds), "--k", "8", "--m", "4",
+             "--pg-num", "32", "--object-size", bench_size,
+             "--chunk-size", "4K", "--concurrency", "16"] + (
+        ["--device", device] if device else [])
+    for mode in ("write", "seq"):
+        t0 = time.perf_counter()
+        r = subprocess.run(bench + [mode], capture_output=True, text=True,
+                           cwd=HERE, env=env, timeout=600)
+        if r.returncode:
+            raise AssertionError(f"rados_bench {mode}: {r.stderr}")
+        lines = r.stdout.strip().splitlines()
+        block = {k.strip(): v.strip() for k, v in
+                 (ln.split(":", 1) for ln in lines[:-1])}
+        launches = json.loads(lines[-1])["launches"]
+        made = int(block.get("Total writes made", 0)) if mode == "write" \
+            else max(1, int(bench_seconds * 4))
+        if mode == "seq" and int(block["Total reads made"]) != made:
+            raise AssertionError(f"rados_bench seq: {block}")
+        if device is None and (launches["gf_apply"], launches[
+                "crc32c_rows"]) != (made, made):
+            raise AssertionError(f"rados_bench {mode}: {launches} "
+                                 f"launches for {made} writes")
+        out[f"rados_bench_{mode}"] = {"block": block, "launches": launches,
+                                      "writes": made,
+                                      "seconds": time.perf_counter() - t0}
+    return out
+
+
+NET_CLIENT_PROBE = """
+import json, sys
+from ceph_tpu_torch.net import TcpRados
+r = TcpRados("127.0.0.1", int(sys.argv[1]), sys.argv[2])
+data = bytes(range(256)) * 4096
+r.put("rbd", "probe", data)
+ok = r.get("rbd", "probe") == data
+r.close()
+import torch
+print(json.dumps({"ok": ok, "cuda_initialized": torch.cuda.is_initialized(),
+                  "loaded": sorted(m for m in sys.modules if m.split(".")[0]
+                                   in ("jax", "jaxlib", "ceph_tpu"))}))
+"""
+
+
+def phase_net(K, ecutil, registry_cls, sizes: dict | None = None,
+              device: str | None = None, seen=None
+              ) -> tuple[dict, int, int]:
+    """A Ceph user's networked deployment through the port: ``vstart``
+    with BlueStore and cephx, then ``rados --connect`` puts and gets.
+    Phase cluster's widths (12 OSDs on 4 hosts, torch_rs k=8 m=4
+    reed_sol_van with no device key, pg_num 32, a 4 KiB stripe unit,
+    4 MiB objects) served by ``net.ClusterServer`` on a loopback port:
+    (a) a ``TcpRados`` client from the server's keyring (cephx, then
+    HMAC frames) puts, gets and degraded-gets every object; (b) the same
+    with ``ms_zero_copy`` off, then on, and the copy ledger's copies per
+    byte; (c) the mux client's closed loop (sessions of one put and one
+    get over 8 connections), then the overload arm on a second server
+    (dispatch queue 64, one worker); (d) puts, gets and pings under the
+    seeded transport fault plan; (e) the OSD's EC backend on the
+    wire-mode bus, crc and secure; (f) the sharded front end over 12
+    serving engines and a tier bound to it; (g) the CLIs as processes.
+    ``sizes`` overrides ``path_shapes.NET``'s counts and widths;
+    ``device`` None runs the pools on the card (tests run the sequence
+    with "cpu").  ``seen``, the phase's recorded launches, loses (f)'s
+    engine batches (see ``_net_frontend``).  Returns the sub-phase lines
+    and the gf_apply and crc32c_rows launches."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+    from ceph_tpu_torch.cluster import MiniCluster
+    from ceph_tpu_torch.common import Context
+    from ceph_tpu_torch.net import KEYRING, ClusterServer, TcpRados
+    from ceph_tpu_torch.tools.path_shapes import NET
+    sz = dict(NET, **(sizes or {}))
+    t_phase = time.perf_counter()
+    on_card = device is None
+    registry = registry_cls.instance()
+    k, m, unit = 8, 4, 4096
+    profile = {"k": str(k), "m": str(m), "technique": "reed_sol_van"}
+    if device is not None:
+        profile["device"] = device
+    host = registry.factory("torch_rs", "", profile | {"device": "numpy"})
+    chunk = host.get_chunk_size(k * unit)
+    objects = sz["objects"]
+    rng = np.random.default_rng(14)
+    bufs = [rng.integers(0, 256, sz["obj_bytes"], dtype=np.uint8)
+            for _ in range(objects)]
+    sinfo = ecutil.StripeInfo(k, chunk)
+    host_enc = ecutil.encode_many(sinfo, host, bufs)
+    crcs = _host_crcs(host_enc)
+    oids = [f"rbd_data.{i:04x}" for i in range(objects)]
+    payloads = [b.tobytes() for b in bufs]
+    setup_s = time.perf_counter() - t_phase
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_net."))
+    lines: dict = {}
+    walls: dict = {}
+    _sync()
+    K.reset_launches()
+    c = server = r = None
+
+    def lap(name, t0):
+        walls[name] = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        c = MiniCluster(n_osds=12, osds_per_host=3, chunk_size=unit,
+                        cct=Context(), data_dir=root / "blue",
+                        store_backend="bluestore")
+        c.enable_recovery_scheduler()
+        pid = c.create_ec_pool("rbd", dict(profile), pg_num=32)
+        if c.pools[pid]["ec"].get_profile()["device"] != (device or "cuda"):
+            raise AssertionError("net: the pool is not on the card")
+        server = ClusterServer(c)
+        server.start()
+        keyring = root / "blue" / KEYRING
+        r = TcpRados("127.0.0.1", server.port, keyring)
+        if r.ch.secret is None:
+            raise AssertionError("net: the client is not in secure mode")
+        lines["serve"] = _net_serve(K, c, server, r, pid, oids, payloads,
+                                    host_enc, crcs, on_card)
+        lap("serve", t0)
+        t0 = time.perf_counter()
+        lines["zero_copy"] = _net_zero_copy(K, c, server, keyring,
+                                            payloads[:sz["zero_copy"]])
+        lap("zero_copy", t0)
+        t0 = time.perf_counter()
+        lines["mux"] = _net_mux(K, c, server, keyring, sz["mux_sessions"],
+                                sz["mux_bytes"], on_card)
+        lap("mux", t0)
+        t0 = time.perf_counter()
+        lines["overload"] = _net_overload(c, keyring,
+                                          sz["overload_sessions"])
+        lap("overload", t0)
+        t0 = time.perf_counter()
+        lines["faults"] = _net_faults(K, c, server, keyring, pid,
+                                      payloads[:sz["fault_puts"]], on_card)
+        lap("faults", t0)
+        t0 = time.perf_counter()
+        lines["wire_bus"] = _net_wire_bus(
+            K, ecutil, registry, profile, unit, bufs[:sz["bus_writes"]],
+            host_enc[:sz["bus_writes"]], crcs[:sz["bus_writes"]])
+        lap("wire_bus", t0)
+        t0 = time.perf_counter()
+        with server.lock:
+            lines["frontend"] = _net_frontend(
+                K, ecutil, c, pid, registry, profile, unit,
+                bufs[:sz["frontend_objects"]], on_card, seen)
+        lap("frontend", t0)
+        lines["status"] = r.status()["pgmap"]
+        lines["server_wire"] = server.wire.totals()
+        r.close()
+        r = None
+        server.stop()
+        server = None
+        c.shutdown()
+        c = None
+        t0 = time.perf_counter()
+        lines["clis"] = _net_clis(
+            str(root), payloads[0], device,
+            sz.get("bench_seconds", 5.0), sz.get("bench_size", "4M"))
+        lap("clis", t0)
+        launches = dict(K.launches)
+        disk = sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
+    finally:
+        if r is not None:
+            r.close()
+        if server is not None:
+            server.stop()
+        if c is not None:
+            c.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    lines["launches"] = launches
+    lines["timing"] = {"seconds": time.perf_counter() - t_phase,
+                       "setup_s": setup_s, "walls": walls,
+                       "disk_bytes": disk, "sizes": sz}
+    return lines, launches["gf_apply"], launches["crc32c_rows"]
+
+
+def net_launch_shapes(PS, registry_cls, seen, sizes=None) -> dict:
+    """Phase net's kernel calls by (kernel, matrix shape, data rows,
+    columns), as recorded less (f)'s engine batches, against
+    ``path_shapes.net_shapes``."""
+    want = PS.shape_counts(PS.net_shapes(registry_cls.instance(), sizes))
+    if dict(seen) != dict(want):
+        raise AssertionError(f"net: launches by shape {dict(seen)} != "
+                             f"path_shapes.net_shapes {dict(want)}")
+    return {"checked": [[kernel, list(mat), rows, cols, n] for
+                        (kernel, mat, rows, cols), n in sorted(seen.items())]}
+
+
 # -- phase placement ----------------------------------------------------------
 
 # BASELINE.json's "1M-PG osdmaptool --test-map-pgs": 2^20 PGs a pool (the
@@ -3157,6 +4085,13 @@ def main() -> int:
     for name, line in dur.items():
         emit(f"durable.{name}", **line, gpu=smi)
     lap("durable")
+    with PS.recorded_launches(K) as seen:
+        net, n_net, n_net_crc = phase_net(
+            K, ecutil, ErasureCodePluginRegistry, seen=seen)
+    net["shapes"] = net_launch_shapes(PS, ErasureCodePluginRegistry, seen)
+    for name, line in net.items():
+        emit(f"net.{name}", **line, gpu=smi)
+    lap("net")
     serving, n_serving = phase_serving(K, ecutil, ErasureCodePluginRegistry)
     emit("serving", **serving, gpu=smi)
     lap("serving")
@@ -3190,7 +4125,7 @@ def main() -> int:
         | {"launches_by_path": {"ecutil": n_apply, "serving": n_serving,
                                 "repair": n_repair, "backend": n_backend,
                                 "cluster": n_cluster,
-                                "durable": n_durable}},
+                                "durable": n_durable, "net": n_net}},
         kernel_row("gf_apply_stripes", "gf_apply.cu",
                    "ceph_tpu/ops/pallas_kernels.py:80",
                    "headline", n_stripes, on("gf_apply_stripes")),
@@ -3204,7 +4139,8 @@ def main() -> int:
         | {"launches_by_path": {"ecutil": n_crc, "repair": n_repair_crc,
                                 "backend": n_backend_crc,
                                 "cluster": n_cluster_crc,
-                                "durable": n_durable_crc},
+                                "durable": n_durable_crc,
+                                "net": n_net_crc},
            "library": "no PyTorch call computes crc32c"},
         {"name": "crush_straw2", "route": "cuda",
          "source": "ceph_tpu_torch/ops/csrc/crush_straw2.cu",

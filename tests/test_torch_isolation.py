@@ -317,7 +317,13 @@ def test_no_source_imports_jax_or_ceph_tpu():
                 "mon/heartbeat.py", "client/objecter.py", "client/rados.py",
                 "client/striper.py", "failure/markdown.py",
                 "failure/store.py", "osd/tiering.py", "tier/service.py",
-                "tier/agent.py"):
+                "tier/agent.py", "net.py", "auth/cephx.py",
+                "backend/wire.py", "failure/transport.py",
+                "failure/backoff.py", "msg/reactor.py", "msg/parser.py",
+                "msg/staging.py", "msg/connection.py", "msg/proto.py",
+                "msg/shed.py", "msg/server.py", "msg/client.py",
+                "msg/frontend.py", "bench/rados_bench.py",
+                "tools/rados_cli.py"):
         assert mod in walked, mod
     bad = []
     for path in sources:
@@ -560,3 +566,51 @@ def test_ec_bench_default_plugin_runs():
     assert len(lines) == 1
     seconds, kib = lines[0].split("\t")
     assert float(seconds) > 0 and kib == "64"
+
+
+_NET_PROBE = """
+import json, sys, tempfile
+import numpy as np
+from ceph_tpu_torch.cluster import MiniCluster
+from ceph_tpu_torch.common import Context
+from ceph_tpu_torch.msg import MuxClient
+from ceph_tpu_torch.net import KEYRING, ClusterServer, TcpRados
+d = tempfile.mkdtemp()
+c = MiniCluster(n_osds=3, osds_per_host=3, chunk_size=512, cct=Context(),
+                data_dir=d, store_backend="bluestore")
+server = ClusterServer(c)
+server.start()
+r = mux = None
+try:
+    r = TcpRados("127.0.0.1", server.port, f"{d}/{KEYRING}")
+    r.mkpool("ec", profile={"k": "2", "m": "1", "device": "cpu"})
+    data = np.random.default_rng(0).integers(0, 256, 9000,
+                                             np.uint8).tobytes()
+    r.put("ec", "o", data)
+    assert r.get("ec", "o") == data
+    mux = MuxClient("127.0.0.1", server.port, f"{d}/{KEYRING}")
+    s = mux.session()
+    s.call("put", {"pool": "ec", "oid": "m", "data": data[:4000]})
+    assert s.call("get", {"pool": "ec", "oid": "m"}) == data[:4000]
+finally:
+    if mux is not None:
+        mux.close()
+    if r is not None:
+        r.close()
+    server.stop()
+    c.shutdown()
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib",
+                                               "ceph_tpu"))))
+"""
+
+
+def test_loopback_put_get_over_tcp_loads_no_jax():
+    """A served port cluster and its clients in one fresh interpreter: a
+    put and a get over loopback TCP (TcpRados and the mux client), with
+    nothing of JAX or the JAX package loaded."""
+    proc = subprocess.run([sys.executable, "-c", _NET_PROBE], cwd=ROOT,
+                          env=_port_env(), capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []

@@ -97,7 +97,9 @@ def test_path_shapes_launch_shapes_match_the_jax_package():
                                              + ["gf_apply"] * 15
                                              + ["crc32c_rows"]
                                              + ["gf_apply"] * 6
-                                             + ["crc32c_rows"])
+                                             + ["crc32c_rows"]
+                                             + ["gf_apply"] * 3
+                                             + ["crc32c_rows"] * 2)
     ecutil, serving, headline = shapes[:3], shapes[3:5], shapes[5:7]
     jvan = JRSCodec(8, 4, technique="reed_sol_van", device="numpy")
     assert np.array_equal(ecutil[0]["mat"], jvan.parity_mat)
@@ -170,7 +172,7 @@ def test_path_shapes_launch_shapes_match_the_jax_package():
                if s["kernel"] == "gf_apply") == 906
     # the durable path's: the same cluster on durable stores; its repair
     # is one of the cluster path's chain cycles
-    durable = {s["label"]: s for s in shapes[51:]}
+    durable = {s["label"]: s for s in shapes[51:58]}
     assert {s["path"] for s in durable.values()} == {"durable"}
     for label, want in (
             ("op encode", jvan.parity_mat),
@@ -190,4 +192,18 @@ def test_path_shapes_launch_shapes_match_the_jax_package():
         (12, 2**19)
     assert sum(s["launches"] for s in durable.values()
                if s["kernel"] == "gf_apply") == 160 + 60 + 15 + 165 + 152
+    # the networked path's: the served cluster's puts (a, b, d), the
+    # wire-mode bus's writes (e), the mux client's 64 KiB puts (c) and
+    # the degraded gets (a)
+    net = {s["label"]: s for s in shapes[58:]}
+    assert {s["path"] for s in net.values()} == {"net"}
+    assert np.array_equal(net["op encode"]["mat"], jvan.parity_mat)
+    assert np.array_equal(net["mux put encode"]["mat"], jvan.parity_mat)
+    assert np.array_equal(
+        net["degraded get [1, 9] down"]["mat"],
+        jvan.decode_matrix([1, 9, 10, 11], [0, 2, 3, 4, 5, 6, 7, 8])[0])
+    assert [(s["rows"], s["cols"]) for s in net.values()] == [
+        (8, 2**19), (8, 2**13), (8, 2**19), (12, 2**19), (12, 2**13)]
+    assert [s["launches"] for s in net.values()] == [
+        64 + 2 * 16 + 32 + 3 * 16 + 1, 256, 64, 177, 256]
     json.dumps([{k: v for k, v in s.items() if k != "mat"} for s in shapes])

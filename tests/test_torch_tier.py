@@ -250,3 +250,53 @@ def test_writeback_survives_a_crash(tmp_path):
         seen[side.pkg] = out
     assert seen["ceph_tpu_torch"] == seen["ceph_tpu"]
     assert all(all(x) for x in seen["ceph_tpu"][:3])
+
+
+# -- admission through the sharded front end ---------------------------------
+
+class _Engine:
+    """ServingEngine's depth surface with a scripted queue depth."""
+
+    def __init__(self, depth: int):
+        self.depth = depth
+
+    def depths(self):
+        return {"_total": self.depth}
+
+    def pressure(self):
+        return self.depth / 4
+
+
+def scn_frontend_admission(env):
+    """A tier over a ShardedFrontend (the reference's
+    ``tests/test_tier.py`` TestFrontendAdmission): hits are admitted
+    through the owning shard's shed ladder and served; a saturated shard
+    sheds the hit with FrontendBusy (EBUSY) instead of letting the free
+    path bypass overload control; writes skip admission."""
+    frontend = importlib.import_module(f"{env.S.pkg}.msg.frontend")
+    c = env.cluster({"tier_promote_min_recency": 1})
+    base = env.ec_pool(c, "base", pg_num=4)
+    cache = c.create_replicated_pool(
+        "cache", size=3, pg_num=4,
+        params={"hit_set_count": "2", "hit_set_period": "8"})
+    engines = {0: _Engine(0), 1: _Engine(0)}
+    fe = frontend.ShardedFrontend(
+        engines, locate=lambda name: c.object_pg(cache, name) % 2,
+        queue_limit=4)
+    svc = c.create_tier(cache, base, frontend=fe)
+    out = []
+    for i in range(6):
+        svc.write(f"s{i}", payload(800, i))
+    out.append([svc.read(f"s{i}") == payload(800, i) for i in range(6)])
+    out.append(fe.stats()["routed"])
+    engines[0].depth = engines[1].depth = 10_000
+    with pytest.raises(frontend.FrontendBusy) as ei:
+        svc.read("s0")
+    out.append((ei.value.errno, ei.value.op_class, ei.value.shard))
+    out.append({sid: p.snapshot() for sid, p in fe.shed.items()})
+    out.append(svc.stats()["counters"])
+    return out
+
+
+def test_frontend_admission():
+    run_both(scn_frontend_admission)
