@@ -9,7 +9,8 @@ Subpackages:
   gf        GF(2^8) tables and RS matrix algebra, GF(2) bitmatrix codes,
             GF(2^16)/GF(2^32) fields (host, numpy)
   ops       the hand-written CUDA kernels (csrc/), their plain PyTorch
-            versions, and RSCodec
+            versions, RSCodec, and the launch ledger that books every
+            launch by shape
   plugins   ErasureCodeInterface / registry with the ``torch_rs``,
             ``jerasure``, ``isa`` and ``shec`` plugins
   backend   ECUtil stripe layer: encode/decode over many stripes, HashInfo;
@@ -26,10 +27,11 @@ Subpackages:
   osdmap    OSDMap, Incremental, the scalar PG mapping chain and
             BulkPGMapper (whole pools in one kernel launch)
   mgr       the balancer (osd_deviation, calc_weight_set,
-            calc_pg_upmaps), stats, health checks, heat, time series and
-            SLOs
-  tools     osdmaptool and crushtool CLIs, the kernel sweep and the
-            measurement tools
+            calc_pg_upmaps), stats, health checks, heat, time series,
+            SLOs, the prometheus exporter and the pg autoscaler
+  tools     osdmaptool, crushtool, rados and ceph CLIs, the kernel sweep
+            and the measurement tools
+  utils     the delivery-order schedule explorer
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for ``"cpu"`` (the plain PyTorch versions) or ``"numpy"`` (the host

@@ -20,8 +20,10 @@ The port's copy of ``ceph_tpu.cluster``.  An EC pool defaults to the
 ``torch_rs`` plugin; a profile with no ``device`` key runs its encode
 (``gf_apply``), HashInfo crcs (``crc32c_rows``) and reconstructing reads
 and recovery waves (``gf_apply`` decode) on the card, and without a card
-such a write raises and stores nothing.  Not ported yet (ROADMAP Queue
-1): the roofline and profiler-capture sources.
+such a write raises and stores nothing.  The telemetry spine carries the
+roofline ledger (``efficiency`` time-series and flight sources) and
+``torch.profiler`` capture windows under ``<data_dir>/profiles``, with a
+one-shot auto-capture on any WARN/ERR health transition.
 """
 from __future__ import annotations
 
@@ -264,6 +266,8 @@ class MiniCluster:
         self.ts = TimeSeriesRing(cct=self.cct)
         self.ts.add_source("stats", self.stats.digest_flat)
         self.ts.add_source("heat", self.heat.flat_series)
+        from .common import roofline
+        self.ts.add_source("efficiency", roofline.flat_series)
         # critical-path latency decomposition + SLO burn engine
         # (common/critpath.py + mgr/slo.py): status() folds completed
         # traces into per-class phase attribution; the SLO tracker
@@ -275,6 +279,16 @@ class MiniCluster:
         self.slo = SLOTracker(self.critpath, cct=self.cct,
                               name=f"c{self.cluster_id}")
         self.ts.add_source("slo", self.slo.flat_series)
+        # torch.profiler capture windows (common/profiler_capture.py):
+        # `device profile start|stop|status` plus a rate-limited one-shot
+        # auto-capture on any WARN/ERR health transition.  Durable mode
+        # only (captures need a disk home under <data_dir>/profiles).
+        from .common.profiler_capture import ProfilerCapture
+        self.profiler = ProfilerCapture(
+            cct=self.cct,
+            out_dir=(self.data_dir / "profiles")
+            if self.data_dir is not None else None)
+        self.profiler.register_admin()
         self._register_health_checks()
         # OSD up/down land in the cluster log the moment the bus flips
         # (the mon's "osd.3 down" clog lines)
@@ -296,6 +310,7 @@ class MiniCluster:
         self.flight.add_source("heat", self.heat.dump)
         self.flight.add_source("clusterlog", self.clusterlog.dump)
         self.flight.add_source("timeseries", self.ts.dump)
+        self.flight.add_source("efficiency", roofline.snapshot)
         # a WARN/ERR bundle must answer "which phase blew the budget"
         # from the artifact alone: both the SLO state and the raw
         # per-class attribution ride every capture (the fold runs first
@@ -366,6 +381,9 @@ class MiniCluster:
                 or prior.get("severity") != sev:
             self.clusterlog.log(sev, msg, channel="health")
         self.flight.dump(reason=f"health-{key}-{info['severity']}")
+        # one bounded profiler capture per anomaly (cooldown-gated inside:
+        # a flapping check must not churn the process-global profiler)
+        self.profiler.auto_capture(reason=f"{key}-{info['severity']}")
 
     def _last_health_line(self, key: str) -> dict | None:
         return next((e for e in reversed(self.clusterlog.dump())
@@ -1502,6 +1520,7 @@ class MiniCluster:
         self.heat.close()
         self.clusterlog.close()
         self.flight.close()
+        self.profiler.close()
         self.wire.close()
         self.slo.close()
         self.critpath.close()

@@ -17,8 +17,17 @@ can act on it.  This module is the process-wide ledger:
 - overlapping in-flight batches are clamped against the ledger's last
   completion edge, so the per-class seconds SUM to the pipeline's busy
   time instead of double-counting overlap (the acceptance invariant);
-- surfaces: the ``device_attribution`` PerfCounters collection and
-  :func:`snapshot`.
+- :func:`record_executable` folds in each hand kernel's stated cost per
+  launch shape (FLOPs, bytes; fed by ``ops/launch_ledger.py`` at a key's
+  first launch), giving each kernel a cost model next to its measured
+  occupancy;
+- surfaces: the ``device_attribution`` PerfCounters collection,
+  :func:`snapshot` and the ``device top`` admin command
+  (:func:`device_top`).
+
+The JAX package's host-fallback ledger (``record_host_fallback``) is not
+ported: the port never serves a batch on the host in place of the card
+(a failure on the card fails the op), so there is nothing to book.
 
 Stdlib-only (the tracer's discipline), and the ONLY module in the
 accounting path allowed a bare clock: it IS the device-occupancy clock.
@@ -62,6 +71,7 @@ _lock = threading.Lock()
 _classes: dict[str, dict] = {}      # owner -> {device_s, batches, bytes}
 _busy_s = 0.0                       # union device-occupancy (the invariant)
 _last_end = 0.0                     # trailing completion edge (clamp point)
+_executables: dict[str, dict] = {}  # label -> {flops, bytes, compiles}
 _perf = None
 
 
@@ -121,11 +131,25 @@ def record_batch(owner: str | None, dispatched_at: float,
     return dur
 
 
+def record_executable(label: str, flops: float, bytes_accessed: float
+                      ) -> None:
+    """Fold one kernel launch shape's stated cost into the ledger
+    (``ops/launch_ledger.py`` calls this once per key's first launch)."""
+    with _lock:
+        rec = _executables.get(label)
+        if rec is None:
+            _executables[label] = {"flops": float(flops),
+                                   "bytes": float(bytes_accessed),
+                                   "compiles": 1}
+        else:
+            rec["flops"] += float(flops)
+            rec["bytes"] += float(bytes_accessed)
+            rec["compiles"] += 1
+
+
 def snapshot() -> dict:
-    """{classes: {cls: {device_s, share, batches, bytes}}, busy_s} —
-    per-class shares of the accounted busy time.  (The JAX package's
-    host-fallback ledger is left out: the port's pipeline never serves a
-    batch on the host.)"""
+    """{classes: {cls: {device_s, share, batches, bytes}}, busy_s,
+    executables} — per-class shares of the accounted busy time."""
     with _lock:
         busy = _busy_s
         classes = {
@@ -133,4 +157,30 @@ def snapshot() -> dict:
                   "share": (rec["device_s"] / busy) if busy else 0.0,
                   "batches": rec["batches"], "bytes": rec["bytes"]}
             for cls, rec in sorted(_classes.items())}
-    return {"classes": classes, "busy_s": busy}
+        execs = {label: dict(rec)
+                 for label, rec in sorted(_executables.items())}
+    return {"classes": classes, "busy_s": busy, "executables": execs}
+
+
+def device_top(limit: int = 10) -> dict:
+    """The ``device top`` admin command: owner classes ranked by device
+    share, plus the costliest kernels by stated FLOPs."""
+    snap = snapshot()
+    classes = sorted(snap["classes"].items(),
+                     key=lambda kv: kv[1]["device_s"], reverse=True)
+    execs = sorted(snap["executables"].items(),
+                   key=lambda kv: kv[1]["flops"], reverse=True)
+    return {
+        "busy_s": round(snap["busy_s"], 6),
+        "classes": [
+            {"class": cls,
+             "device_s": round(rec["device_s"], 6),
+             "share_pct": round(100.0 * rec["share"], 1),
+             "batches": rec["batches"], "bytes": rec["bytes"]}
+            for cls, rec in classes],
+        "executables": [
+            {"function": label, "flops": rec["flops"],
+             "bytes_accessed": rec["bytes"], "compiles": rec["compiles"]}
+            for label, rec in execs[:max(0, int(limit))]],
+    }
+

@@ -7,8 +7,9 @@ the port's counterpart of ``ceph_tpu.common.device_telemetry``, written
 over ``torch.cuda`` instead of the JAX backend:
 
 - :func:`device_inventory` — platform (``gpu`` with a card, else
-  ``cpu``), the card's name (``torch.cuda.get_device_name``) and count,
-  and the torch and CUDA versions.
+  ``cpu``), the card's name (``torch.cuda.get_device_name``, "unknown"
+  until CUDA is initialised in the process) and count, and the torch and
+  CUDA versions.
 - :func:`memory_stats` / :func:`live_buffer_bytes` — per card, the
   caching allocator's bytes in use and peak (``torch.cuda.memory_stats``)
   beside the card's capacity (``torch.cuda.mem_get_info``), and the bytes
@@ -48,6 +49,13 @@ def device_inventory() -> dict:
         if not torch.cuda.is_available():
             return info
         n = torch.cuda.device_count()
+        if not torch.cuda.is_initialized():
+            # reading a name would initialise CUDA: a telemetry read (a
+            # scrape thread) names the card once the process's own work
+            # has done that
+            info.update(platform="gpu", device_kind="unknown",
+                        num_devices=n)
+            return info
         kinds = [torch.cuda.get_device_name(i) for i in range(n)]
     except RuntimeError as e:
         info["error"] = repr(e)[:200]

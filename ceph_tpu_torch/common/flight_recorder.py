@@ -9,6 +9,8 @@ an operator asks via the ``flight dump`` admin command, the recorder
 captures ONE timestamped JSON bundle holding
 
 - the span tracer's event ring (Chrome trace-event),
+- the launch telemetry registry (``jit dump``: per (kernel, launch shape)
+  its first launch and launches, from ``ops/launch_ledger.py``),
 - every perf-counter collection (``perf dump``),
 - the device-telemetry snapshot (``common/device_telemetry.py``: the
   card's inventory and memory, over ``torch.cuda``),
@@ -24,9 +26,7 @@ as ``flight-<seq>-<reason>.json`` files.  Every source is exception-
 guarded: the recorder runs DURING incidents, when subsystems may be in
 exactly the broken state that triggered it.
 
-A copy of ``ceph_tpu.common.flight_recorder`` without the JAX package's
-``jit`` source (per-(function, shape) compile telemetry, which the port
-does not have: its kernels build once, at first use).
+A copy of ``ceph_tpu.common.flight_recorder``.
 """
 from __future__ import annotations
 
@@ -110,6 +110,7 @@ class FlightRecorder:
             sources = dict(self._sources)
         captures = [
             ("trace", lambda: tracer_mod.default_tracer().dump()),
+            ("jit", tracer_mod.jit_dump),
             ("perf", self.cct.perf.perf_dump),
             ("device", lambda: device_telemetry.refresh(self.cct)),
         ] + list(sources.items())

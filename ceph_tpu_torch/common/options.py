@@ -212,11 +212,47 @@ OPTIONS: list[Option] = [
                        "compilations within the stats window reach this "
                        "many AND this rate per minute (shape churn "
                        "defeating the size buckets)"),
+    # -- device efficiency & profiling (roofline / profiler_capture) -------
+    Option("device_peak_flops", TYPE_FLOAT, LEVEL_ADVANCED, default=0.0,
+           min=0.0,
+           description="roofline peak FLOP/s override for this card "
+                       "(0 = resolve from the device-kind registry in "
+                       "common/roofline.py)",
+           see_also=["device_peak_hbm_bytes_per_sec"]),
+    Option("device_peak_hbm_bytes_per_sec", TYPE_SIZE, LEVEL_ADVANCED,
+           default=0,
+           description="roofline peak device-memory bandwidth override in "
+                       "bytes/s (0 = resolve from the device-kind "
+                       "registry)",
+           see_also=["device_peak_flops"]),
+    Option("mgr_device_refresh_ttl", TYPE_FLOAT, LEVEL_ADVANCED,
+           default=5.0, min=0.0,
+           description="seconds a prometheus scrape reuses the last "
+                       "device-telemetry snapshot before re-reading the "
+                       "card's memory state (0 = refresh every render)"),
     Option("mgr_hbm_pressure_ratio", TYPE_FLOAT, LEVEL_ADVANCED,
            default=0.85, min=0.0, max=1.0,
            description="HBM_PRESSURE health check fires when a device's "
                        "high-water memory mark reaches this fraction of "
                        "its reported capacity"),
+    Option("mgr_profiler_max_captures", TYPE_UINT, LEVEL_ADVANCED,
+           default=8, min=1,
+           description="torch.profiler capture directories kept on disk "
+                       "(oldest removed past the bound)"),
+    Option("mgr_profiler_cooldown", TYPE_FLOAT, LEVEL_ADVANCED,
+           default=300.0, min=0.0,
+           description="seconds between health-transition profiler "
+                       "auto-captures (a flapping check must not churn "
+                       "the profiler)",
+           see_also=["mgr_profiler_auto_window"]),
+    Option("mgr_profiler_auto_window", TYPE_FLOAT, LEVEL_ADVANCED,
+           default=0.0, min=0.0,
+           description="seconds a health-transition auto-capture stays "
+                       "open before the profiler stops (0 = stop "
+                       "immediately: a marker artifact with zero "
+                       "steady-state risk; operators open real windows "
+                       "with 'device profile start')",
+           see_also=["mgr_profiler_cooldown"]),
     Option("mgr_flight_capacity", TYPE_UINT, LEVEL_ADVANCED, default=8,
            min=1,
            description="flight-recorder bundles kept in the in-memory "

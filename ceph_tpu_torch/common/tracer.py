@@ -11,9 +11,12 @@ needs nothing of the JAX package.
   an op across threads so the pipeline's completion spans, which run on
   whichever thread forces the boundary, land in the op's trace.
 
-The JAX package's per-(function, shape) jit compile telemetry is left
-out: PyTorch runs eagerly and the port's kernels build once, at first
-use (``ops/cuda_build.py``).
+- the launch telemetry registry behind ``ops/launch_ledger.py``: per
+  (kernel, launch shape) key its first launch ("compilation": the
+  kernel's build or cached-library load and the synchronised first
+  launch) and its later launches ("cache hits"), plus the process-wide
+  ``jit`` PerfCounters collection, under the JAX package's names so that
+  ``jit dump``, the flight bundle and ``RECOMPILE_STORM`` read both alike.
 
 Stdlib-only.
 """
@@ -658,3 +661,92 @@ def root_or_ambient(op_class: str) -> _Activation:
     over the default)."""
     tr = default_tracer()
     return tr.activate(tr.current_ctx() or tr.new_trace(op_class))
+
+
+# -- launch telemetry registry (fed by ops.launch_ledger) ------------------
+#
+# Keyed by (kernel label, launch key).  Each entry exists because the
+# key's first launch happened (the port's "compilation": PyTorch runs
+# eagerly, so a key's first launch pays the kernel library's build or
+# load instead of a trace and an XLA compile); later launches bump
+# ``calls``.  The ``jit`` PerfCounters collection aggregates across keys
+# and is registered into every Context's collection so `perf dump` /
+# prometheus carry it.
+
+_jit_lock = threading.Lock()
+_jit_stats: dict[tuple, dict] = {}
+_jit_perf = None
+
+
+def jit_perf_counters():
+    """The process-wide ``jit`` PerfCounters (built lazily: tracer must
+    stay importable before perf_counters in partial environments)."""
+    global _jit_perf
+    with _jit_lock:
+        if _jit_perf is None:
+            from .perf_counters import PerfCountersBuilder
+            _jit_perf = (
+                PerfCountersBuilder("jit")
+                .add_u64_counter("compilations",
+                                 "distinct (function, shape) compiles")
+                .add_u64_counter("cache_hits",
+                                 "dispatches served by a compiled cache key")
+                .add_time_avg("trace_time", "trace wall time (0: a hand "
+                                            "kernel has no trace step)")
+                .add_time_avg("compile_time",
+                              "kernel build or cached-library load wall "
+                              "time, on a kernel's first key")
+                .add_time_avg("first_dispatch_time",
+                              "first execution incl. completion wait")
+                .create_perf_counters())
+        return _jit_perf
+
+
+def record_compilation(fn_label: str, key, trace_s: float, compile_s: float,
+                       dispatch_s: float) -> None:
+    pc = jit_perf_counters()
+    pc.inc("compilations")
+    pc.tinc("trace_time", trace_s)
+    pc.tinc("compile_time", compile_s)
+    pc.tinc("first_dispatch_time", dispatch_s)
+    with _jit_lock:
+        entry = _jit_stats.get((fn_label, key))
+        if entry is None:
+            _jit_stats[(fn_label, key)] = {
+                "function": fn_label, "key": repr(key), "compiles": 1,
+                "trace_s": trace_s, "compile_s": compile_s,
+                "first_dispatch_s": dispatch_s, "calls": 1}
+        else:
+            # one label on two devices, or a key seen again after the
+            # ledger's reset: accumulate, don't clobber
+            entry["compiles"] += 1
+            entry["calls"] += 1
+            entry["trace_s"] += trace_s
+            entry["compile_s"] += compile_s
+            entry["first_dispatch_s"] += dispatch_s
+
+
+def record_cache_hit(fn_label: str, key) -> None:
+    jit_perf_counters().inc("cache_hits")
+    with _jit_lock:
+        entry = _jit_stats.get((fn_label, key))
+        if entry is not None:
+            entry["calls"] += 1
+
+
+def jit_dump() -> dict:
+    """The ``jit dump`` admin command: per-key stats + the aggregate
+    counters, compile-cost-sorted so the expensive kernels lead."""
+    with _jit_lock:
+        entries = [dict(e) for e in _jit_stats.values()]
+    entries.sort(key=lambda e: e["compile_s"], reverse=True)
+    return {"functions": entries,
+            "num_keys": len(entries),
+            "counters": jit_perf_counters().dump()}
+
+
+def jit_reset() -> dict:
+    with _jit_lock:
+        n = len(_jit_stats)
+        _jit_stats.clear()
+    return {"success": f"dropped {n} jit cache-key records"}

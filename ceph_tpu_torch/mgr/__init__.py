@@ -1,5 +1,6 @@
-"""Manager modules: the balancer, stats, health, heat, time series and
-SLOs (SURVEY.md section 2.4 mgr).
+"""Manager modules: the balancer, stats, health, heat, time series, SLOs,
+the prometheus exporter and the pg autoscaler (SURVEY.md section 2.4
+mgr).
 
 The reference runs it as a Python module inside ceph-mgr
 (src/pybind/mgr/balancer); here it is library functions over OSDMap --

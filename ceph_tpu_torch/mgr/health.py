@@ -6,9 +6,9 @@ carrying a severity, a summary and detail lines; src/mon/Monitor.cc
 ``handle_command`` 'health mute <code>').  Rather than a few checks
 hard-coded inside ``Cluster.health()``, this engine makes the check set
 EXTENSIBLE so
-any subsystem (optracker slow ops, exec throttles, the traced_jit
-registry, scrub) can register a named check without the cluster layer
-knowing about it, and so operators can mute a known-noisy key without
+any subsystem (optracker slow ops, exec throttles, the launch
+ledger's jit registry, scrub) can register a named check without the
+cluster layer knowing about it, and so operators can mute a known-noisy key without
 losing the rest of the surface.
 
 A check is a callable returning:
@@ -416,7 +416,7 @@ def osd_flapping_check(limiter_getter):
 
 
 def recompile_storm_check(cct, stats, threshold: float | None = None):
-    """RECOMPILE_STORM: the traced_jit registry is compiling at more
+    """RECOMPILE_STORM: the jit registry is compiling at more
     than ``mgr_recompile_storm_compiles`` per MINUTE over the stats
     window — the shape-churn failure mode where every batch recompiles
     instead of hitting the size buckets (each compile is ~ms-to-s of
@@ -424,10 +424,13 @@ def recompile_storm_check(cct, stats, threshold: float | None = None):
     by sample COUNT, so on a rarely-polled cluster it can span hours —
     an absolute count would flag ordinary warmup as a storm.
 
-    In the port no ``jit`` perf collection exists yet (PyTorch runs
-    eagerly and the hand kernels build once, at first use), so the
-    compile count reads 0 and the check stays silent until a launch
-    ledger registers such a collection."""
+    In the port the ``jit`` collection is the launch ledger's
+    (``ops/launch_ledger.py``): a "compilation" is a (kernel, launch
+    shape) key's first launch — its synchronised, timed first launch,
+    with the kernel library's build or load on the library's first key —
+    and a cache hit any later launch of the key.  A storm is so a path
+    whose launch widths churn (a new shape every op) where they should
+    repeat."""
     def check():
         limit = threshold if threshold is not None else \
             float(cct.conf.get("mgr_recompile_storm_compiles"))

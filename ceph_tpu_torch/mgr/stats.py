@@ -274,9 +274,8 @@ class StatsAggregator:
                     for cls in ("client", "serving", "recovery",
                                 "scrub", "rebalance", "other")},
             },
-            # the port has no ``jit`` collection yet (its kernels build
-            # once, at first use): these read 0 until a launch ledger
-            # registers one
+            # the launch ledger's ``jit`` collection: first launches of
+            # a (kernel, launch shape) key and later launches of one
             "jit": {
                 "compiles": self.counter_delta("compilations", ("jit",)),
                 "cache_hits": self.counter_delta("cache_hits", ("jit",)),

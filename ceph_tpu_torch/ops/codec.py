@@ -23,6 +23,8 @@ import numpy as np
 import torch
 
 from ..backend import ecutil
+from ..common import device_attribution
+from ..common.tracer import trace_span
 from ..gf import matrix as gfm
 from ..gf import ref as gfref
 from . import rs_kernels
@@ -159,9 +161,18 @@ class RSCodec:
             b, k, n = data.shape
             out = self.encode(np.swapaxes(data, 0, 1).reshape(k, b * n))
             return np.swapaxes(out.reshape(self.m, b, n), 0, 1)
-        if self.device == "numpy":
-            return gfref.apply_matrix_fast(self.parity_mat, data)
-        return self.encode_device(self.to_device(data)).cpu().numpy()
+        with trace_span("codec.encode", k=self.k, m=self.m,
+                        n=int(data.shape[1]), device=self.device):
+            if self.device == "numpy":
+                return gfref.apply_matrix_fast(self.parity_mat, data)
+            # the launch-return -> fetch interval is device occupancy,
+            # charged to the caller's owner class (the pipeline path
+            # accounts at its own completion boundary)
+            out = self.encode_device(self.to_device(data))
+            t0 = device_attribution.dispatch_mark()
+            host = out.cpu().numpy()
+            device_attribution.record_batch(None, t0, host.nbytes)
+            return host
 
     def encode_with_crc(self, data: np.ndarray
                         ) -> tuple[np.ndarray, np.ndarray]:
@@ -173,22 +184,30 @@ class RSCodec:
         running HashInfo semantics with ``ecutil.crc32c_zeros`` (see
         ``HashInfo.append_crcs``)."""
         data = np.ascontiguousarray(data, dtype=np.uint8)
-        if self.device == "numpy":
-            parity = gfref.apply_matrix_fast(self.parity_mat, data)
-            crcs = np.array(
-                [ecutil.crc32c(0, row)
-                 for row in np.concatenate([data, parity], axis=0)],
-                dtype=np.uint32)
-            return parity, crcs
-        parity, crcs = rs_kernels.gf_encode_with_crc(self._upload_parity(),
-                                                     self.to_device(data))
-        return parity.cpu().numpy(), crcs.cpu().numpy().astype(np.uint32)
+        with trace_span("codec.encode_with_crc", k=self.k, m=self.m,
+                        n=int(data.shape[1]), device=self.device):
+            if self.device == "numpy":
+                parity = gfref.apply_matrix_fast(self.parity_mat, data)
+                crcs = np.array(
+                    [ecutil.crc32c(0, row)
+                     for row in np.concatenate([data, parity], axis=0)],
+                    dtype=np.uint32)
+                return parity, crcs
+            parity, crcs = rs_kernels.gf_encode_with_crc(
+                self._upload_parity(), self.to_device(data))
+            t0 = device_attribution.dispatch_mark()
+            parity_h = parity.cpu().numpy()
+            crcs_h = crcs.cpu().numpy().astype(np.uint32)
+            device_attribution.record_batch(None, t0, parity_h.nbytes)
+            return parity_h, crcs_h
 
     def encode_host(self, data: np.ndarray) -> np.ndarray:
         """Pure-host parity (the exact CPU reference path) REGARDLESS of
         ``self.device``: data [k, N] uint8 -> parity [m, N]."""
-        return gfref.apply_matrix_fast(
-            self.parity_mat, np.ascontiguousarray(data, dtype=np.uint8))
+        with trace_span("codec.encode_host", k=self.k, m=self.m,
+                        n=int(data.shape[-1])):
+            return gfref.apply_matrix_fast(
+                self.parity_mat, np.ascontiguousarray(data, dtype=np.uint8))
 
     def decode_host(self, stack: np.ndarray, erasures: list[int],
                     available: list[int]) -> np.ndarray:
@@ -197,13 +216,17 @@ class RSCodec:
         available)`` returns -> recovered rows [len(erasures), N]."""
         entry = self._decode_entry(sorted(int(e) for e in erasures),
                                    available=list(available))
-        return gfref.apply_matrix_fast(
-            entry.D, np.ascontiguousarray(stack, dtype=np.uint8))
+        with trace_span("codec.decode_host", k=self.k, m=self.m,
+                        n=int(stack.shape[-1]), erasures=len(erasures)):
+            return gfref.apply_matrix_fast(
+                entry.D, np.ascontiguousarray(stack, dtype=np.uint8))
 
     def _upload_parity(self) -> torch.Tensor:
         if self._parity_dev is None:
-            self._parity_dev = self.to_device(self.parity_mat)
-            self.parity_uploads += 1
+            with trace_span("codec.table_upload",
+                            bytes=int(self.parity_mat.nbytes)):
+                self._parity_dev = self.to_device(self.parity_mat)
+                self.parity_uploads += 1
         return self._parity_dev
 
     def parity_matrix_device(self) -> torch.Tensor:
@@ -226,7 +249,10 @@ class RSCodec:
             if hit is not None:
                 self._decode_cache.move_to_end(sig)
                 return hit
-        D, src = gfm.decode_matrix(self.parity_mat, list(erasures), available)
+        with trace_span("codec.decode_matrix_build", k=self.k, m=self.m,
+                        erasures=len(sig[0])):
+            D, src = gfm.decode_matrix(self.parity_mat, list(erasures),
+                                       available)
         return self._insert_entry(sig, _DecodeTables(D, src))
 
     def _insert_entry(self, sig, entry: _DecodeTables) -> _DecodeTables:
@@ -254,7 +280,8 @@ class RSCodec:
         if entry.dev is None:
             # upload outside the lock, publish under it: two threads racing
             # a fresh signature upload twice but count once
-            dev = self.to_device(entry.D)
+            with trace_span("codec.table_upload", bytes=int(entry.D.nbytes)):
+                dev = self.to_device(entry.D)
             with self._lock:
                 if entry.dev is None:
                     entry.dev = dev
@@ -273,11 +300,17 @@ class RSCodec:
         entry = self._decode_entry(erasures, available=list(chunks))
         stack = np.stack([np.asarray(chunks[i], dtype=np.uint8)
                           for i in entry.src])
-        if self.device == "numpy":
-            rec = gfref.apply_matrix_fast(entry.D, stack)
-        else:
-            rec = rs_kernels.gf_apply(self._entry_device(entry),
-                                      self.to_device(stack)).cpu().numpy()
+        with trace_span("codec.decode", k=self.k, m=self.m,
+                        n=int(stack.shape[1]), erasures=len(erasures),
+                        device=self.device):
+            if self.device == "numpy":
+                rec = gfref.apply_matrix_fast(entry.D, stack)
+            else:
+                out = rs_kernels.gf_apply(self._entry_device(entry),
+                                          self.to_device(stack))
+                t0 = device_attribution.dispatch_mark()
+                rec = out.cpu().numpy()
+                device_attribution.record_batch(None, t0, rec.nbytes)
         return {e: rec[i] for i, e in enumerate(erasures)}
 
     @staticmethod
@@ -310,11 +343,17 @@ class RSCodec:
         b, k, n = stack.shape
         folded = np.ascontiguousarray(
             np.swapaxes(stack, 0, 1).reshape(k, b * n), dtype=np.uint8)
-        if self.device == "numpy":
-            rec = gfref.apply_matrix_fast(entry.D, folded)
-        else:
-            rec = rs_kernels.gf_apply(self._entry_device(entry),
-                                      self.to_device(folded)).cpu().numpy()
+        with trace_span("codec.decode_batch", k=self.k, m=self.m,
+                        batch=int(b), n=int(n), erasures=len(erasures),
+                        device=self.device):
+            if self.device == "numpy":
+                rec = gfref.apply_matrix_fast(entry.D, folded)
+            else:
+                out = rs_kernels.gf_apply(self._entry_device(entry),
+                                          self.to_device(folded))
+                t0 = device_attribution.dispatch_mark()
+                rec = out.cpu().numpy()
+                device_attribution.record_batch(None, t0, rec.nbytes)
         return np.swapaxes(rec.reshape(len(erasures), b, n), 0, 1)
 
     # -- device-resident decode (no host round-trip) ------------------------

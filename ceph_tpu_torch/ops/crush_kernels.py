@@ -43,7 +43,12 @@ optimal local-retry tunables):
   whose tries run out ends on the last device rejected there (NONE only
   if none was), and one device may so end two positions.
 
-``launches`` counts kernel launches; only a launch adds to it.
+``launches`` counts kernel launches; only a launch adds to it
+(``reset_launches`` keeps the running sum in ``launches_before_reset``).
+Each launch, and each plain-version call through :func:`straw2_map`, is
+booked in :mod:`.launch_ledger` under :func:`straw2_key` (the JAX
+package's ``traced_jit`` label, ``crush.bulk.<firstn|indep>``), with the
+bytes of :func:`straw2_bytes`.
 """
 from __future__ import annotations
 
@@ -53,7 +58,7 @@ import numpy as np
 import torch
 
 from ..crush.hash import crush_hash32_2_torch, crush_hash32_3_torch
-from . import cuda_build
+from . import cuda_build, launch_ledger
 
 S64_MIN = -(1 << 63)
 LN_BIAS = 0x1000000000000          # 2^48
@@ -63,11 +68,19 @@ STATE_CAP = 16                     # positions of per-x state in shared memory
 RECIP_SHIFT = 56                   # a reciprocal word is M | l << 56
 
 launches = {"crush_straw2": 0}
+launches_before_reset = dict.fromkeys(launches, 0)
 
 
 def reset_launches() -> None:
     for name in launches:
+        launches_before_reset[name] += launches[name]
         launches[name] = 0
+
+
+def total_launches() -> dict:
+    """Launches since the process started, resets included."""
+    return {name: launches_before_reset[name] + launches[name]
+            for name in launches}
 
 
 @dataclass(frozen=True)
@@ -349,8 +362,12 @@ def straw2_map(xs: torch.Tensor, tables: Straw2Tables,
     tensors run :func:`straw2_map_plain`; anything else raises."""
     if xs.dim() != 1 or xs.device != tables.device:
         raise ValueError(f"straw2_map: xs must be 1-D on {tables.device}")
+    key = straw2_key(shape, xs.shape[0], tables, reweights)
+    label = key[0]
+    nbytes = straw2_bytes(xs.shape[0], shape.out_size, tables, reweights)
     if xs.device.type == "cpu":
-        return straw2_map_plain(xs, tables, reweights, shape)
+        with launch_ledger.launch(label, key, nbytes, xs.device):
+            return straw2_map_plain(xs, tables, reweights, shape)
     if not xs.is_cuda:
         raise ValueError(f"straw2_map runs on cuda or cpu, not {xs.device}")
     _check_tables(tables, reweights)
@@ -367,18 +384,42 @@ def straw2_map(xs: torch.Tensor, tables: Straw2Tables,
     t = tables
     p, b, w = t.ws.shape
     lib = cuda_build.load("crush_straw2")
-    with torch.cuda.device(xs.device):
-        stream = torch.cuda.current_stream(xs.device).cuda_stream
-        err = lib.crush_straw2_launch(
-            xs32.data_ptr(), n, t.items.data_ptr(), t.hash_ids.data_ptr(),
+    args = (xs32.data_ptr(), n, t.items.data_ptr(), t.hash_ids.data_ptr(),
             t.recip.data_ptr(), p, b, w, t.sizes.data_ptr(),
             t.types.data_ptr(), t.row_of_id.data_ptr(),
             t.row_of_id.numel(), reweights.data_ptr(), reweights.numel(),
             t.ln.data_ptr(), out.data_ptr(), scratch.data_ptr(),
             placed.data_ptr(), int(s.indep), int(s.leaf), s.root_row,
             s.numrep, s.out_size, s.target_type, s.tries, s.vary_r,
-            s.stable, s.max_depth, s.max_devices, stream)
-    if err != 0:
-        raise RuntimeError(f"crush_straw2 failed: cudaError_t {err}")
-    launches["crush_straw2"] += 1
+            s.stable, s.max_depth, s.max_devices)
+    with torch.cuda.device(xs.device):
+        stream = torch.cuda.current_stream(xs.device).cuda_stream
+        with launch_ledger.launch(label, key, nbytes, xs.device,
+                                  "crush_straw2"):
+            err = lib.crush_straw2_launch(*args, stream)
+            if err != 0:
+                raise RuntimeError(f"crush_straw2 failed: cudaError_t {err}")
+            launches["crush_straw2"] += 1
     return out, placed
+
+
+def straw2_key(shape: RuleShape, n: int, tables: Straw2Tables,
+               reweights: torch.Tensor) -> tuple:
+    """The launch ledger's key of a launch: ``crush.bulk.<kind>``, the
+    shapes its bytes depend on as its matrix (the weight set [P, B, S],
+    the id map's and the reweights' lengths) and [x's, positions]."""
+    label = f"crush.bulk.{'indep' if shape.indep else 'firstn'}"
+    return launch_ledger.launch_key(
+        label, n, shape.out_size,
+        (*tables.ws.shape, tables.row_of_id.numel(), reweights.numel()))
+
+
+def straw2_bytes(n: int, out_size: int, tables: Straw2Tables,
+                 reweights: torch.Tensor) -> int:
+    """What a launch must move: the x's in, ``out`` and ``placed`` out
+    (4 bytes each), and every table it reads once (one table of weights
+    or reciprocals) — the bytes of ``tools/path_shapes.straw2_bound``."""
+    return 4 * int(n) * (2 + int(out_size)) + reweights.numel() * 8 + sum(
+        getattr(tables, f).numel() * getattr(tables, f).element_size()
+        for f in ("items", "hash_ids", "sizes", "types", "row_of_id", "ln",
+                  "ws"))

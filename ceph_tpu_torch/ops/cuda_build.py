@@ -54,7 +54,9 @@ SIGNATURES = {
 _libs: dict[str, ctypes.CDLL] = {}
 _locks = {name: threading.Lock() for name in SIGNATURES}
 # per source: {"seconds": build time (0.0 when loaded from the cache),
-# "log": nvcc's output (registers, shared memory, spills)}
+# "log": nvcc's output (registers, shared memory, spills), "load_s": wall
+# seconds of the whole load (the build or the cached library's open),
+# "loaded_at": its wall-clock start (time.time())}
 build_info: dict[str, dict] = {}
 
 
@@ -105,16 +107,19 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is not None:
             return lib
+        wall0, t0 = time.time(), time.perf_counter()
         path = library_path(name)
         if os.path.exists(path):
-            build_info[name] = {"seconds": 0.0, "log": "cached"}
+            info = {"seconds": 0.0, "log": "cached"}
         else:
-            build_info[name] = _compile(name, path)
+            info = _compile(name, path)
         lib = ctypes.CDLL(path)
         for fn, argtypes in SIGNATURES[name].items():
             f = getattr(lib, fn)
             f.argtypes = argtypes
             f.restype = ctypes.c_int
+        info.update(load_s=time.perf_counter() - t0, loaded_at=wall0)
+        build_info[name] = info
         _libs[name] = lib
         return lib
 

@@ -37,7 +37,11 @@ shared memory), :func:`xor_nibble_index` and :func:`xor_form` (the W
 nibbles that select ``xor_apply.cu``'s XOR combinations, and the density
 rule that picks its form).
 
-``launches`` counts kernel launches per wrapper; only a launch adds to it.
+``launches`` counts kernel launches per wrapper; only a launch adds to it
+(``reset_launches`` zeroes it and keeps the running sum in
+``launches_before_reset``).  Each launch, and each call of a plain version
+through a wrapper, is booked in :mod:`.launch_ledger` by its shape, with
+the bytes it moves (inputs read once, outputs written once).
 """
 from __future__ import annotations
 
@@ -48,15 +52,42 @@ import torch
 
 from ..backend.ecutil import _CRC_TABLES, _gf2_square, crc32c_zeros_op
 from ..gf.tables import MUL_TABLE
-from . import cuda_build
+from . import cuda_build, launch_ledger
 
 launches = {"gf_apply": 0, "gf_apply_stripes": 0, "xor_apply": 0,
             "crc32c_rows": 0}
+launches_before_reset = dict.fromkeys(launches, 0)
 
 
 def reset_launches() -> None:
     for name in launches:
+        launches_before_reset[name] += launches[name]
         launches[name] = 0
+
+
+def total_launches() -> dict:
+    """Launches per wrapper since the process started, resets included."""
+    return {name: launches_before_reset[name] + launches[name]
+            for name in launches}
+
+
+# -- the bytes a launch must move (the launch ledger's cost, the bounds) ------
+
+def apply_bytes(r: int, k: int, stripes: int, n: int) -> int:
+    """``gf_apply`` / ``gf_apply_stripes`` of [r, k] over [S*k, N]: the
+    data read once and the parity written once, S*(k+r)*N."""
+    return int(stripes) * (int(k) + int(r)) * int(n)
+
+
+def xor_bytes(r: int, k: int, n: int) -> int:
+    """``xor_apply`` of W [R, K] over packets [K, N]: (K+R)*N."""
+    return (int(k) + int(r)) * int(n)
+
+
+def crc_bytes(r: int, n: int) -> int:
+    """``crc32c_rows`` of [r, n]: the rows read once and a 4-byte crc
+    written a row (the kernel stores each crc in 8)."""
+    return int(r) * int(n) + 4 * int(r)
 
 
 @functools.lru_cache(maxsize=None)
@@ -214,8 +245,11 @@ def _apply(name: str, mat, data, stripes: int) -> torch.Tensor:
     r, k = mat.shape
     if data.shape[0] != stripes * k:
         raise ValueError(f"{data.shape[0]} rows != {stripes} stripes x {k}")
+    key = launch_ledger.launch_key(name, *data.shape, mat.shape)
+    nbytes = apply_bytes(r, k, stripes, data.shape[1])
     if data.device.type == "cpu":
-        return gf_apply_stripes_plain(mat.cpu(), data, stripes)
+        with launch_ledger.launch(name, key, nbytes, data.device):
+            return gf_apply_stripes_plain(mat.cpu(), data, stripes)
     if not data.is_cuda:
         raise ValueError(f"{name} runs on cuda or cpu, not {data.device}")
     if mat.device != data.device:
@@ -228,14 +262,16 @@ def _apply(name: str, mat, data, stripes: int) -> torch.Tensor:
         return out
     lib = cuda_build.load("gf_apply")
     mul = _mul_table(data.device)
+    args = (mat.data_ptr(), mul.data_ptr(), data.data_ptr(), out.data_ptr(),
+            int(r), int(k), n, int(stripes))
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
-        err = lib.gf_apply_launch(
-            mat.data_ptr(), mul.data_ptr(), data.data_ptr(), out.data_ptr(),
-            int(r), int(k), n, int(stripes), stream)
-    if err != 0:
-        raise RuntimeError(f"{name} failed: cudaError_t {err}")
-    launches[name] += 1
+        with launch_ledger.launch(name, key, nbytes, data.device,
+                                  "gf_apply"):
+            err = lib.gf_apply_launch(*args, stream)
+            if err != 0:
+                raise RuntimeError(f"{name} failed: cudaError_t {err}")
+            launches[name] += 1
     return out
 
 
@@ -351,8 +387,11 @@ def xor_apply_form(W, packets, form: str) -> torch.Tensor:
     if packets.shape[0] != k:
         raise ValueError(f"W has {k} columns but packets has "
                          f"{packets.shape[0]} rows")
+    key = launch_ledger.launch_key("xor_apply", *packets.shape, W.shape)
+    nbytes = xor_bytes(r, k, packets.shape[1])
     if packets.device.type == "cpu":
-        return xor_apply_plain(W.cpu(), packets)
+        with launch_ledger.launch("xor_apply", key, nbytes, packets.device):
+            return xor_apply_plain(W.cpu(), packets)
     if not packets.is_cuda:
         raise ValueError(f"xor_apply runs on cuda or cpu, not "
                          f"{packets.device}")
@@ -365,14 +404,16 @@ def xor_apply_form(W, packets, form: str) -> torch.Tensor:
     if r == 0 or p == 0:
         return out
     lib = cuda_build.load("xor_apply")
+    args = (W.data_ptr(), packets.data_ptr(), out.data_ptr(), int(r),
+            int(k), p, XOR_FORMS[form])
     with torch.cuda.device(packets.device):
         stream = torch.cuda.current_stream(packets.device).cuda_stream
-        err = lib.xor_apply_launch(W.data_ptr(), packets.data_ptr(),
-                                   out.data_ptr(), int(r), int(k), p,
-                                   XOR_FORMS[form], stream)
-    if err != 0:
-        raise RuntimeError(f"xor_apply failed: cudaError_t {err}")
-    launches["xor_apply"] += 1
+        with launch_ledger.launch("xor_apply", key, nbytes, packets.device,
+                                  "xor_apply"):
+            err = lib.xor_apply_launch(*args, stream)
+            if err != 0:
+                raise RuntimeError(f"xor_apply failed: cudaError_t {err}")
+            launches["xor_apply"] += 1
     return out
 
 
@@ -495,14 +536,26 @@ def crc32c_rows_into(rows: torch.Tensor, out: torch.Tensor) -> None:
     stride = int(rows.stride(0)) if r > 1 else n
     nib, lane, zpow = _crc_kernel_tables(rows.device)
     lib = cuda_build.load("crc32c")
+    args = (rows.data_ptr(), stride, int(r), int(n), nib.data_ptr(),
+            lane.data_ptr(), zpow.data_ptr(), out.data_ptr())
+    key = launch_ledger.launch_key("crc32c_rows", r, n)
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream(rows.device).cuda_stream
-        err = lib.crc32c_rows_launch(rows.data_ptr(), stride, int(r), int(n),
-                                     nib.data_ptr(), lane.data_ptr(),
-                                     zpow.data_ptr(), out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"crc32c_rows failed: cudaError_t {err}")
-    launches["crc32c_rows"] += 1
+        with launch_ledger.launch("crc32c_rows", key, crc_bytes(r, n),
+                                  rows.device, "crc32c"):
+            err = lib.crc32c_rows_launch(*args, stream)
+            if err != 0:
+                raise RuntimeError(f"crc32c_rows failed: cudaError_t {err}")
+            launches["crc32c_rows"] += 1
+
+
+def _crc_rows_booked(rows: torch.Tensor) -> torch.Tensor:
+    """:func:`crc32c_rows_plain`, booked in the launch ledger."""
+    r, n = rows.shape
+    with launch_ledger.launch("crc32c_rows",
+                              launch_ledger.launch_key("crc32c_rows", r, n),
+                              crc_bytes(r, n), rows.device):
+        return crc32c_rows_plain(rows)
 
 
 def _as_rows(rows) -> torch.Tensor:
@@ -524,7 +577,7 @@ def crc32c_rows(rows) -> torch.Tensor:
     crc32c_rows(rows)[i]``."""
     rows = _as_rows(rows)
     if rows.device.type == "cpu":
-        return crc32c_rows_plain(rows)
+        return _crc_rows_booked(rows)
     out = torch.empty(rows.shape[0], dtype=torch.int64, device=rows.device)
     crc32c_rows_into(rows, out)
     return out
@@ -540,8 +593,8 @@ def gf_encode_with_crc(mat, data) -> tuple[torch.Tensor, torch.Tensor]:
     mat, data = _as_u8(mat), _as_rows(data)
     parity = gf_apply(mat, data)
     if data.device.type == "cpu":
-        return parity, torch.cat([crc32c_rows_plain(data),
-                                  crc32c_rows_plain(parity)])
+        return parity, torch.cat([_crc_rows_booked(data),
+                                  _crc_rows_booked(parity)])
     k = data.shape[0]
     crcs = torch.empty(k + parity.shape[0], dtype=torch.int64,
                        device=data.device)

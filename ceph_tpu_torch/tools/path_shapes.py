@@ -67,6 +67,8 @@ For each launch of ``chip_smoke.py``'s main paths, on ``cuda:0``:
   version counts at the least issue time of a draw's instructions
   (``STRAW2_DRAWS_PER_S``) or the bytes, whichever is larger.
 
+The package's launch ledger (``ops/launch_ledger.py``) is paused while a
+shape is timed: it counts those launches and adds nothing to their time.
 Each shape gets the kernel's time (CUDA events, the best of 3 means over
 20 launches, after 2; 10 for ``crush_straw2``), its bitwise difference
 from the plain version and the plain version's time (3 calls after 1;
@@ -595,31 +597,30 @@ def shape_counts(shapes: list[dict]) -> collections.Counter:
 
 @contextlib.contextmanager
 def recorded_launches(K):
-    """Count every ``K.gf_apply`` and ``K.crc32c_rows`` call made while
-    inside by :func:`launch_key`; the wrappers run unchanged (and count
-    their own launches as always)."""
-    seen = collections.Counter()
-    apply, crc = K.gf_apply, K.crc32c_rows
-
-    def gf_apply(mat, data):
-        seen[launch_key("gf_apply", *data.shape, mat.shape)] += 1
-        return apply(mat, data)
-
-    def crc32c_rows(rows):
-        seen[launch_key("crc32c_rows", *rows.shape)] += 1
-        return crc(rows)
-
-    K.gf_apply, K.crc32c_rows = gf_apply, crc32c_rows
-    try:
+    """Count every ``gf_apply`` and ``crc32c_rows`` launch made while
+    inside, from every thread, by :func:`launch_key`, as the launch
+    ledger of ``K``'s package (``ops/launch_ledger.py``) books them: on a
+    CPU tensor each call of the plain version through the wrapper."""
+    ledger = importlib.import_module(
+        K.__name__.rsplit(".", 1)[0] + ".launch_ledger")
+    with ledger.recording(("gf_apply", "crc32c_rows")) as seen:
         yield seen
-    finally:
-        K.gf_apply, K.crc32c_rows = apply, crc
 
 
 def measure(pkg, shape: dict, dev, seed: int = 3) -> dict:
     """Time one launch shape; the kernel's output is held against its plain
-    version first.  A shape's count on its path (``launches``) is kept."""
-    row = _measure(pkg, shape, dev, seed)
+    version first.  A shape's count on its path (``launches``) is kept.
+    The package's launch ledger, where it has one, is paused meanwhile:
+    it counts these launches but adds no event and no synchronise to
+    what is timed."""
+    try:
+        ledger = importlib.import_module(
+            pkg.rs_kernels.__name__.rsplit(".", 1)[0] + ".launch_ledger")
+        quiet = ledger.paused()
+    except ImportError:              # a tree from before the ledger
+        quiet = contextlib.nullcontext()
+    with quiet:
+        row = _measure(pkg, shape, dev, seed)
     if "launches" in shape:
         row["launches"] = shape["launches"]
     return row
@@ -902,7 +903,7 @@ def straw2_bound(draws: int, n: int, out_size: int, tables, rw) -> dict:
                   # the kernel reads one table of weights or reciprocals
                   "ws"))
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return {"draws": draws, "bound_ms": max(ops_ms, b_ms),
+    return {"draws": draws, "bytes": nbytes, "bound_ms": max(ops_ms, b_ms),
             "bound_by": "operations" if ops_ms >= b_ms else "bytes",
             "ops_bound_ms": ops_ms, "bytes_bound_ms": b_ms}
 
@@ -949,9 +950,13 @@ def _measure_straw2(pkg, shape: dict, dev) -> dict:
     ms = cuda_ms(run, iters=10)
     bound = straw2_bound(stats["draws"], xs.numel(), rule.out_size, tables,
                          rw)
+    if hasattr(CK, "straw2_key"):          # the launch ledger's key
+        kernel, mat, rows, cols = CK.straw2_key(rule, xs.numel(), tables, rw)
+        bound["ledger_key"] = [kernel, list(mat), rows, cols]
     return {"kernel": "crush_straw2", "path": "placement",
             "label": shape["label"], "pool": pool.name,
             "variant": shape["variant"], "shape": [xs.numel(), rule.out_size],
+
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound,
             "share_of_bound": bound["bound_ms"] / ms,
             "draws_per_x": stats["draws"] / xs.numel(),

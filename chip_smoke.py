@@ -219,7 +219,30 @@ drives the port end to end:
                 against the host interpreter at 256 PGs (every PG, and
                 map_pool against the scalar chain) and at 2^20 PGs
                 (every PG against the plain version, 256 against the
-                interpreter).  Sub-phases print placement.<name> lines.
+                interpreter).  Sub-phases print placement.<name> lines;
+13. instruments -- the port's instrument plane on the card, last: (c) a
+                durable BlueStore MiniCluster at phase cluster's widths
+                (torch_rs k=8 m=4 with no device key, pg_num 32): 64 puts
+                of 4 MiB, 64 gets, osd.3 down and 64 degraded gets, a
+                `device profile start` ... `stop` window (torch.profiler)
+                around 16 of the puts and 16 of the degraded gets: the
+                exported trace's gf_apply and crc32c kernel events must
+                equal the launch ledger's launches in the window, the
+                card's busy share of the window, the trace's bytes; (d) a
+                prometheus scrape that parses (HELP and TYPE once a
+                family) with ceph_tpu_device_efficiency rows of gf_apply;
+                (e) RECOMPILE_STORM clear, the pg_autoscaler's
+                recommendations; (f) `ceph_cli --data-dir D status` as a
+                process (its health line equal to the cluster's), `osd
+                tree`, `pg dump` and `device roofline` in process.  Then
+                (instruments.ledger_overhead) a launch-bound gf_apply
+                timed with the ledger on and paused, in turns, and
+                (instruments.ledger) (a) the launch ledger's launches of
+                every kernel over the whole script against the wrappers'
+                counters, its keys per phase (durable's and net's against
+                path_shapes), (b) every key's bytes against the bound's
+                and the main path's roofline rows (CUDA-event device ms a
+                launch, bytes, share of 3.35 TB/s).
 
 Each phase prints one JSON line, and a ``walls`` line gives every phase's
 wall seconds; any failure raises and the script exits non-zero.  Before
@@ -244,6 +267,7 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T_START = time.time()
 
 # H100 SXM device-memory rate and dense tensor-core peaks (NVIDIA data
 # sheet), for the bounds
@@ -259,17 +283,20 @@ def emit(phase: str, **fields) -> None:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean milliseconds of ``fn`` over ``iters`` calls, CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
+    """Mean milliseconds of ``fn`` over ``iters`` calls, CUDA events, with
+    the launch ledger paused (it counts the launches, times none)."""
+    from ceph_tpu_torch.ops import launch_ledger
+    with launch_ledger.paused():
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
     return start.elapsed_time(end) / iters
 
 
@@ -3368,13 +3395,15 @@ def _net_frontend(K, ecutil, c, pid, registry, profile, unit, bufs,
         fe.stop()
     batches = sum(p["submitted"] for p in pipe.values())
     errors = sum(p["errors"] for p in pipe.values())
-    fe_shapes = {}
+    fe_shapes, batch_keys = {}, []
     if seen is not None:
         delta = seen - before
         fe_shapes = {f"{k[0]} {list(k[1])} x [{k[2]}, {k[3]}]": v
                      for k, v in sorted(delta.items())}
         seen.subtract(delta)
         seen += collections.Counter()       # drop the zeroed keys
+        batch_keys = [[k[0], list(k[1]), k[2], k[3], v]
+                      for k, v in sorted(delta.items())]
     if bad or errors or shed is None or admitted != len(tier) or \
             any(tw.launches.values()) or any(tr.launches.values()) or \
             (on_card and (launches["gf_apply"] != batches or
@@ -3385,6 +3414,7 @@ def _net_frontend(K, ecutil, c, pid, registry, profile, unit, bufs,
                                checked_bytes=checked, routed=routes),
             "launches": launches, "device_batches": batches,
             "pipeline_errors": errors, "batch_shapes": fe_shapes,
+            "batch_keys": batch_keys,
             "tier_write": tw.line(objects=len(tier)),
             "tier_read": tr.line(objects=len(tier), admitted=admitted),
             "shed": shed}
@@ -3662,6 +3692,431 @@ def net_launch_shapes(PS, registry_cls, seen, sizes=None) -> dict:
                              f"path_shapes.net_shapes {dict(want)}")
     return {"checked": [[kernel, list(mat), rows, cols, n] for
                         (kernel, mat, rows, cols), n in sorted(seen.items())]}
+
+
+# -- phase instruments --------------------------------------------------------
+
+# torch.profiler (kineto) drops the device events of a window's first
+# ~0.35% x (seconds since the process's first profiler session), as
+# measured on an H100: its device timestamps drift from the host clock
+# that opens the window (PERF.md §6).  A capture window's work starts
+# after profiler_lead_in(), which bounds that from above by the script's
+# age.
+PROFILER_DRIFT = 0.006
+
+
+def profiler_lead_in() -> float:
+    return max(0.25, PROFILER_DRIFT * (time.time() - T_START))
+
+
+INSTRUMENT_KERNELS = {"gf_apply": "gf_apply_kernel",
+                      "crc32c_rows": "crc32c_rows_kernel"}
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def ledger_bytes(key: tuple) -> int | None:
+    """The bytes PERF.md's bound column counts for a launch key (each
+    input read once, each output written once; a crc as 4 bytes), or
+    None for straw2, whose bytes come from its placement rows."""
+    kernel, mat, rows, cols = key
+    if kernel in ("gf_apply", "gf_apply_stripes"):
+        r, k = mat
+        return (rows // k) * (k + r) * cols
+    if kernel == "xor_apply":
+        return (mat[0] + mat[1]) * cols
+    if kernel == "crc32c_rows":
+        return rows * cols + 4 * rows
+    return None
+
+
+def trace_device_stats(path: str) -> dict:
+    """From a ``torch.profiler`` Chrome trace: the device events (kernels,
+    copies, sets), the launches of each kernel of INSTRUMENT_KERNELS and
+    their mean duration (the kernel alone, where the launch ledger's
+    event pair also spans the host's submit on an idle card), and the
+    seconds the card was busy (the union of the events' intervals)."""
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    dev = [e for e in events
+           if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    runs = {label: [float(e.get("dur", 0.0)) for e in dev
+                    if e["cat"] == "kernel" and name in e.get("name", "")]
+            for label, name in INSTRUMENT_KERNELS.items()}
+    kernels = {label: len(d) for label, d in runs.items()}
+    busy_us, end = 0.0, float("-inf")
+    for t0, t1 in sorted((float(e["ts"]), float(e["ts"]) +
+                          float(e.get("dur", 0.0))) for e in dev):
+        if t1 > end:
+            busy_us += t1 - max(t0, end)
+            end = t1
+    return {"device_events": len(dev),
+            "by_cat": {c: sum(1 for e in dev if e["cat"] == c)
+                       for c in DEVICE_CATS},
+            "kernels": kernels,
+            "kernel_ms": {label: sum(d) / len(d) / 1e3
+                          for label, d in runs.items() if d},
+            "busy_s": busy_us / 1e6}
+
+
+class FakeProfiler:
+    """A profiler backend for a run without a card: writes a trace with
+    no device event."""
+
+    def start_trace(self, path: str) -> None:
+        self.path = path
+
+    def stop_trace(self) -> None:
+        from ceph_tpu_torch.common.profiler_capture import TRACE_FILE
+        with open(os.path.join(self.path, TRACE_FILE), "w") as f:
+            json.dump({"traceEvents": []}, f)
+
+
+def _profiled(c, LL, run, n: int, reason: str, lead_s: float) -> dict:
+    """``run(i)`` for i < n inside a ``device profile start`` ... ``stop``
+    window on the cluster's admin socket, after ``lead_s`` seconds of the
+    window (``profiler_lead_in``: the profiler drops the device events
+    of a window's first moments in an older process): the
+    exported trace's kernel launches against the ledger's in the window,
+    and the card's busy share of the ops' wall time."""
+    from ceph_tpu_torch.common.profiler_capture import TRACE_FILE
+    sock = c.cct.admin_socket
+    info = sock.call("device profile start", reason=reason)
+    if "error" in info:
+        raise AssertionError(f"instruments: profiler start: {info}")
+    time.sleep(lead_s)
+    with LL.recording(tuple(INSTRUMENT_KERNELS), route="cuda") as seen:
+        _sync()
+        t0 = time.perf_counter()
+        for i in range(n):
+            run(i)
+        _sync()
+        wall = time.perf_counter() - t0
+    info = sock.call("device profile stop")
+    if "error" in info:
+        raise AssertionError(f"instruments: profiler stop: {info}")
+    path = os.path.join(info["path"], TRACE_FILE)
+    stats = trace_device_stats(path)
+    ledger = {k: sum(v for key, v in seen.items() if key[0] == k)
+              for k in INSTRUMENT_KERNELS}
+    if stats["kernels"] != ledger:
+        raise AssertionError(f"instruments: trace kernels "
+                             f"{stats['kernels']} != ledger {ledger}")
+    return {"path": info["path"], "ops": n, "wall_s": wall, "lead_s": lead_s,
+            "ledger_launches": ledger,
+            **stats, "busy_share": stats["busy_s"] / wall,
+            "capture_s": info["duration_s"],
+            "trace_bytes": os.path.getsize(path)}
+
+
+def _scrape(c) -> dict:
+    """(d) one ``mgr.prometheus.render``: every family's HELP and TYPE
+    once, every sample under a declared family, and the roofline's
+    ``ceph_tpu_device_efficiency`` rows of gf_apply."""
+    from ceph_tpu_torch.mgr import prometheus
+    t0 = time.perf_counter()
+    text = prometheus.render(c.cct)
+    render_s = time.perf_counter() - t0
+    helps, types, samples = collections.Counter(), {}, []
+    for line in text.splitlines():
+        if line.startswith("# HELP "):
+            helps[line.split()[2]] += 1
+        elif line.startswith("# TYPE "):
+            _, _, name, kind = line.split()
+            if name in types:
+                raise AssertionError(f"instruments: TYPE {name} twice")
+            types[name] = kind
+        elif line:
+            samples.append(re.match(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)", line)[1])
+    if set(helps) != set(types) or any(n != 1 for n in helps.values()):
+        raise AssertionError("instruments: HELP/TYPE not once a family")
+    undeclared = [m for m in samples if m not in types and not any(
+        m == f + sfx and types[f] in ("histogram", "summary")
+        for f in types for sfx in ("_bucket", "_sum", "_count")
+        if m.startswith(f))]
+    eff = [ln for ln in text.splitlines()
+           if ln.startswith('ceph_tpu_device_efficiency{executable="gf_apply')]
+    if undeclared or not eff:
+        raise AssertionError(f"instruments: scrape {undeclared[:3]} "
+                             f"{len(eff)} gf_apply efficiency rows")
+    return {"render_s": render_s, "bytes": len(text),
+            "families": len(types), "samples": len(samples),
+            "gf_apply_efficiency_rows": len(eff)}
+
+
+def _ceph_cli(c_dir, health_line: str, on_card: bool) -> dict:
+    """(f) ``ceph_cli --data-dir D status`` as one process (its health
+    line against the in-process cluster's), then ``osd tree``, ``pg dump``
+    and ``device roofline`` through the CLI's ``main(argv)``."""
+    import contextlib
+    import io
+    from ceph_tpu_torch.tools import ceph_cli
+    env = dict(os.environ)
+    if not on_card:
+        env["CUDA_VISIBLE_DEVICES"] = ""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ceph_tpu_torch.tools.ceph_cli",
+         "--data-dir", str(c_dir), "status"], cwd=HERE, env=env,
+        capture_output=True, text=True, timeout=600)
+    status_s = time.perf_counter() - t0
+    got = [ln.strip() for ln in proc.stdout.splitlines()
+           if ln.strip().startswith("health:")]
+    if proc.returncode != 0 or got != [health_line]:
+        raise AssertionError(f"instruments: ceph_cli status rc "
+                             f"{proc.returncode} {got} != {health_line!r}: "
+                             f"{proc.stderr[-2000:]}")
+    verbs = {}
+    for argv, head in ((["osd", "tree"], "ID    WEIGHT"),
+                       (["pg", "dump"], "PG_ID"),
+                       (["device", "roofline"], "peaks:")):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = ceph_cli.main(["--data-dir", str(c_dir), *argv])
+        text = out.getvalue()
+        if rc != 0 or not text.startswith(head):
+            raise AssertionError(f"instruments: ceph {' '.join(argv)} rc "
+                                 f"{rc}: {text[:300]}")
+        verbs[" ".join(argv)] = {"seconds": time.perf_counter() - t0,
+                                 "lines": len(text.splitlines())}
+    return {"status_process_s": status_s, "health": health_line,
+            "verbs": verbs}
+
+
+def phase_instruments(K, ecutil, registry_cls, objects: int = 64,
+                      obj_bytes: int = 4 * MIB, window: int = 16,
+                      device: str | None = None, profiler=None) -> dict:
+    """(c)-(f) of phase ``instruments`` on a durable BlueStore cluster at
+    phase cluster's widths: (c) ``objects`` puts, gets, then osd.3 down
+    and degraded gets, a ``device profile start`` ... ``stop`` window
+    around ``window`` of the puts and ``window`` of the degraded gets;
+    (d) a prometheus scrape; (e) RECOMPILE_STORM clear and the
+    pg_autoscaler's recommendations; (f) the ``ceph`` CLI.  ``device``
+    None runs the pool on the card and profiles with torch.profiler
+    (tests run it with "cpu" and a ``profiler`` backend of their own)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+    from ceph_tpu_torch.cluster import MiniCluster
+    from ceph_tpu_torch.common import Context
+    from ceph_tpu_torch.mgr.pg_autoscaler import autoscale_recommendations
+    from ceph_tpu_torch.ops import launch_ledger as LL
+    from ceph_tpu_torch.tools.ceph_cli import _fmt_status
+    t_phase = time.perf_counter()
+    on_card = device is None
+    k, m, unit, victim = 8, 4, 4096, 3
+    profile = {"k": str(k), "m": str(m), "technique": "reed_sol_van"}
+    if device is not None:
+        profile["device"] = device
+    rng = np.random.default_rng(14)
+    payloads = [rng.integers(0, 256, obj_bytes, dtype=np.uint8).tobytes()
+                for _ in range(objects)]
+    oids = [f"rbd_data.{i:04x}" for i in range(objects)]
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_instruments."))
+    lines: dict = {}
+    c = None
+    try:
+        c = MiniCluster(n_osds=12, osds_per_host=3, chunk_size=unit,
+                        cct=Context(), data_dir=root / "blue",
+                        store_backend="bluestore")
+        if profiler is not None:
+            c.profiler._profiler = profiler
+        c.enable_recovery_scheduler()
+        pid = c.create_ec_pool("rbd", dict(profile), pg_num=32)
+        if any(g.backend.whoami == victim
+               for g in c.pools[pid]["pgs"].values()):
+            raise AssertionError(f"instruments: osd.{victim} is a primary")
+        setup_s = time.perf_counter() - t_phase
+        # (c) puts, the last `window` of them profiled
+        lead = objects - window
+        with ClusterRun(K, c) as w:
+            for oid, d in zip(oids[:lead], payloads[:lead]):
+                c.put(pid, oid, d)
+        prof_put = _profiled(c, LL, lambda i: c.put(
+            pid, oids[lead + i], payloads[lead + i]), window, "put",
+            profiler_lead_in())
+        with ClusterRun(K, c) as rd:
+            bad = [oid for oid, d in zip(oids, payloads)
+                   if c.get(pid, oid, len(d)) != d]
+        c.bus.mark_down(victim)
+        got = {}
+        prof_get = _profiled(c, LL, lambda i: got.__setitem__(
+            oids[i], c.get(pid, oids[i], len(payloads[i]))), window,
+            "degraded-get", profiler_lead_in())
+        with ClusterRun(K, c) as dg:
+            for oid, d in zip(oids[window:], payloads[window:]):
+                got[oid] = c.get(pid, oid, len(d))
+        bad += [oid for oid, d in zip(oids, payloads) if got[oid] != d]
+        c.bus.mark_up(victim)
+        c.deliver_all()
+        if bad or (on_card and (
+                w.launches["gf_apply"], w.launches["crc32c_rows"],
+                prof_put["ledger_launches"]["gf_apply"],
+                prof_put["ledger_launches"]["crc32c_rows"],
+                rd.launches["gf_apply"]) != (lead, lead, window, window, 0)):
+            raise AssertionError(f"instruments: {bad[:4]} {w.launches} "
+                                 f"{prof_put['ledger_launches']} "
+                                 f"{rd.launches}")
+        lines["cluster"] = {
+            "put": w.line(objects=lead, ms_per_op=w.seconds / lead * 1e3),
+            "put_profiled": prof_put,
+            "get": rd.line(objects=objects,
+                           ms_per_op=rd.seconds / objects * 1e3),
+            "degraded_get_profiled": prof_get,
+            "degraded_get": dg.line(objects=objects - window,
+                                    ms_per_op=dg.seconds /
+                                    (objects - window) * 1e3),
+            "captures": len(c.profiler.captures()), "setup_s": setup_s}
+        kept = c.profiler.captures()
+        if any(p["path"] not in kept for p in (prof_put, prof_get)):
+            raise AssertionError(f"instruments: captures {kept}")
+        # (d) the scrape
+        lines["scrape"] = _scrape(c)
+        # (e) health and the autoscaler
+        ev = c.health_detail()
+        storm = ev["checks"].get("RECOMPILE_STORM")
+        if storm is not None:
+            raise AssertionError(f"instruments: RECOMPILE_STORM {storm}")
+        used = {pid: sum(map(len, payloads))}
+        cap = c.n_osds * (1 << 40)
+        recs = autoscale_recommendations(c.osdmap, used, cap)
+        if [r["pool_id"] for r in recs] != sorted(c.pools):
+            raise AssertionError(f"instruments: autoscaler {recs}")
+        jit = c.stats.digest()["jit"]
+        lines["health"] = {"status": ev["status"],
+                           "checks": sorted(ev["checks"]),
+                           "jit_window": jit,
+                           "autoscaler": [{k2: r[k2] for k2 in (
+                               "pool_name", "pg_num_target",
+                               "pg_num_final", "would_adjust",
+                               "raw_used_rate")} for r in recs]}
+        health_line = next(
+            ln.strip() for ln in _fmt_status(c.status(), c.health())
+            .splitlines() if ln.strip().startswith("health:"))
+        c.shutdown()
+        c = None
+        # (f) the CLI over the stopped cluster's directory
+        lines["cli"] = _ceph_cli(root / "blue", health_line, on_card)
+    finally:
+        if c is not None:
+            c.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    lines["timing"] = {"seconds": time.perf_counter() - t_phase}
+    return lines
+
+
+def ledger_checks(K, CK, LL, PS, registry_cls, by_phase: dict,
+                  net_batches, rows_place: list) -> dict:
+    """(a) and (b) of phase ``instruments``: the ledger's launches per
+    kernel over the whole script against the wrappers' counters; its
+    keys per phase, those of phases durable and net against
+    ``path_shapes`` (net's front-end batches added); every key's bytes
+    against PERF.md's bound bytes, and the roofline's row for each."""
+    from ceph_tpu_torch.common import roofline
+    totals = LL.totals("cuda")
+    counters = K.total_launches()
+    crush = sum(v for lab, v in totals.items() if lab.startswith("crush."))
+    ledger = {name: totals.get(name, 0) for name in counters}
+    if ledger != counters or crush != CK.total_launches()["crush_straw2"]:
+        raise AssertionError(f"instruments: ledger {dict(totals)} != "
+                             f"counters {counters} "
+                             f"{CK.total_launches()}")
+    main = ("gf_apply", "crc32c_rows")
+    registry = registry_cls.instance()
+    want = {"durable": PS.shape_counts(PS.durable_shapes(registry)),
+            "net": PS.shape_counts(PS.net_shapes(registry)) + net_batches}
+    for phase, expect in want.items():
+        got = collections.Counter({k: v for k, v in by_phase[phase].items()
+                                   if k[0] in main})
+        if got != expect:
+            raise AssertionError(f"instruments: {phase} ledger keys "
+                                 f"{dict(got)} != {dict(expect)}")
+    snap = LL.snapshot()
+    if snap["dropped"]:
+        raise AssertionError(f"instruments: {snap['dropped']} event pairs "
+                             f"dropped")
+    place = {(r["ledger_key"][0], tuple(r["ledger_key"][1]),
+              *r["ledger_key"][2:]): r["bytes"]
+             for r in rows_place if "ledger_key" in r}
+    rows = {r["executable"]: r
+            for r in roofline.report(limit=1 << 20)["executables"]}
+    checked, out = 0, []
+    for rec in snap["keys"]:
+        if rec["route"] != "cuda":
+            continue
+        key = (rec["kernel"], tuple(rec["mat"]), rec["rows"], rec["cols"])
+        expect = ledger_bytes(key)
+        if expect is None:
+            expect = place.get(key)
+        if expect is not None and expect != rec["bytes_per_call"]:
+            raise AssertionError(f"instruments: {key} books "
+                                 f"{rec['bytes_per_call']} B, bound "
+                                 f"{expect}")
+        checked += expect is not None
+        eid = roofline.executable_id(key[0], LL._roofline_key(key, "cuda"))
+        row = rows.get(eid)
+        if rec["booked"] and (row is None or
+                              row["bytes_per_call"] != rec["bytes_per_call"]):
+            raise AssertionError(f"instruments: no roofline row {eid}")
+        if row is not None and any(key in by_phase[p] for p in
+                                   ("cluster", "durable", "net",
+                                    "instruments")):
+            out.append({
+                "executable": eid, "launches": rec["launches"],
+                "calls": row["calls"],
+                "device_ms_per_call": row["est_seconds"] / row["calls"]
+                * 1e3,
+                "first_launch_ms": row["synced_s"] * 1e3,
+                "bytes": row["bytes_per_call"],
+                "achieved_bytes_s": row["achieved_bytes_s"],
+                "pct_of_3_35_TBps": row["pct_of_peak"],
+                "bound_ms": row["bytes_per_call"] / HBM_BYTES_PER_S * 1e3,
+                "estimator": row["estimator"]})
+    out.sort(key=lambda r: -r["launches"])
+    return {"ledger_launches": dict(totals), "counters": counters,
+            "crush_straw2": crush,
+            "keys_by_phase": {
+                p: {lab: [sum(1 for k in c if k[0] == lab),
+                          sum(v for k, v in c.items() if k[0] == lab)]
+                    for lab in sorted({k[0] for k in c})}
+                for p, c in by_phase.items()},
+            "keys_checked_bytes": checked, "pending": snap["pending"],
+            "roofline_main_path": out,
+            "peaks": roofline.lookup_peaks()}
+
+
+def ledger_overhead(K, LL, dev, iters: int = 400) -> dict:
+    """What the ledger costs a launch: host-paced ms of a launch-bound
+    gf_apply ([4, 8] x [8, 512 Ki], the cluster put's encode) with the
+    ledger timing each launch and paused, in turns (paused, on, on,
+    paused), CUDA events around ``iters`` launches."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    mat = rand_u8(gen, (4, 8), dev)
+    data = rand_u8(gen, (8, 512 << 10), dev)
+
+    def run() -> float:
+        K.gf_apply(mat, data)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            K.gf_apply(mat, data)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    out = {"paused": [], "on": []}
+    for arm in ("paused", "on", "on", "paused"):
+        if arm == "paused":
+            with LL.paused():
+                out[arm].append(run())
+        else:
+            out[arm].append(run())
+    LL.resolve()
+    return {"ms_per_launch": out, "iters": iters,
+            "shape": "[4,8]x[8, 512 Ki]"}
 
 
 # -- phase placement ----------------------------------------------------------
@@ -4027,7 +4482,9 @@ def main() -> int:
     from ceph_tpu_torch.backend import ecutil
     from ceph_tpu_torch.gf import bitmatrix as bm
     from ceph_tpu_torch.gf import ref as gfref
+    from ceph_tpu_torch.ops import crush_kernels as CK
     from ceph_tpu_torch.ops import cuda_build
+    from ceph_tpu_torch.ops import launch_ledger as LL
     from ceph_tpu_torch.ops import rs_kernels as K
     from ceph_tpu_torch.ops import sweep_kernels as SK
     from ceph_tpu_torch.ops.codec import RSCodec
@@ -4042,12 +4499,15 @@ def main() -> int:
     smi = KS.nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
 
-    walls, mark = {}, [time.perf_counter()]
+    walls, mark = {}, [time.perf_counter(), LL.counts("cuda")]
+    by_phase = {}
 
     def lap(name: str) -> None:
-        """Wall seconds of the phase just emitted, set-up and checks in."""
-        now = time.perf_counter()
-        walls[name], mark[0] = now - mark[0], now
+        """Wall seconds of the phase just emitted, set-up and checks in,
+        and the launch ledger's keys of the phase."""
+        now, keys = time.perf_counter(), LL.counts("cuda")
+        walls[name], by_phase[name] = now - mark[0], keys - mark[1]
+        mark[0], mark[1] = now, keys
 
     emit("build", **phase_build(cuda_build), gpu=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
@@ -4113,6 +4573,19 @@ def main() -> int:
     for name, line in placement.items():
         emit(f"placement.{name}", **line, gpu=smi)
     lap("placement")
+    inst = phase_instruments(K, ecutil, ErasureCodePluginRegistry)
+    for name, line in inst.items():
+        emit(f"instruments.{name}", **line, gpu=smi)
+    lap("instruments")
+    net_batches = collections.Counter({
+        (k0, tuple(k1), k2, k3): v
+        for k0, k1, k2, k3, v in net["frontend"]["batch_keys"]})
+    emit("instruments.ledger_overhead", **ledger_overhead(K, LL, dev),
+         gpu=smi)
+    emit("instruments.ledger", **ledger_checks(
+        K, CK, LL, PS, ErasureCodePluginRegistry, by_phase, net_batches,
+        rows_place), gpu=smi)
+    lap("instruments_checks")
     emit("walls", seconds=walls, total=sum(walls.values()), gpu=smi)
 
     def on(kernel):

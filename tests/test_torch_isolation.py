@@ -323,7 +323,10 @@ def test_no_source_imports_jax_or_ceph_tpu():
                 "msg/staging.py", "msg/connection.py", "msg/proto.py",
                 "msg/shed.py", "msg/server.py", "msg/client.py",
                 "msg/frontend.py", "bench/rados_bench.py",
-                "tools/rados_cli.py"):
+                "tools/rados_cli.py", "ops/launch_ledger.py",
+                "common/roofline.py", "common/profiler_capture.py",
+                "mgr/prometheus.py", "mgr/pg_autoscaler.py",
+                "tools/ceph_cli.py", "utils/schedule_explorer.py"):
         assert mod in walked, mod
     bad = []
     for path in sources:
@@ -612,5 +615,54 @@ def test_loopback_put_get_over_tcp_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", _NET_PROBE], cwd=ROOT,
                           env=_port_env(), capture_output=True, text=True,
                           timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+_INSTRUMENT_PROBE = """
+import contextlib, io, json, sys, tempfile
+import numpy as np
+import torch
+from ceph_tpu_torch.cluster import MiniCluster
+from ceph_tpu_torch.common import Context, ProfilerCapture, roofline
+from ceph_tpu_torch.mgr import pg_autoscaler, prometheus
+from ceph_tpu_torch.ops import launch_ledger, rs_kernels
+from ceph_tpu_torch.tools import ceph_cli
+from ceph_tpu_torch.utils import schedule_explorer
+rs_kernels.gf_apply(torch.ones((4, 8), dtype=torch.uint8),
+                    torch.ones((8, 256), dtype=torch.uint8))
+rs_kernels.crc32c_rows(torch.ones((3, 100), dtype=torch.uint8))
+assert sum(launch_ledger.counts("cpu").values()) == 2
+assert len(roofline.snapshot()["executables"]) == 2
+d = tempfile.mkdtemp()
+c = MiniCluster(n_osds=6, osds_per_host=2, chunk_size=128, cct=Context(),
+                data_dir=d, store_backend="bluestore")
+pid = c.create_ec_pool("p", {"k": "2", "m": "1", "device": "cpu"},
+                       pg_num=4)
+c.put(pid, "o", b"x" * 1000)
+assert "ceph_tpu_device_efficiency" in prometheus.render(c.cct)
+assert isinstance(c.profiler, ProfilerCapture)
+recs = pg_autoscaler.autoscale_recommendations(c.osdmap, {pid: 1000},
+                                               1 << 30)
+assert recs[0]["pool_name"] == "p"
+c.shutdown()
+with contextlib.redirect_stdout(io.StringIO()):
+    assert ceph_cli.main(["--data-dir", d, "osd", "tree"]) == 0
+res = schedule_explorer.explore_random(
+    lambda bus: bus.run_to_quiescence(), schedules=2)
+assert res.ok
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib",
+                                               "ceph_tpu"))))
+"""
+
+
+def test_instrument_plane_never_loads_jax():
+    """The launch ledger, the roofline, the exporter, the CLI, the
+    autoscaler and the schedule explorer run in a fresh interpreter with
+    nothing of JAX or the JAX package loaded."""
+    proc = subprocess.run([sys.executable, "-c", _INSTRUMENT_PROBE],
+                          cwd=ROOT, env=_port_env(), capture_output=True,
+                          text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
