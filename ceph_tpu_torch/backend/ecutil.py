@@ -19,9 +19,13 @@ regenerating-repair legs), each through the pipeline when given one.
 The legs run on the card unless the caller names ``device="cpu"`` or
 ``"numpy"``.
 
-Host crc32c is pure Python for short buffers and a vectorised numpy form
-(lanes of bytes, then a log-depth combine) for long ones; the native
-SSE4.2 kernel of the reference package is not carried over.
+Host crc32c is the native runtime's SSE4.2 ``ec_crc32c`` (the reference
+package's host checksum, ``ceph_tpu_torch.native``), zero-copy over any
+contiguous buffer.  Its plain version, :func:`crc32c_plain`, is pure
+Python for short buffers and a vectorised numpy form (lanes of bytes,
+then a log-depth combine) for long ones; it runs only where the native
+library could not be built, and each such call is counted in
+``native.plain_calls``.
 """
 from __future__ import annotations
 
@@ -29,6 +33,8 @@ import functools
 
 import numpy as np
 import torch
+
+from .. import native
 
 # -- crc32c (Castagnoli), seed-chained like ceph_crc32c ----------------------
 # HashInfo chains bufferlist::crc32c(seed) per shard with initial seed -1
@@ -116,16 +122,32 @@ def _crc32c_numpy(buf: np.ndarray) -> int:
     return int(c[0])
 
 
-def crc32c(seed: int, data: bytes | np.ndarray) -> int:
-    """ceph_crc32c semantics: raw reflected CRC-32C update, no final xor —
-    the caller chains seeds (standard crc32c(x) = crc32c(0xffffffff, x) ^ 0xffffffff)."""
-    if isinstance(data, np.ndarray):
-        arr = np.ascontiguousarray(data).reshape(-1).view(np.uint8)
-    else:
-        arr = np.frombuffer(bytes(data), dtype=np.uint8)
+def crc32c_plain(seed: int, arr: np.ndarray) -> int:
+    """Plain version of :func:`crc32c` over a contiguous uint8 array:
+    pure Python under 4 KiB, the numpy lanes above."""
     if len(arr) >= _CRC_NUMPY_MIN:
         return crc32c_zeros(seed, len(arr)) ^ _crc32c_numpy(arr)
     return _crc32c_py(seed & 0xFFFFFFFF, arr.tobytes())
+
+
+def crc32c(seed: int, data) -> int:
+    """ceph_crc32c semantics: raw reflected CRC-32C update, no final xor —
+    the caller chains seeds (standard crc32c(x) = crc32c(0xffffffff, x) ^ 0xffffffff).
+
+    ``data``: an ndarray (any dtype; a non-contiguous one is copied), or
+    bytes, bytearray or a memoryview, read in place when contiguous."""
+    if isinstance(data, np.ndarray):
+        arr = np.ascontiguousarray(data).reshape(-1).view(np.uint8)
+    else:
+        try:
+            arr = np.frombuffer(data, dtype=np.uint8)
+        except (TypeError, ValueError, BufferError):
+            arr = np.frombuffer(bytes(data), dtype=np.uint8)
+    lib = native.host_lib()
+    if lib is not None:
+        return lib.ec_crc32c(seed & 0xFFFFFFFF, arr.ctypes.data, arr.nbytes)
+    native.count_plain("crc32c")
+    return crc32c_plain(seed, arr)
 
 
 # -- crc32c combine algebra (the device checksum's host half) ---------------

@@ -140,6 +140,10 @@ class MiniCluster:
                  chunk_size: int = 4096, cct: Context | None = None,
                  data_dir=None, store_backend: str = "file"):
         self.cct = cct if cct is not None else default_context()
+        # a daemon's start (global_init.cc:577): load the plugins that
+        # osd_erasure_code_plugins names, failing on any that will not load
+        ErasureCodePluginRegistry.instance().preload(
+            self.cct.conf.get("osd_erasure_code_plugins").split())
         self.chunk_size = chunk_size
         self.n_osds = n_osds
         self.osds_per_host = osds_per_host

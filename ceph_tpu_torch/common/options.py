@@ -80,6 +80,20 @@ class Option:
 # The framework's option table (the subset of the reference's ~2000 options
 # this codebase consumes; same names where the concept matches).
 OPTIONS: list[Option] = [
+    Option("erasure_code_dir", TYPE_STR, LEVEL_ADVANCED, default="",
+           description="directory where erasure-code plugins can be found",
+           startup=True),
+    Option("osd_erasure_code_plugins", TYPE_STR, LEVEL_ADVANCED,
+           default="torch_rs cpp_rs",
+           description="erasure code plugins to preload", startup=True),
+    Option("ec_batch_max_stripes", TYPE_UINT, LEVEL_ADVANCED, default=256,
+           description="stripes coalesced per device dispatch"),
+    Option("ec_device_threshold_bytes", TYPE_SIZE, LEVEL_ADVANCED,
+           default=8 * 1024 * 1024,
+           description="under device=auto, single calls below this encode "
+                       "on the SIMD host codec and larger ones on the "
+                       "card; ceph_tpu_torch.tools.baseline_matrix config "
+                       "2 measures the crossover"),
     Option("pipeline_breaker_threshold", TYPE_UINT, LEVEL_ADVANCED,
            default=3,
            description="consecutive device-side codec failures before "

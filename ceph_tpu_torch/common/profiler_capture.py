@@ -29,11 +29,10 @@ record_shapes=False, with_stack=False)``, started and stopped around the
 window.  Its CUDA activity (kernels, copies) is the device's, for every
 thread of the process; its CPU op events are per thread, so counts of
 kernels come from the device events.  As measured on an H100, the
-profiler drops the device events of a window's first ~0.35% x (seconds
-since the process's first profiler session): its device timestamps
-drift from the host clock that opens the window.  In a long-lived
-process, start the work a moment after the window opens
-(``chip_smoke.py`` waits ~0.6% of its age).  The backend is injectable
+profiler drops the first device records of a session from about the
+third session in a process on, more as the process ages, so a window
+opens with :meth:`TorchProfiler.prime`, device work that takes the
+loss in place of the window's own.  The backend is injectable
 (``profiler=``, any object with ``start_trace(path)`` / ``stop_trace()``)
 so tests exercise every path without a card; the real one loads lazily
 and only when CUDA is already initialised in the process
@@ -58,22 +57,56 @@ _GLOBAL_LOCK = threading.Lock()
 TRACE_FILE = "trace.json"
 
 
+#: the span around a window's primer (:meth:`TorchProfiler.prime`) in its
+#: trace: the runtime calls inside it, and their device records, are the
+#: primer's
+PRIMER_SPAN = "ceph_tpu_torch.profiler_primer"
+
+
 class TorchProfiler:
     """The real backend: one ``torch.profiler.profile`` per window,
     CPU and CUDA activity, no shapes and no stacks, exported as Chrome
-    trace-event JSON into the window's directory on stop."""
+    trace-event JSON into the window's directory on stop.  Where CUDA is
+    initialised, a window opens with :meth:`prime`."""
+
+    #: one-byte fills and copies up that open a window on the card
+    PRIMER_LAUNCHES = 256
+    PRIMER_COPIES = 16
 
     def __init__(self):
         self._prof = None
         self._path = None
 
     def start_trace(self, path: str) -> None:
+        import torch
         from torch.profiler import ProfilerActivity, profile
         prof = profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA],
                        record_shapes=False, with_stack=False)
         prof.start()
         self._prof, self._path = prof, path
+        if torch.cuda.is_initialized():
+            self.prime()
+
+    def prime(self, device: str = "cuda") -> None:
+        """Fill one byte :data:`PRIMER_LAUNCHES` times and copy one up
+        :data:`PRIMER_COPIES` times on the current stream, then wait for
+        the card (``device="cpu"``: the same operators on the host).  On an H100 the profiler drops a session's first device
+        records from about its third session in a process on (PERF.md
+        §7); these take the loss in place of the window's own work.  They
+        run inside a :data:`PRIMER_SPAN` span."""
+        import torch
+        from torch.profiler import record_function
+        with record_function(PRIMER_SPAN):
+            flag = torch.empty(self.PRIMER_LAUNCHES, dtype=torch.uint8,
+                               device=device)
+            for i in range(self.PRIMER_LAUNCHES):
+                flag[i:i + 1].fill_(1)
+            one = torch.ones(1, dtype=torch.uint8)
+            for _ in range(self.PRIMER_COPIES):
+                flag[:1].copy_(one)
+            if flag.is_cuda:
+                torch.cuda.synchronize()
 
     def stop_trace(self) -> None:
         prof, path = self._prof, self._path

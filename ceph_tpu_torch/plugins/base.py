@@ -18,6 +18,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from ..common.options import SCHEMA
 from ..ops.codec import torch_device
 from .interface import ErasureCodeInterface, ErasureCodeProfile
 
@@ -25,18 +26,19 @@ SIMD_ALIGN = 32          # reference AVX alignment (ErasureCode.cc:42)
 CHUNK_ALIGN = 128        # the JAX package's chunk alignment, kept
 
 
-# Calls of at least this many bytes run on the device under device=auto;
-# the JAX package's ``ec_device_threshold_bytes`` default.
-DEVICE_THRESHOLD_BYTES = 8 * 1024 * 1024
+# Calls of at least this many bytes run on the device under device=auto:
+# the default of the option ``ec_device_threshold_bytes``.
+DEVICE_THRESHOLD_BYTES = SCHEMA["ec_device_threshold_bytes"].default
 
 
 class DeviceRouting:
     """The device routing policy of the device-backed plugins: ``device``
     is cuda (the default) | cpu | numpy | auto.  Only a profile that asks
-    for auto gets the size split: a call of at least the threshold
-    (profile ``device-threshold``, or its alias ``jax-threshold``, else
-    :data:`DEVICE_THRESHOLD_BYTES`) runs on cuda, a smaller one on the
-    numpy host codec."""
+    for auto gets the size split: a call of at least the threshold runs
+    on cuda, a smaller one on the host codec.  A profile's
+    ``device-threshold`` (or its alias ``jax-threshold``) pins the
+    threshold; otherwise the live option ``ec_device_threshold_bytes``
+    decides per call."""
 
     DEVICES = ("cuda", "cpu", "numpy", "auto")
 
@@ -45,12 +47,20 @@ class DeviceRouting:
         if self.device not in self.DEVICES:
             raise ValueError(
                 f"device={self.device} must be cuda|cpu|numpy|auto")
-        self.device_threshold = DEVICE_THRESHOLD_BYTES
+        self._pinned_threshold: int | None = None
         for key in ("device-threshold", "jax-threshold"):
             if key in profile:
-                self.device_threshold = self.to_int(
+                self._pinned_threshold = self.to_int(
                     key, profile, str(DEVICE_THRESHOLD_BYTES))
                 break
+        from ..common.context import default_context
+        self._conf = default_context().conf
+
+    @property
+    def device_threshold(self) -> int:
+        if self._pinned_threshold is not None:
+            return self._pinned_threshold
+        return int(self._conf.get("ec_device_threshold_bytes"))
 
     def use_device(self, nbytes: int) -> bool:
         """Should this call run on a torch device (cuda or cpu)?"""

@@ -6,8 +6,10 @@ Builds the hand-written CUDA kernels of ``ceph_tpu_torch/ops/csrc`` with
 ``nvcc``, holds each against its plain PyTorch version on the card, then
 drives the port end to end:
 
-1. build     -- nvcc build time of every source, card name and power
-                limit;
+1. build     -- nvcc build time of every source and, beside them, make of
+                the native runtime (native/ into ceph_tpu_torch/native/
+                build): its seconds, the host's CPU and SIMD level, card
+                name and power limit;
 2. kernels   -- every kernel against its plain version, bitwise, over a
                 grid of shapes (output rows past 4, k past 128, the
                 repair path's k = 1 and alpha x d), ragged widths, stripe
@@ -183,6 +185,18 @@ drives the port end to end:
                 the copy ceiling moving the same bytes;
 10. ec_bench -- the ceph_erasure_code_benchmark CLI: torch_rs encode and
                 decode, the default invocation, a liber8tion encode;
+10b. native  -- the native runtime on the card's host: (a) the library
+                loaded from the port's build at a SIMD level the CPU
+                supports; (b) the registry's dlopen contract (cpp_rs
+                loads twice, badver/failinit/noreg/noentry refused); (c)
+                cpp_rs against torch_rs on the card, k=8 m=4 1 MiB, three
+                techniques, encode and decode of {0, 9}, bitwise; (d) the
+                north star, ec_bench --plugin cpp_rs against torch_rs,
+                encode and decode, MiB/s; (e) the BatchQueue curve
+                (max_batch 1-256, 1,024 stripes of [8, 4 KiB] each) into
+                gf_apply_stripes, every parity against the host codec,
+                launches = ledger = dispatches; (f) host crc32c of 4 MiB
+                and apply of 1 MiB, native against plain, MB/s;
 11. sweep    -- the kernel sweep (ceph_tpu_torch.tools.kernel_sweep) in
                 process at full size, Cauchy RS(8,4) over [8, 8 Mi]: copy
                 ceiling, tensor-core bit-plane apply in int8 and bf16,
@@ -225,9 +239,10 @@ drives the port end to end:
                 (torch_rs k=8 m=4 with no device key, pg_num 32): 64 puts
                 of 4 MiB, 64 gets, osd.3 down and 64 degraded gets, a
                 `device profile start` ... `stop` window (torch.profiler)
-                around 16 of the puts and 16 of the degraded gets: the
-                exported trace's gf_apply and crc32c kernel events must
-                equal the launch ledger's launches in the window, the
+                around 16 of the puts and 16 of the degraded gets, each
+                opened by the backend's primer: the exported trace's
+                gf_apply and crc32c kernel events (the primer's apart)
+                must equal the launch ledger's launches in the window, the
                 card's busy share of the window, the trace's bytes; (d) a
                 prometheus scrape that parses (HELP and TYPE once a
                 family) with ceph_tpu_device_efficiency rows of gf_apply;
@@ -320,13 +335,56 @@ def rand_u8(gen: torch.Generator, shape, device) -> torch.Tensor:
 
 # -- phases -------------------------------------------------------------------
 
-def phase_build(cuda_build) -> dict:
+def host_cpu() -> tuple[str, bool]:
+    """The host's CPU model (cpuinfo's model name, else its vendor, family
+    and model numbers: a virtual machine may name it "unknown") and
+    whether /proc/cpuinfo lists avx2."""
+    with open("/proc/cpuinfo") as f:
+        text = f.read()
+    avx2 = re.search(r"\bavx2\b", text) is not None
+    model = re.search(r"^model name\s*:\s*(.*)$", text, re.M)
+    if model and model.group(1).strip() not in ("", "unknown"):
+        return model.group(1).strip(), avx2
+    fields = [re.search(rf"^{key}\s*:\s*(.*)$", text, re.M)
+              for key in ("vendor_id", "cpu family", "model")]
+    if not all(fields):
+        return "unknown", avx2
+    vendor, family, number = (f.group(1).strip() for f in fields)
+    return f"{vendor} family {family} model {number}", avx2
+
+
+def native_status(native) -> dict:
+    """``native.status()`` with the host's CPU, failing unless the port's
+    own build loaded at a SIMD level the CPU supports."""
+    st = native.status()
+    cpu, avx2 = host_cpu()
+    if not st["loaded"]:
+        raise AssertionError(f"native: library not loaded: {st['error']}")
+    if st["simd_level"] == 0 and avx2:
+        raise AssertionError("native: scalar SIMD level on an avx2 host")
+    if not st["path"].startswith(os.path.realpath(native.BUILD_DIR)):
+        raise AssertionError(f"native: loaded from {st['path']}")
+    return st | {"host_cpu": cpu, "avx2": avx2}
+
+
+def phase_build(cuda_build, native) -> dict:
+    """nvcc of every source and make of the native runtime, all at once;
+    fails if the native library did not load (:func:`native_status`)."""
     t0 = time.perf_counter()
+    # host_lib keeps a failed make's error for status()
+    maker = threading.Thread(target=native.host_lib, name="native-make")
+    maker.start()
     info = cuda_build.build_all()
+    maker.join()
     for name, v in info.items():
         print(f"# nvcc {name}.cu:\n{v['log']}", file=sys.stderr)
+    st = native_status(native)
     return {"seconds": time.perf_counter() - t0,
-            "per_source": {n: v["seconds"] for n, v in info.items()}}
+            "per_source": {n: v["seconds"] for n, v in info.items()},
+            "native": {"make_seconds": native.build_info["seconds"],
+                       "host_cpu": st["host_cpu"],
+                       "simd_level": st["simd_level"], "simd": st["simd"],
+                       "path": st["path"]}}
 
 
 def sweep_kernel_grid(SK, K, dev, gen) -> tuple[dict, int]:
@@ -1075,6 +1133,165 @@ def phase_ec_bench() -> dict:
             raise AssertionError(f"ec_bench {name}: {lines[0]!r}")
         out[name] = {"line": lines[0], "MiBps": kib / 1024 / seconds}
     return out
+
+
+NATIVE_REFUSED = {"badver": "does not match host",
+                  "failinit": "init of failinit failed",
+                  "noreg": "did not register plugin noreg",
+                  "noentry": "lacks __erasure_code_init"}
+# cpp_rs's technique names and torch_rs's for the same matrices
+NATIVE_TECHNIQUES = {"reed_sol_van": "reed_sol_van", "cauchy": "cauchy",
+                     "vandermonde_isa": "vandermonde"}
+
+
+def _bench_line(argv: list[str]) -> dict:
+    """One in-process ec_bench run: its line and MiB/s."""
+    import contextlib
+    import io
+
+    from ceph_tpu_torch.bench import ec_bench
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = ec_bench.main(argv)
+    line = buf.getvalue().strip()
+    match = _BENCH_LINE.match(line)
+    if rc != 0 or not match:
+        raise AssertionError(f"ec_bench {argv}: rc {rc}, {line!r}")
+    seconds, kib = float(match.group(1)), int(match.group(2))
+    return {"line": line, "MiBps": kib / 1024 / seconds}
+
+
+def _best_s(fn, reps: int) -> float:
+    best = math.inf
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def phase_native(K, LL, ecutil, gfref, registry_cls, native,
+                 device: str = "cuda", stripes: int = 1024
+                 ) -> tuple[dict, int]:
+    """The native runtime on the card's host: (a) the library phase build
+    made, at a SIMD level the host's CPU supports; (b) the registry's
+    dlopen contract; (c) cpp_rs against torch_rs on the card, bitwise;
+    (d) the north-star pair through ec_bench; (e) the BatchQueue curve
+    into gf_apply_stripes, launches equal to dispatches; (f) the host
+    crc32c and apply, native against plain.  ``device="cpu"`` (the CPU
+    tests) runs torch_rs and the queue's callback on the plain versions,
+    booked in the ledger's cpu route and launching nothing."""
+    from ceph_tpu_torch.tools import baseline_matrix as BM
+    out = {}
+    # (a)
+    st = out["status"] = native_status(native)
+    cpu = st["host_cpu"]
+    # (b)
+    reg = native.NativeRegistry.instance()
+    reg.load("cpp_rs")
+    count = reg.count()
+    reg.load("cpp_rs")
+    if reg.count() != count or count < 1:
+        raise AssertionError(f"native: reload changed the count {count}")
+    refused = {}
+    for name, text in NATIVE_REFUSED.items():
+        try:
+            reg.load(name)
+        except IOError as e:
+            if text not in str(e):
+                raise AssertionError(f"native: {name} refused with {e}")
+            refused[name] = str(e.args[-1])
+        else:
+            raise AssertionError(f"native: {name} loaded")
+    if reg.count() != count:
+        raise AssertionError("native: a refused plugin registered")
+    out["registry"] = {"count": count, "refused": refused}
+    # (c)
+    registry = registry_cls.instance()
+    data = np.random.default_rng(15).integers(0, 256, MIB,
+                                              dtype=np.uint8).tobytes()
+    lost = (0, 9)
+    compared = {}
+    for tech, torch_tech in NATIVE_TECHNIQUES.items():
+        cpp = registry.factory("cpp_rs", "", {"k": "8", "m": "4",
+                                              "technique": tech})
+        card = registry.factory("torch_rs", "", {"k": "8", "m": "4",
+                                                 "technique": torch_tech,
+                                                 "device": device})
+        a = cpp.encode(set(range(12)), data)
+        b = card.encode(set(range(12)), data)
+        bad = [i for i in range(12) if not np.array_equal(a[i], b[i])]
+        avail = {i: v for i, v in a.items() if i not in lost}
+        da = cpp.decode(set(lost), avail, a[0].nbytes)
+        db = card.decode(set(lost), avail, a[0].nbytes)
+        bad += [f"decode {i}" for i in lost
+                if not (np.array_equal(da[i], a[i])
+                        and np.array_equal(db[i], a[i]))]
+        if bad:
+            raise AssertionError(f"native: cpp_rs {tech} != torch_rs: {bad}")
+        compared[tech] = "bitwise"
+    out["cpp_rs_vs_torch_rs"] = compared
+    # (d)
+    pair = {}
+    for plugin in ("cpp_rs", "torch_rs"):
+        argv = ["--plugin", plugin, "-P", "k=8", "-P", "m=4", "--size",
+                str(MIB), "--iterations", "50"]
+        if plugin == "torch_rs":
+            argv += ["-P", f"device={device}"]
+        pair[plugin] = {
+            "encode": _bench_line(argv + ["--workload", "encode"]),
+            "decode": _bench_line(argv + ["--workload", "decode",
+                                          "--erased", "0",
+                                          "--erased", "9"])}
+    out["north_star"] = {
+        "k": 8, "m": 4, "bytes": MIB, "host_cpu": cpu,
+        "simd": st["simd"], **{f"{p}_{w}_MiBps": pair[p][w]["MiBps"]
+                               for p in pair for w in ("encode", "decode")},
+        "lines": {p: {w: v["line"] for w, v in r.items()}
+                  for p, r in pair.items()}}
+    # (e)
+    route = "cuda" if device == "cuda" else "cpu"
+    K.reset_launches()
+    keys_before = LL.counts(route)
+    curve = BM.config3_batch_queue(False, device, stripes)
+    launches = K.launches["gf_apply_stripes"]
+    ledger = sum(v for key, v in (LL.counts(route) - keys_before).items()
+                 if key[0] == "gf_apply_stripes")
+    dispatches = sum(p["dispatches"] for p in curve["curve"])
+    if ledger != dispatches or launches != (ledger if route == "cuda"
+                                            else 0):
+        raise AssertionError(f"native: batch queue launches {launches}, "
+                             f"ledger {ledger}, dispatches {dispatches}")
+    out["batch_queue"] = curve | {"stripes_each": stripes,
+                                  "launches": launches,
+                                  "ledger_launches": ledger}
+    # (f)
+    buf = np.random.default_rng(16).integers(0, 256, 4 * MIB,
+                                             dtype=np.uint8)
+    before = dict(native.plain_calls)
+    crc = ecutil.crc32c(0xFFFFFFFF, buf)
+    if crc != ecutil.crc32c_plain(0xFFFFFFFF, buf):
+        raise AssertionError("native: crc32c differs from its plain version")
+    crc_s = _best_s(lambda: ecutil.crc32c(0xFFFFFFFF, buf), 20)
+    crc_plain_s = _best_s(lambda: ecutil.crc32c_plain(0xFFFFFFFF, buf), 3)
+    mat = registry.factory("torch_rs", "", {"k": "8", "m": "4",
+                                            "device": device}).codec \
+        .parity_mat
+    rows = buf[:MIB].reshape(8, MIB // 8)
+    if not np.array_equal(gfref.apply_matrix_fast(mat, rows),
+                          gfref.apply_matrix(mat, rows)):
+        raise AssertionError("native: apply differs from its plain version")
+    apply_s = _best_s(lambda: gfref.apply_matrix_fast(mat, rows), 20)
+    apply_plain_s = _best_s(lambda: gfref.apply_matrix(mat, rows), 3)
+    if native.plain_calls != before:
+        raise AssertionError(f"native: plain paths ran {native.plain_calls}")
+    out["host"] = {"crc32c_4MiB_MBps": 4 * MIB / crc_s / 1e6,
+                   "crc32c_4MiB_plain_MBps": 4 * MIB / crc_plain_s / 1e6,
+                   "apply_k8m4_1MiB_MBps": MIB / apply_s / 1e6,
+                   "apply_k8m4_1MiB_plain_MBps": MIB / apply_plain_s / 1e6,
+                   "bitwise": True, "host_cpu": cpu,
+                   "plain_calls": native.plain_calls}
+    return out, launches
 
 
 _SWEEP_LINE = re.compile(r"^(\S.{33}) +(\d+) MiB/s$")
@@ -3696,17 +3913,13 @@ def net_launch_shapes(PS, registry_cls, seen, sizes=None) -> dict:
 
 # -- phase instruments --------------------------------------------------------
 
-# torch.profiler (kineto) drops the device events of a window's first
-# ~0.35% x (seconds since the process's first profiler session), as
-# measured on an H100: its device timestamps drift from the host clock
-# that opens the window (PERF.md §6).  A capture window's work starts
-# after profiler_lead_in(), which bounds that from above by the script's
-# age.
-PROFILER_DRIFT = 0.006
-
-
-def profiler_lead_in() -> float:
-    return max(0.25, PROFILER_DRIFT * (time.time() - T_START))
+# On an H100, torch.profiler drops the first device records of a session
+# from about a process's third session on, more in a longer-lived process
+# (0-15 of a window's first 272 over 32 windows in 257 s, once 89; PERF.md
+# §7).  Each capture window therefore opens with the backend's primer
+# (profiler_capture.TorchProfiler.prime), which takes that loss; the
+# work starts PROFILER_LEAD_S after the window opens.
+PROFILER_LEAD_S = 0.25
 
 
 INSTRUMENT_KERNELS = {"gf_apply": "gf_apply_kernel",
@@ -3735,11 +3948,30 @@ def trace_device_stats(path: str) -> dict:
     their mean duration (the kernel alone, where the launch ledger's
     event pair also spans the host's submit on an idle card), and the
     seconds the card was busy (the union of the events' intervals)."""
+    from ceph_tpu_torch.common.profiler_capture import PRIMER_SPAN
     with open(path) as f:
         trace = json.load(f)
     events = trace["traceEvents"] if isinstance(trace, dict) else trace
-    dev = [e for e in events
-           if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    events = [e for e in events if e.get("ph") == "X"]
+    # the window's primer (profiler_capture.TorchProfiler.prime) apart:
+    # the runtime calls inside its span and their device records
+    spans = [(e.get("tid"), float(e["ts"]),
+              float(e["ts"]) + float(e["dur"]))
+             for e in events if e.get("name") == PRIMER_SPAN]
+    runtime = [e for e in events if e.get("cat") == "cuda_runtime"]
+    in_primer = [e for e in runtime
+                 if any(e.get("tid") == tid and t0 <= float(e["ts"]) <= t1
+                        for tid, t0, t1 in spans)]
+    primed = {e.get("args", {}).get("correlation")
+              for e in in_primer} - {None}
+    # those of its runtime calls that put a record on the card
+    primer_work = sum(1 for e in in_primer if any(
+        w in e.get("name", "") for w in ("LaunchKernel", "Memcpy")))
+    dev = [e for e in events if e.get("cat") in DEVICE_CATS]
+    primer = [e for e in dev
+              if e.get("args", {}).get("correlation") in primed]
+    dev = [e for e in dev
+           if e.get("args", {}).get("correlation") not in primed]
     runs = {label: [float(e.get("dur", 0.0)) for e in dev
                     if e["cat"] == "kernel" and name in e.get("name", "")]
             for label, name in INSTRUMENT_KERNELS.items()}
@@ -3750,9 +3982,45 @@ def trace_device_stats(path: str) -> dict:
         if t1 > end:
             busy_us += t1 - max(t0, end)
             end = t1
+    launches = {c: float(e["ts"]) for e in runtime
+                if "LaunchKernel" in e.get("name", "")
+                and (c := e.get("args", {}).get("correlation"))
+                not in primed}
+    # a kernel's start less its launch's, by correlation id (both in the
+    # device tracer's clock)
+    ran = {c: float(e["ts"]) for e in dev if e["cat"] == "kernel"
+           and (c := e.get("args", {}).get("correlation")) in launches}
+    lags = sorted(ran[c] - launches[c] for c in ran)
+    # a runtime call's start less its enclosing operator's, by External
+    # id: the device tracer's clock against the host's (>= 0 where they
+    # agree)
+    ops = {e["args"]["External id"]: float(e["ts"]) for e in events
+           if e.get("cat") == "cpu_op" and "External id" in e.get("args", {})}
+    offsets = sorted(float(e["ts"]) - ops[x] for e in runtime
+                     if (x := e.get("args", {}).get("External id")) in ops)
+    opened = [float(e["ts"]) for e in events if e.get("cat") == "Trace"]
+
+    def after_open(ts: list[float]) -> float | None:
+        return (min(ts) - opened[0]) / 1e6 if ts and opened else None
+
+    def spread(v: list[float]) -> list[float] | None:
+        return [v[0], v[len(v) // 2], v[-1]] if v else None
     return {"device_events": len(dev),
             "by_cat": {c: sum(1 for e in dev if e["cat"] == c)
                        for c in DEVICE_CATS},
+            # the primer's device records against its runtime calls
+            "primer": [len(primer), primer_work],
+            "runtime_launches": len(launches),
+            "first_device_s": after_open([float(e["ts"]) for e in dev]),
+            "first_launch_s": after_open(list(launches.values())),
+            "kernel_lag_us": spread(lags),
+            # launches whose kernel is not in the trace: (index in the
+            # window, seconds after it opens)
+            "unmatched_launches": [
+                [i, after_open([ts])] for i, (c, ts) in enumerate(
+                    sorted(launches.items(), key=lambda kv: kv[1]))
+                if c not in ran],
+            "clock_offset_us": spread(offsets),
             "kernels": kernels,
             "kernel_ms": {label: sum(d) / len(d) / 1e3
                           for label, d in runs.items() if d},
@@ -3774,11 +4042,9 @@ class FakeProfiler:
 
 def _profiled(c, LL, run, n: int, reason: str, lead_s: float) -> dict:
     """``run(i)`` for i < n inside a ``device profile start`` ... ``stop``
-    window on the cluster's admin socket, after ``lead_s`` seconds of the
-    window (``profiler_lead_in``: the profiler drops the device events
-    of a window's first moments in an older process): the
-    exported trace's kernel launches against the ledger's in the window,
-    and the card's busy share of the ops' wall time."""
+    window on the cluster's admin socket, ``lead_s`` seconds after it
+    opens: the exported trace's kernel launches against the ledger's in
+    the window, and the card's busy share of the ops' wall time."""
     from ceph_tpu_torch.common.profiler_capture import TRACE_FILE
     sock = c.cct.admin_socket
     info = sock.call("device profile start", reason=reason)
@@ -3801,7 +4067,9 @@ def _profiled(c, LL, run, n: int, reason: str, lead_s: float) -> dict:
               for k in INSTRUMENT_KERNELS}
     if stats["kernels"] != ledger:
         raise AssertionError(f"instruments: trace kernels "
-                             f"{stats['kernels']} != ledger {ledger}")
+                             f"{stats['kernels']} != ledger {ledger} "
+                             f"({reason}: {stats}, lead {lead_s} s, ops "
+                             f"{wall} s)")
     return {"path": info["path"], "ops": n, "wall_s": wall, "lead_s": lead_s,
             "ledger_launches": ledger,
             **stats, "busy_share": stats["busy_s"] / wall,
@@ -3935,7 +4203,7 @@ def phase_instruments(K, ecutil, registry_cls, objects: int = 64,
                 c.put(pid, oid, d)
         prof_put = _profiled(c, LL, lambda i: c.put(
             pid, oids[lead + i], payloads[lead + i]), window, "put",
-            profiler_lead_in())
+            PROFILER_LEAD_S)
         with ClusterRun(K, c) as rd:
             bad = [oid for oid, d in zip(oids, payloads)
                    if c.get(pid, oid, len(d)) != d]
@@ -3943,7 +4211,7 @@ def phase_instruments(K, ecutil, registry_cls, objects: int = 64,
         got = {}
         prof_get = _profiled(c, LL, lambda i: got.__setitem__(
             oids[i], c.get(pid, oids[i], len(payloads[i]))), window,
-            "degraded-get", profiler_lead_in())
+            "degraded-get", PROFILER_LEAD_S)
         with ClusterRun(K, c) as dg:
             for oid, d in zip(oids[window:], payloads[window:]):
                 got[oid] = c.get(pid, oid, len(d))
@@ -4479,6 +4747,7 @@ def main() -> int:
     if not os.path.abspath(ceph_tpu_torch.__file__).startswith(HERE + os.sep):
         raise RuntimeError(f"ceph_tpu_torch imported from "
                            f"{ceph_tpu_torch.__file__}, not from {HERE}")
+    from ceph_tpu_torch import native
     from ceph_tpu_torch.backend import ecutil
     from ceph_tpu_torch.gf import bitmatrix as bm
     from ceph_tpu_torch.gf import ref as gfref
@@ -4509,7 +4778,7 @@ def main() -> int:
         walls[name], by_phase[name] = now - mark[0], keys - mark[1]
         mark[0], mark[1] = now, keys
 
-    emit("build", **phase_build(cuda_build), gpu=smi,
+    emit("build", **phase_build(cuda_build, native), gpu=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
     lap("build")
     emit("kernels", **phase_kernels(
@@ -4566,6 +4835,11 @@ def main() -> int:
     lap("shapes")
     emit("ec_bench", **phase_ec_bench(), gpu=smi)
     lap("ec_bench")
+    nat, n_native = phase_native(K, LL, ecutil, gfref,
+                                 ErasureCodePluginRegistry, native)
+    for name, line in nat.items():
+        emit(f"native.{name}", **line, gpu=smi)
+    lap("native")
     sweep, rows_sweep = phase_sweep(K, SK, KS, cuda_build, dev)
     emit("sweep", **sweep, gpu=smi)
     lap("sweep")
@@ -4601,7 +4875,9 @@ def main() -> int:
                                 "durable": n_durable, "net": n_net}},
         kernel_row("gf_apply_stripes", "gf_apply.cu",
                    "ceph_tpu/ops/pallas_kernels.py:80",
-                   "headline", n_stripes, on("gf_apply_stripes")),
+                   "headline", n_stripes, on("gf_apply_stripes"))
+        | {"launches_by_path": {"headline": n_stripes,
+                                "native": n_native}},
         kernel_row("xor_apply", "xor_apply.cu",
                    "ceph_tpu/ops/pallas_kernels.py:207",
                    "jerasure", n_xor, on("xor_apply")),

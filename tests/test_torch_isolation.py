@@ -269,6 +269,35 @@ with tempfile.TemporaryDirectory() as d:
     assert all(io.read(oid) == d0 for oid, d0 in data.items())
     assert c.get(pid, "hot", 700) == b"h" * 700
     c.shutdown()
+import os
+from ceph_tpu_torch import native
+from ceph_tpu_torch.gf import ref as gfref
+st = native.status()
+assert st["loaded"] and st["path"].startswith(
+    os.path.realpath(native.BUILD_DIR)), st
+ec = reg.factory("cpp_rs", "", {"k": "4", "m": "2", "technique": "cauchy"})
+enc = ec.encode(set(range(6)), bytes(range(256)) * 16)
+assert ec.decode_concat({c: v for c, v in enc.items() if c not in (0, 5)}
+                        )[:4096] == bytes(range(256)) * 16
+from ceph_tpu_torch.ops.codec import RSCodec
+pmat = RSCodec(4, 2, device="numpy").parity_mat
+q = native.BatchQueue(4, 2, 256, native.StripesOnDevice(pmat, "cpu"),
+                      max_batch=8)
+stripes = np.random.default_rng(4).integers(0, 256, (20, 4, 256),
+                                            dtype=np.uint8)
+pars = [q.submit(s0) for s0 in stripes]
+q.flush()
+assert all((p == gfref.apply_matrix(pmat, s0)).all()
+           for p, s0 in zip(pars, stripes))
+q.close()
+assert ecutil.crc32c(-1, b"123456789") ^ 0xFFFFFFFF == 0xE3069283
+assert native.plain_calls == {"crc32c": 0, "apply_matrix": 0}
+jax_build = os.path.join(os.path.dirname(native.NATIVE_DIR), "native",
+                         "build")
+with open("/proc/self/maps") as f:
+    mapped = [line.split()[-1] for line in f if "/" in line]
+assert not [p for p in mapped if p.startswith(jax_build + os.sep)], mapped
+assert any(p.endswith("libec_cpp_rs.so") for p in mapped)
 print(json.dumps(sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m == "jaxlib" or m.startswith("jaxlib.")
@@ -326,7 +355,9 @@ def test_no_source_imports_jax_or_ceph_tpu():
                 "tools/rados_cli.py", "ops/launch_ledger.py",
                 "common/roofline.py", "common/profiler_capture.py",
                 "mgr/prometheus.py", "mgr/pg_autoscaler.py",
-                "tools/ceph_cli.py", "utils/schedule_explorer.py"):
+                "tools/ceph_cli.py", "utils/schedule_explorer.py",
+                "native/__init__.py", "plugins/plugin_cpp_rs.py",
+                "tools/baseline_matrix.py"):
         assert mod in walked, mod
     bad = []
     for path in sources:

@@ -194,6 +194,29 @@ def test_real_backend_exports_a_chrome_trace(tmp_path, monkeypatch):
     assert isinstance(pc._profiler, pcm.TorchProfiler)
 
 
+def test_the_primer_runs_inside_its_span(tmp_path):
+    """TorchProfiler.prime's fills and copies lie inside PRIMER_SPAN,
+    where trace_device_stats finds them."""
+    from torch.profiler import ProfilerActivity, profile
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            pcm.TorchProfiler().prime(device="cpu")
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    span = [e for e in events if e.get("name") == pcm.PRIMER_SPAN
+            and e.get("ph") == "X"]
+    assert len(span) == 1
+    t0, t1 = span[0]["ts"], span[0]["ts"] + span[0]["dur"]
+    inside = [e["name"] for e in events if e.get("cat") == "cpu_op"
+              and t0 <= e["ts"] <= t1]
+    # and one fill of the host tensor that is copied up
+    assert inside.count("aten::fill_") == \
+        pcm.TorchProfiler.PRIMER_LAUNCHES + 1
+    assert inside.count("aten::copy_") == pcm.TorchProfiler.PRIMER_COPIES
+
+
 def test_trace_device_stats_counts_kernels_and_busy_union(tmp_path):
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_p", os.path.join(ROOT, "chip_smoke.py"))
@@ -216,6 +239,62 @@ def test_trace_device_stats_counts_kernels_and_busy_union(tmp_path):
     assert st["kernel_ms"] == {"gf_apply": 0.010, "crc32c_rows": 0.005}
     assert st["device_events"] == 4
     assert st["busy_s"] == pytest.approx(20e-6)
+    assert st["runtime_launches"] == 0 and st["kernel_lag_us"] is None
+
+
+def test_trace_device_stats_reads_each_kernels_lag(tmp_path):
+    """A kernel's start less its launch's, matched by correlation id; a
+    runtime call's less its operator's, by External id; the first launch
+    and device event after the window opens."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_p", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    sys.path.insert(0, ROOT)
+    spec.loader.exec_module(cs)
+    events = [
+        {"ph": "X", "cat": "cuda_runtime", "ts": 100, "dur": 4,
+         "name": "cudaLaunchKernel", "args": {"correlation": 7}},
+        {"ph": "X", "cat": "cuda_runtime", "ts": 200, "dur": 4,
+         "name": "cudaLaunchKernelExC", "args": {"correlation": 8}},
+        {"ph": "X", "cat": "cuda_runtime", "ts": 300, "dur": 4,
+         "name": "cudaLaunchKernel", "args": {"correlation": 9}},
+        {"ph": "X", "cat": "kernel", "ts": 90, "dur": 3,
+         "name": "gf_apply_kernel", "args": {"correlation": 7}},
+        {"ph": "X", "cat": "kernel", "ts": 230, "dur": 3,
+         "name": "crc32c_rows_kernel", "args": {"correlation": 8}},
+        {"ph": "X", "cat": "kernel", "ts": 400, "dur": 3,
+         "name": "gf_apply_kernel", "args": {"correlation": 5}},
+        {"ph": "X", "cat": "Trace", "ts": 50, "dur": 1000,
+         "name": "PyTorch Profiler (0)"},
+        {"ph": "X", "cat": "cpu_op", "ts": 500, "dur": 40,
+         "name": "aten::copy_", "args": {"External id": 3}},
+        {"ph": "X", "cat": "cuda_runtime", "ts": 510, "dur": 4,
+         "name": "cudaMemcpyAsync", "args": {"External id": 3}},
+        {"ph": "X", "cat": "cpu_op", "ts": 600, "dur": 40,
+         "name": "aten::copy_", "args": {"External id": 4}},
+        {"ph": "X", "cat": "cuda_runtime", "ts": 580, "dur": 4,
+         "name": "cudaMemcpyAsync", "args": {"External id": 4}},
+        # the window's primer: two fills, one of them on the card
+        {"ph": "X", "cat": "user_annotation", "ts": 60, "dur": 20, "tid": 1,
+         "name": pcm.PRIMER_SPAN},
+        {"ph": "X", "cat": "cuda_runtime", "ts": 62, "dur": 2, "tid": 1,
+         "name": "cudaLaunchKernel", "args": {"correlation": 1}},
+        {"ph": "X", "cat": "cuda_runtime", "ts": 66, "dur": 2, "tid": 1,
+         "name": "cudaLaunchKernel", "args": {"correlation": 2}},
+        {"ph": "X", "cat": "cuda_runtime", "ts": 70, "dur": 2, "tid": 1,
+         "name": "cudaDeviceSynchronize", "args": {"correlation": 3}},
+        {"ph": "X", "cat": "kernel", "ts": 64, "dur": 1,
+         "name": "fill", "args": {"correlation": 2}}]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    st = cs.trace_device_stats(str(path))
+    assert st["runtime_launches"] == 3 and st["primer"] == [1, 2]
+    assert st["device_events"] == 3
+    assert st["kernel_lag_us"] == [-10.0, 30.0, 30.0]
+    assert st["unmatched_launches"] == [[2, pytest.approx(250e-6)]]
+    assert st["clock_offset_us"] == [-20.0, 10.0, 10.0]
+    assert st["first_launch_s"] == pytest.approx(50e-6)
+    assert st["first_device_s"] == pytest.approx(40e-6)
 
 
 # -- the guard ------------------------------------------------------------------
