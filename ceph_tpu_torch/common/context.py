@@ -10,11 +10,14 @@ dump|reset``, ``jit dump|reset`` (``ops/launch_ledger.py``'s per-(kernel,
 launch shape) records), ``device dump`` (``device_telemetry``: the card
 over ``torch.cuda``), ``device top`` and ``device roofline``.
 Daemon-ish objects (ECBackend, shards) take a Context and hang their
-counters and commands off it.
+counters and commands off it.  A Context wires its config into the
+process-wide instrument switch (``instruments_enabled``) and the default
+tracer (``tracer_sample_rate``, ``osd_op_complaint_time`` as the slow-span
+promotion threshold), at construction and on every live ``conf.set``.
 """
 from __future__ import annotations
 
-from . import device_attribution
+from . import device_attribution, instruments
 from . import tracer as tracer_mod
 from .admin_socket import AdminSocket
 from .log import Log
@@ -34,6 +37,12 @@ class Context:
         self.log = Log(self.conf)
         self.perf = PerfCountersCollection()
         self.admin_socket = AdminSocket()
+        # adopt the instrument kill-switch and the tracer's sampling and
+        # slow-promotion knobs from this conf, and follow live updates.
+        # Both targets are process-wide (there is ONE default tracer), as
+        # the reference's md_config observers feed process singletons.
+        instruments.wire_config(self.conf)
+        tracer_mod.wire_config(self.conf)
         # the process-wide launch telemetry collection and the device-time
         # attribution ledger (who occupies the card, by owner class) are
         # shared by every Context, so any `perf dump` / prometheus render

@@ -4,8 +4,11 @@ A copy of ``ceph_tpu.common.instruments``: the port keeps its own copy,
 so it needs nothing of the JAX package.
 
 The measurement lever: every tracer span, instant and complete checks
-:func:`enabled` before doing any work, so :func:`set_enabled` (False)
-turns the instrumentation plane into cheap no-op guards.
+:func:`enabled` before doing any work, so ``instruments_enabled=false``
+(adopted by every :class:`~ceph_tpu_torch.common.context.Context` through
+:func:`wire_config`, and followed on a live ``config set``) or a
+:func:`disabled` block turns the instrumentation plane into cheap no-op
+guards.
 
 The flag is deliberately a bare module global read without a lock: the
 hot paths pay one attribute load + truth test per instrument call, and
@@ -16,6 +19,8 @@ What the switch does NOT stub: perf-counter math that the control plane
 to drop, behavior must not change with it.
 """
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 _enabled = True
 
@@ -28,3 +33,26 @@ def enabled() -> bool:
 def set_enabled(on: bool) -> None:
     global _enabled
     _enabled = bool(on)
+
+
+@contextmanager
+def disabled():
+    """Scoped kill-switch: instruments off inside the block, restored to
+    the PRIOR state on exit."""
+    prior = _enabled
+    set_enabled(False)
+    try:
+        yield
+    finally:
+        set_enabled(prior)
+
+
+def wire_config(conf) -> None:
+    """Adopt ``instruments_enabled`` from a ConfigProxy and follow live
+    updates (``config set instruments_enabled false`` on a running
+    cluster flips the process-wide switch, like every other option)."""
+    if "instruments_enabled" not in conf.schema:
+        return
+    set_enabled(bool(conf.get("instruments_enabled")))
+    conf.add_observer("instruments_enabled",
+                      lambda _name, v: set_enabled(bool(v)))

@@ -1,11 +1,13 @@
 """Typed option schema + runtime config store with live observers.
 
-A copy of ``ceph_tpu.common.options`` cut to the options the port reads,
-under the JAX package's names and defaults, so one config serves both
+A copy of ``ceph_tpu.common.options``: every option, under the JAX
+package's names, types, levels and defaults, so one config serves both
 packages (reference: src/common/options.cc's typed Option table and
 src/common/config.cc's ``md_config_t`` with its observers).  The
 ``jax_rs_*`` names are kept for that reason; in the port they set the
-CUDA codec pipeline.
+CUDA codec pipeline.  The two defaults that name a plugin
+(``osd_erasure_code_plugins``, ``osd_pool_default_erasure_code_profile``)
+name ``torch_rs`` where the JAX package names ``jax_rs``.
 """
 from __future__ import annotations
 
@@ -86,6 +88,17 @@ OPTIONS: list[Option] = [
     Option("osd_erasure_code_plugins", TYPE_STR, LEVEL_ADVANCED,
            default="torch_rs cpp_rs",
            description="erasure code plugins to preload", startup=True),
+    Option("osd_pool_default_erasure_code_profile", TYPE_STR, LEVEL_ADVANCED,
+           default="plugin=torch_rs technique=reed_sol_van k=2 m=2",
+           description="default erasure code profile"),
+    Option("osd_pool_default_size", TYPE_UINT, LEVEL_BASIC, default=3,
+           description="number of replicas for replicated pools",
+           min=0, max=10),
+    Option("osd_pool_default_pg_num", TYPE_UINT, LEVEL_BASIC, default=32,
+           description="number of PGs for new pools"),
+    Option("osd_recovery_max_chunk", TYPE_SIZE, LEVEL_ADVANCED,
+           default=8 << 20,
+           description="max recovery read size (rounded to stripe width)"),
     Option("ec_batch_max_stripes", TYPE_UINT, LEVEL_ADVANCED, default=256,
            description="stripes coalesced per device dispatch"),
     Option("ec_device_threshold_bytes", TYPE_SIZE, LEVEL_ADVANCED,
@@ -150,6 +163,23 @@ OPTIONS: list[Option] = [
            description="ops slower than this many seconds are slow ops "
                        "(flagged in dumps, counted on slow_ops)",
            min=0.0),
+    # -- observability fast path (common/instruments.py, tracer sampling) --
+    Option("instruments_enabled", TYPE_BOOL, LEVEL_ADVANCED, default=True,
+           description="master kill-switch for the hot-path instruments "
+                       "(tracer spans/instants/completes, wire "
+                       "accounting, rpc latency observation): off turns "
+                       "them into cheap no-op guards; health checks and "
+                       "perf-counter math keep working either way",
+           see_also=["tracer_sample_rate"]),
+    Option("tracer_sample_rate", TYPE_FLOAT, LEVEL_ADVANCED, default=1.0,
+           min=0.0, max=1.0,
+           description="head-based per-trace sampling rate: the decision "
+                       "is made ONCE when the root TraceContext is "
+                       "created and rides the context so a whole trace "
+                       "samples atomically; unsampled ops keep a "
+                       "micro-record and are promoted into the ring when "
+                       "they cross osd_op_complaint_time",
+           see_also=["instruments_enabled", "osd_op_complaint_time"]),
     Option("osd_recovery_chain_enable", TYPE_BOOL, LEVEL_ADVANCED,
            default=True,
            description="chained streaming repair: recovery waves plan a "
@@ -336,10 +366,16 @@ OPTIONS: list[Option] = [
                        "checks can page (an idle class holds no "
                        "evidence either way)"),
     # -- the log (common/log.py; the monitor's dout) ----------------------
+    Option("log_file", TYPE_STR, LEVEL_BASIC, default="",
+           description="path to log file"),
     Option("log_max_recent", TYPE_UINT, LEVEL_ADVANCED, default=500,
            description="recent log entries kept for crash dump"),
     Option("debug_osd", TYPE_INT, LEVEL_DEV, default=1,
            description="osd subsystem log gather level", min=0, max=20),
+    Option("debug_ec", TYPE_INT, LEVEL_DEV, default=1,
+           description="erasure-code subsystem log level", min=0, max=20),
+    Option("debug_crush", TYPE_INT, LEVEL_DEV, default=1,
+           description="crush subsystem log level", min=0, max=20),
     # -- monitor, heartbeats and flap damping (mon/, failure/markdown.py) --
     Option("osd_heartbeat_interval", TYPE_INT, LEVEL_ADVANCED, default=6,
            description="seconds between peer heartbeats", min=1, max=60),

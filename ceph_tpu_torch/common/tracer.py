@@ -628,6 +628,27 @@ def default_tracer() -> Tracer:
     return _default_tracer
 
 
+
+def wire_config(conf) -> None:
+    """Adopt the default tracer's sampling knobs from a ConfigProxy and
+    follow live updates: ``tracer_sample_rate`` sets the head-based
+    sampling probability, ``osd_op_complaint_time`` doubles as the
+    slow-op promotion threshold (the same bound SLOW_OPS health uses, so
+    'promoted into the ring' and 'flagged slow' agree by construction)."""
+    tr = default_tracer()
+    if "tracer_sample_rate" in conf.schema:
+        tr.sample_rate = float(conf.get("tracer_sample_rate"))
+
+        def _on_rate(_name, v, _tr=tr):
+            _tr.sample_rate = float(v)
+        conf.add_observer("tracer_sample_rate", _on_rate)
+    if "osd_op_complaint_time" in conf.schema:
+        tr.slow_threshold_s = float(conf.get("osd_op_complaint_time"))
+
+        def _on_complaint(_name, v, _tr=tr):
+            _tr.slow_threshold_s = float(v)
+        conf.add_observer("osd_op_complaint_time", _on_complaint)
+
 def trace_span(name: str, cat: str = "", **args) -> Span:
     """Convenience: a span on the process-default tracer."""
     return default_tracer().span(name, cat, **args)

@@ -19,13 +19,18 @@ Both report throughput and p50/p95/p99 latency.  Works with a threaded
 engine (deadline batching across arrivals) or the deterministic
 single-thread engine (the caller pumps ``step()``).
 
-A copy of ``ceph_tpu.exec.workload`` with one addition: ``closed_loop``
+A copy of ``ceph_tpu.exec.workload`` with two additions: ``closed_loop``
 takes ``kind="decode"``, whose payloads are ``{chunk: bytes}`` dicts
 submitted through ``submit_decode`` (degraded reads), so both directions
-of the serving path are driven the same way.
+of the serving path are driven the same way; and :class:`WorkloadKeys`,
+the seeded key streams (uniform, zipf, flash crowd) of the JAX package's
+``tools/rados_bench.py``, which the chaos campaign's tier phase draws
+from (``tools/chaos_run.py``).
 """
 from __future__ import annotations
 
+import bisect
+import random
 import threading
 import time
 
@@ -256,3 +261,82 @@ def compare_batched_unbatched(ec_impl, sinfo, n_ops: int = 512,
     b, u = results["batched"]["ops_s"], results["unbatched"]["ops_s"]
     results["speedup"] = round(b / u, 2) if u else 0.0
     return results
+
+
+class WorkloadKeys:
+    """Deterministic key streams for production-shaped workloads: a
+    uniform or zipfian draw over an ``n_keys`` keyspace, optionally
+    overlaid with a FLASH CROWD — a window of the run during which a
+    fraction of arrivals collapses onto a tiny hot set (the head of the
+    zipf ranking), the "everyone opens the same object" shape a cache
+    tier exists for.
+
+    Coordinates are op-sequence PROGRESS (0..1), not wall-clock, so a
+    stream is reproducible at any scale: generating 10k clients' keys
+    is 10k * ops calls of :meth:`key`, seeded once.  Thread-safe (mux
+    completion callbacks submit from reactor threads)."""
+
+    def __init__(self, n_keys: int = 10000, dist: str = "uniform",
+                 zipf_s: float = 1.1, flash: tuple | None = None,
+                 hot_frac: float = 0.001, seed: int = 0,
+                 prefix: str = "obj"):
+        if dist not in ("uniform", "zipf"):
+            raise ValueError(f"unknown key distribution {dist!r}")
+        if flash is not None:
+            frac, start, dur = flash
+            if not (0.0 <= frac <= 1.0 and 0.0 <= start <= 1.0
+                    and 0.0 <= dur <= 1.0):
+                raise ValueError(f"flash-crowd out of [0,1]: {flash}")
+        self.n = int(n_keys)
+        self.dist = dist
+        self.s = float(zipf_s)
+        self.flash = flash
+        self.hot = max(1, int(round(hot_frac * self.n)))
+        self.prefix = prefix
+        self._rng = random.Random(seed)
+        self._lock = threading.Lock()
+        self._seen: set[int] = set()
+        self.counts = {"total": 0, "flash": 0}
+        if dist == "zipf":
+            # rank r (1-based) with P(r) proportional to 1/r^s: an
+            # explicit CDF + bisect — exact, no rejection loop, and the
+            # head of the ranking doubles as the flash-crowd hot set
+            acc, cdf = 0.0, []
+            for r in range(1, self.n + 1):
+                acc += 1.0 / (r ** self.s)
+                cdf.append(acc)
+            self._cdf = [c / acc for c in cdf]
+
+    def _rank(self) -> int:
+        if self.dist == "zipf":
+            return bisect.bisect_left(self._cdf, self._rng.random())
+        return self._rng.randrange(self.n)
+
+    def key(self, progress: float) -> str:
+        """The next key for an arrival at ``progress`` (0..1) of the
+        run: hot-set draw inside the flash-crowd window, the base
+        distribution outside it."""
+        with self._lock:
+            self.counts["total"] += 1
+            rank = None
+            if self.flash is not None:
+                frac, start, dur = self.flash
+                if start <= progress < start + dur \
+                        and self._rng.random() < frac:
+                    self.counts["flash"] += 1
+                    rank = self._rng.randrange(self.hot)
+            if rank is None:
+                rank = self._rank()
+            self._seen.add(rank)
+            return f"{self.prefix}{rank:08d}"
+
+    def describe(self) -> dict:
+        with self._lock:
+            return {"dist": self.dist,
+                    "zipf_s": self.s if self.dist == "zipf" else None,
+                    "n_keys": self.n,
+                    "hot_set": self.hot,
+                    "flash": list(self.flash) if self.flash else None,
+                    "keys_drawn": self.counts["total"],
+                    "flash_draws": self.counts["flash"],
+                    "distinct_keys": len(self._seen)}

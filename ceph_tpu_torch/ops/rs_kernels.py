@@ -250,8 +250,16 @@ def _apply(name: str, mat, data, stripes: int) -> torch.Tensor:
     if data.device.type == "cpu":
         with launch_ledger.launch(name, key, nbytes, data.device):
             return gf_apply_stripes_plain(mat.cpu(), data, stripes)
+    return _apply_launch(name, key, nbytes, mat, data, stripes)
+
+
+def _apply_launch(name: str, key: tuple, nbytes: int, mat: torch.Tensor,
+                  data: torch.Tensor, stripes: int) -> torch.Tensor:
+    """:func:`_apply` on a CUDA tensor: checks, one launch on the current
+    stream, counted.  Nothing here waits on the card."""
     if not data.is_cuda:
         raise ValueError(f"{name} runs on cuda or cpu, not {data.device}")
+    r, k = mat.shape
     if mat.device != data.device:
         raise ValueError(f"mat on {mat.device} but data on {data.device}")
     if not (mat.is_contiguous() and data.is_contiguous()):
@@ -392,6 +400,13 @@ def xor_apply_form(W, packets, form: str) -> torch.Tensor:
     if packets.device.type == "cpu":
         with launch_ledger.launch("xor_apply", key, nbytes, packets.device):
             return xor_apply_plain(W.cpu(), packets)
+    return _xor_launch(key, nbytes, W, packets, form)
+
+
+def _xor_launch(key: tuple, nbytes: int, W: torch.Tensor,
+                packets: torch.Tensor, form: str) -> torch.Tensor:
+    """:func:`xor_apply_form` on a CUDA tensor: checks, one launch on the
+    current stream, counted.  Nothing here waits on the card."""
     if not packets.is_cuda:
         raise ValueError(f"xor_apply runs on cuda or cpu, not "
                          f"{packets.device}")
@@ -399,6 +414,7 @@ def xor_apply_form(W, packets, form: str) -> torch.Tensor:
         raise ValueError(f"W on {W.device} but packets on {packets.device}")
     if not (W.is_contiguous() and packets.is_contiguous()):
         raise ValueError("W and packets must be contiguous")
+    r, k = W.shape
     p = int(packets.shape[1])
     out = torch.empty((r, p), dtype=torch.uint8, device=packets.device)
     if r == 0 or p == 0:

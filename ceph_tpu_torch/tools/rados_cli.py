@@ -28,7 +28,7 @@ import argparse
 import sys
 
 
-def _warm_card() -> None:
+def warm_card() -> None:
     """Build (or load from ``ops/build/``) the EC write path's kernels and
     start CUDA before the server accepts: a cold first put would otherwise
     spend the client's per-attempt timeout waiting on ``nvcc``.  No card:
@@ -145,7 +145,7 @@ def main(argv=None) -> int:
     try:
         if args.cmd == "serve":
             from ..net import ClusterServer
-            _warm_card()
+            warm_card()
             server = ClusterServer(c, port=args.port)
             print(f"serving on 127.0.0.1:{server.port}", flush=True)
             try:

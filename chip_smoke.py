@@ -234,7 +234,30 @@ drives the port end to end:
                 map_pool against the scalar chain) and at 2^20 PGs
                 (every PG against the plain version, 256 against the
                 interpreter).  Sub-phases print placement.<name> lines;
-13. instruments -- the port's instrument plane on the card, last: (c) a
+13. lint     -- ceph-lint over the checkout's ceph_tpu_torch/
+                (ceph_tpu_torch.tools.ceph_lint.lint_summary with the
+                package's baseline): new, baselined and stale findings
+                and the count by rule; any new finding fails the run;
+14. chaos    -- the seeded chaos campaign (ceph_tpu_torch.tools.chaos_run,
+                seed 13, 12 ops) twice on the card: a durable 9-OSD
+                MiniCluster served by ClusterServer (cephx) with its EC
+                pool torch_rs k=2 m=1 device=cuda, TcpRados traffic
+                under transport, bus and store faults, the SLO burn, a
+                flapping OSD, the pipeline breaker opened by injected
+                dispatch failures and re-closed by a gf_apply probe whose
+                parity is the plain version's, the drain and the cache
+                tier.  Both reports ok, every acked write verified over
+                TCP and locally, equal event digests, OSD_FLAPPING and
+                DEVICE_DEGRADED raised (and cleared), the breaker opened
+                and closed, gf_apply and crc32c_rows launches in each
+                campaign by the launch ledger (equal to the wrappers'
+                counters); each campaign's seconds, ms per put and get
+                (host clock), launches by kernel and events by plane.
+                chaos.tracer: the default tracer's slow threshold and
+                sample rate against the campaign Context's
+                osd_op_complaint_time and tracer_sample_rate, after a
+                live conf.set of the first to 5.0;
+15. instruments -- the port's instrument plane on the card, last: (c) a
                 durable BlueStore MiniCluster at phase cluster's widths
                 (torch_rs k=8 m=4 with no device key, pg_num 32): 64 puts
                 of 4 MiB, 64 gets, osd.3 down and 64 degraded gets, a
@@ -4737,6 +4760,83 @@ def phase_placement(PS, cuda_build, dev, sample: int = 4096
     return lines, launches, rows + lines["type0"]["rows"]
 
 
+def phase_lint() -> dict:
+    """ceph-lint over the checkout's package, with its baseline."""
+    from ceph_tpu_torch.tools import ceph_lint
+    t0 = time.perf_counter()
+    s = ceph_lint.lint_summary()
+    out = {"new": s["new"], "baselined": s["baselined"],
+           "stale": s["stale_baseline"], "total": s["total"],
+           "rules_run": s["rules_run"], "by_rule": s["by_rule"],
+           "seconds": time.perf_counter() - t0}
+    if s["new"]:
+        raise AssertionError(f"lint: {s['new']} new findings: {s}")
+    return out
+
+
+def phase_chaos(K, smi: str, seed: int = 13, ops: int = 12,
+                device: str = "cuda") -> tuple:
+    """Two seeded chaos campaigns with the pool on the card, their
+    invariants, and the tracer's wiring to the campaign's Context.
+    ``device="cpu"`` (the tests) runs the plain versions, which the
+    wrappers' counters do not count."""
+    from ceph_tpu_torch.common import tracer
+    from ceph_tpu_torch.tools import chaos_run
+    runs, n_apply, n_crc = [], 0, 0
+    for _ in range(2):
+        K.reset_launches()
+        rep = chaos_run.run_campaign(seed=seed, ops=ops, device=device)
+        counters = dict(K.launches)
+        n_apply += counters["gf_apply"]
+        n_crc += counters["crc32c_rows"]
+        led = rep["launches"]
+        if not (rep["ok"] and rep["verified"] == rep["acked_writes"] > 0):
+            raise AssertionError(f"chaos: report not ok: {rep}")
+        if not {"OSD_FLAPPING", "DEVICE_DEGRADED"} <= \
+                set(rep["health_seen"]):
+            raise AssertionError(f"chaos: health {rep['health_seen']}")
+        if rep["breaker"]["opens"] < 1 or \
+                rep["breaker"]["state"] != "closed":
+            raise AssertionError(f"chaos: breaker {rep['breaker']}")
+        if led.get("gf_apply", 0) < 1 or led.get("crc32c_rows", 0) < 1:
+            raise AssertionError(f"chaos: ledger launches {led}")
+        if device == "cuda" and \
+                any(led.get(k, 0) != counters[k] for k in counters):
+            raise AssertionError(f"chaos: ledger {led} != counters "
+                                 f"{counters}")
+        runs.append({
+            "seconds": rep["timing"]["seconds"],
+            "put_ms": rep["timing"]["put_ms"],
+            "get_ms": rep["timing"]["get_ms"],
+            "puts": rep["timing"]["puts"], "gets": rep["timing"]["gets"],
+            "acked_writes": rep["acked_writes"],
+            "verified": rep["verified"],
+            "tier_acked": rep["tier"]["acked_writes"],
+            "launches": led, "events": rep["events"],
+            "event_digest": rep["event_digest"],
+            "breaker": rep["breaker"], "phase3": rep["phase3"],
+            "health_seen": rep["health_seen"],
+            "transport": rep["transport"]})
+    if runs[0]["event_digest"] != runs[1]["event_digest"]:
+        raise AssertionError("chaos: same seed, different event digests")
+    cct = chaos_run._campaign_context()
+    tr = tracer.default_tracer()
+    cct.conf.set("osd_op_complaint_time", 5.0)
+    wiring = {"slow_threshold_s": tr.slow_threshold_s,
+              "osd_op_complaint_time": cct.conf.get("osd_op_complaint_time"),
+              "sample_rate": tr.sample_rate,
+              "tracer_sample_rate": cct.conf.get("tracer_sample_rate")}
+    cct.conf.set("osd_op_complaint_time", 30.0)
+    if wiring["slow_threshold_s"] != 5.0 or \
+            wiring["slow_threshold_s"] != wiring["osd_op_complaint_time"] \
+            or wiring["sample_rate"] != wiring["tracer_sample_rate"]:
+        raise AssertionError(f"chaos: tracer not wired: {wiring}")
+    return ({"seed": seed, "ops": ops, "campaigns": runs,
+             "digests_equal": True, "gf_apply_launches": n_apply,
+             "crc32c_rows_launches": n_crc, "gpu": smi},
+            wiring, n_apply, n_crc)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -4847,6 +4947,12 @@ def main() -> int:
     for name, line in placement.items():
         emit(f"placement.{name}", **line, gpu=smi)
     lap("placement")
+    emit("lint", **phase_lint(), gpu=smi)
+    lap("lint")
+    chaos, wiring, n_chaos, n_chaos_crc = phase_chaos(K, smi)
+    emit("chaos", **chaos)
+    emit("chaos.tracer", **wiring, gpu=smi)
+    lap("chaos")
     inst = phase_instruments(K, ecutil, ErasureCodePluginRegistry)
     for name, line in inst.items():
         emit(f"instruments.{name}", **line, gpu=smi)
@@ -4872,7 +4978,8 @@ def main() -> int:
         | {"launches_by_path": {"ecutil": n_apply, "serving": n_serving,
                                 "repair": n_repair, "backend": n_backend,
                                 "cluster": n_cluster,
-                                "durable": n_durable, "net": n_net}},
+                                "durable": n_durable, "net": n_net,
+                                "chaos": n_chaos}},
         kernel_row("gf_apply_stripes", "gf_apply.cu",
                    "ceph_tpu/ops/pallas_kernels.py:80",
                    "headline", n_stripes, on("gf_apply_stripes"))
@@ -4889,7 +4996,7 @@ def main() -> int:
                                 "backend": n_backend_crc,
                                 "cluster": n_cluster_crc,
                                 "durable": n_durable_crc,
-                                "net": n_net_crc},
+                                "net": n_net_crc, "chaos": n_chaos_crc},
            "library": "no PyTorch call computes crc32c"},
         {"name": "crush_straw2", "route": "cuda",
          "source": "ceph_tpu_torch/ops/csrc/crush_straw2.cu",

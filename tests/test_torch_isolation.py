@@ -357,7 +357,12 @@ def test_no_source_imports_jax_or_ceph_tpu():
                 "mgr/prometheus.py", "mgr/pg_autoscaler.py",
                 "tools/ceph_cli.py", "utils/schedule_explorer.py",
                 "native/__init__.py", "plugins/plugin_cpp_rs.py",
-                "tools/baseline_matrix.py"):
+                "tools/baseline_matrix.py", "analysis/__init__.py",
+                "analysis/engine.py", "analysis/lockmodel.py",
+                "analysis/rules_locks.py", "analysis/rules_threads.py",
+                "analysis/rules_observability.py", "analysis/rules_copy.py",
+                "analysis/rules_guards.py", "analysis/rules_torch.py",
+                "tools/ceph_lint.py", "tools/chaos_run.py"):
         assert mod in walked, mod
     bad = []
     for path in sources:
@@ -697,3 +702,38 @@ def test_instrument_plane_never_loads_jax():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+_LINT_CHAOS_PROBE = """
+import json, sys
+from ceph_tpu_torch.tools import ceph_lint, chaos_run
+from ceph_tpu_torch.exec.workload import WorkloadKeys
+summary = ceph_lint.lint_summary()
+assert summary["new"] == 0, summary
+keys = WorkloadKeys(n_keys=8, dist="zipf", seed=1)
+assert keys.key(0.5).startswith("obj")
+assert chaos_run.pool_profile("cpu")["plugin"] == "torch_rs"
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib",
+                                               "ceph_tpu"))))
+"""
+
+
+def test_lint_and_chaos_tools_never_load_jax():
+    """The lint over the whole tree (its rules load the port's runtime
+    registries) and the chaos campaign's module run in a fresh
+    interpreter with nothing of JAX or the JAX package loaded."""
+    proc = subprocess.run([sys.executable, "-c", _LINT_CHAOS_PROBE],
+                          cwd=ROOT, env=_port_env(), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_chaos_campaign_without_a_card_raises(no_card, tmp_path):
+    from ceph_tpu_torch.tools import chaos_run
+    with pytest.raises(RuntimeError, match="cuda"):
+        chaos_run.run_campaign(data_dir=tmp_path)
+    assert list(tmp_path.iterdir()) == []
+    with pytest.raises(RuntimeError, match="cuda"):
+        chaos_run.main(["-q", "--data-dir", str(tmp_path)])

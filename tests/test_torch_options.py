@@ -15,17 +15,47 @@ from ceph_tpu_torch.ops.codec import RSCodec
 from ceph_tpu_torch.plugins import DEVICE_THRESHOLD_BYTES
 from ceph_tpu_torch.plugins.registry import ErasureCodePluginRegistry
 
-# JAX-package options the port does not read yet (ROADMAP, Queue 1)
-STILL_MISSING = {
-    "debug_crush", "debug_ec", "instruments_enabled", "log_file",
-    "osd_pool_default_erasure_code_profile", "osd_pool_default_pg_num",
-    "osd_pool_default_size", "osd_recovery_max_chunk", "tracer_sample_rate",
-}
+# JAX-package options the port's table lacks: none
+STILL_MISSING: set[str] = set()
+
+# the options the port's table gained last, with the config wiring
+WIRED = ["debug_crush", "debug_ec", "instruments_enabled", "log_file",
+         "osd_pool_default_erasure_code_profile", "osd_pool_default_pg_num",
+         "osd_pool_default_size", "osd_recovery_max_chunk",
+         "tracer_sample_rate"]
+
+
+def _port_default(jax_default):
+    """The JAX package's default as the port states it: a default that
+    names the ``jax_rs`` plugin names ``torch_rs``."""
+    if isinstance(jax_default, str):
+        return jax_default.replace("jax_rs", "torch_rs")
+    return jax_default
+
+
+def _same_option(name):
+    port, jax = options.SCHEMA[name], joptions.SCHEMA[name]
+    assert (port.type, port.level, port.startup, port.min, port.max,
+            port.enum_allowed) == (jax.type, jax.level, jax.startup,
+                                   jax.min, jax.max, jax.enum_allowed)
+    assert port.default == _port_default(jax.default)
 
 
 def test_option_names_are_the_jax_packages_less_the_missing():
+    assert not STILL_MISSING
     assert set(options.SCHEMA) == set(joptions.SCHEMA) - STILL_MISSING
-    assert STILL_MISSING <= set(joptions.SCHEMA)
+
+
+def test_every_option_matches_the_jax_packages():
+    for name in sorted(joptions.SCHEMA):
+        _same_option(name)
+
+
+@pytest.mark.parametrize("name", WIRED)
+def test_wired_option_matches_the_jax_packages(name):
+    _same_option(name)
+    conf, jconf = Context().conf, joptions.ConfigProxy()
+    assert conf.get(name) == _port_default(jconf.get(name))
 
 
 @pytest.mark.parametrize("name", ["erasure_code_dir",
