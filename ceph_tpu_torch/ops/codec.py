@@ -42,17 +42,23 @@ DEVICES = ("cuda", "cpu", "numpy")
 DECODE_CACHE_SIZE = 2516
 
 
-def torch_device(device: str) -> torch.device:
-    """The torch device of a 'cuda' or 'cpu' codec or plugin.  'cuda' on a
-    machine with no CUDA device raises rather than run on the CPU."""
-    if device == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "device=cuda but torch.cuda.is_available() is False")
-        return torch.device("cuda", torch.cuda.current_device())
-    if device == "cpu":
-        return torch.device("cpu")
-    raise ValueError(f"device={device} has no torch device")
+def torch_device(device) -> torch.device:
+    """The torch device of a 'cuda' or 'cpu' codec or plugin, or of one
+    card named as 'cuda:N' or a ``torch.device`` (a mesh shard's).  A card
+    on a machine with no CUDA device raises rather than run on the CPU."""
+    if isinstance(device, str) and (device in ("cpu", "cuda")
+                                    or device.startswith("cuda:")):
+        device = torch.device(device)
+    if not isinstance(device, torch.device) or \
+            device.type not in ("cpu", "cuda"):
+        raise ValueError(f"device={device} has no torch device")
+    if device.type == "cpu":
+        return device
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={device} but torch.cuda.is_available() is False")
+    return torch.device("cuda", torch.cuda.current_device()
+                        if device.index is None else device.index)
 
 
 # -- the repair legs' GF products (no RSCodec) ----------------------------------
@@ -99,15 +105,17 @@ def gf_inner_product_host(mat: np.ndarray, data: np.ndarray) -> np.ndarray:
 class _DecodeTables:
     """One signature's cached decode state: the host matrix, the source
     chunk order, and — uploaded lazily, then pinned for the LRU entry's
-    lifetime — the device-resident copy.  The device copy is what keeps
-    an LRU *hit* from paying a host->device matrix transfer per call."""
+    lifetime — the device-resident copies, one a device (and a column
+    block, for a mesh shard's survivor rows).  The device copy is what
+    keeps an LRU *hit* from paying a host->device matrix transfer per
+    call."""
 
     __slots__ = ("D", "src", "dev")
 
     def __init__(self, D: np.ndarray, src: list[int]):
         self.D = D
         self.src = src
-        self.dev: torch.Tensor | None = None
+        self.dev: dict[tuple, torch.Tensor] = {}
 
 
 class RSCodec:
@@ -268,25 +276,39 @@ class RSCodec:
         entry = self._decode_entry(erasures, available)
         return entry.D, entry.src
 
-    def decode_matrix_device(self, erasures, available=None):
+    def decode_matrix_device(self, erasures, available=None, device=None,
+                             cols: tuple[int, int] | None = None):
         """Like :meth:`decode_matrix` but the matrix is the DEVICE-resident
-        copy, uploaded once per LRU entry: an LRU hit costs zero
-        host->device transfers (``decode_table_uploads`` counts them)."""
+        copy, uploaded once per LRU entry and device: an LRU hit costs zero
+        host->device transfers (``decode_table_uploads`` counts them).
+        ``device`` names another card than the codec's (a mesh shard's);
+        ``cols`` = (c0, c1) takes the column block [c0, c1), zero past the
+        last column: the decode matrix of a mesh shard that holds survivor
+        rows [c0, c1) of a count zero-padded to a multiple of dp."""
         entry = self._decode_entry(erasures, available)
-        return self._entry_device(entry), entry.src
+        return self._entry_device(entry, device, cols), entry.src
 
-    def _entry_device(self, entry: _DecodeTables) -> torch.Tensor:
+    def _entry_device(self, entry: _DecodeTables, device=None,
+                      cols: tuple[int, int] | None = None) -> torch.Tensor:
         """Pin (lazily uploading) an already-fetched entry's device copy."""
-        if entry.dev is None:
+        dev = self.torch_device if device is None else torch_device(device)
+        key = (dev, cols)
+        got = entry.dev.get(key)
+        if got is None:
+            D = np.ascontiguousarray(entry.D, dtype=np.uint8)
+            if cols is not None:
+                D = np.pad(D[:, cols[0]:cols[1]], ((0, 0), (0, max(
+                    0, cols[1] - max(cols[0], D.shape[1])))))
             # upload outside the lock, publish under it: two threads racing
             # a fresh signature upload twice but count once
-            with trace_span("codec.table_upload", bytes=int(entry.D.nbytes)):
-                dev = self.to_device(entry.D)
+            with trace_span("codec.table_upload", bytes=int(D.nbytes)):
+                got = torch.from_numpy(D).to(dev)
             with self._lock:
-                if entry.dev is None:
-                    entry.dev = dev
+                if key not in entry.dev:
+                    entry.dev[key] = got
                     self.decode_table_uploads += 1
-        return entry.dev
+                got = entry.dev[key]
+        return got
 
     def decode(self, chunks: dict[int, np.ndarray],
                erasures: list[int]) -> dict[int, np.ndarray]:

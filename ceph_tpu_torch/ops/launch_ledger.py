@@ -73,7 +73,9 @@ _lock = threading.Lock()
 _keys: dict[tuple, dict] = {}        # (route, key) -> {launches, booked, ...}
 _sources_booked: set[str] = set()    # libraries whose first key was booked
 _pending: collections.deque = collections.deque()
-_free_events: list = []
+# recycled (start, end) pairs by card index: an event records only on
+# streams of the card it was first recorded on
+_free_events: dict[int, list] = {}
 _windows: list[tuple] = []           # (Counter, labels or None, route)
 _paused = 0
 _dropped = 0
@@ -115,10 +117,12 @@ def _count(rec: dict, route: str, key: tuple) -> None:
             seen[key] += 1
 
 
-def _event_pair() -> tuple:
+def _event_pair(index: int) -> tuple:
+    """A (start, end) timing pair for card ``index``, recycled or new."""
     with _lock:
-        if _free_events:
-            return _free_events.pop()
+        pool = _free_events.get(index)
+        if pool:
+            return pool.pop()
     return (torch.cuda.Event(enable_timing=True),
             torch.cuda.Event(enable_timing=True))
 
@@ -180,7 +184,9 @@ def launch(label: str, key: tuple, nbytes: int, device: torch.device,
             seconds = time.perf_counter() - t0
         else:
             stream = torch.cuda.current_stream(device)
-            start, end = _event_pair()
+            index = torch.cuda.current_device() if device.index is None \
+                else device.index
+            start, end = _event_pair(index)
             if first:
                 with tracer.trace_span("jit.first_dispatch", fn=label):
                     start.record(stream)
@@ -203,9 +209,9 @@ def launch(label: str, key: tuple, nbytes: int, device: torch.device,
         _count(rec, route, key)
         if route == "cuda":
             if first:
-                _free_events.append((start, end))
+                _free_events.setdefault(index, []).append((start, end))
             else:
-                _pending.append((key, nbytes, start, end))
+                _pending.append((key, nbytes, start, end, index))
                 backlog = len(_pending)
                 full = backlog >= EVENT_BACKLOG
                 recycle = backlog % RECYCLE == 0
@@ -237,13 +243,14 @@ def resolve(make_room: bool = False) -> int:
             _pending.popleft()
             _dropped += 1
     meta = {"modeled_source": "launch_ledger", "route": "cuda"}
-    for key, nbytes, start, end in done:
+    for key, nbytes, start, end, _index in done:
         roofline.record_call(key[0], _roofline_key(key, "cuda"),
                              start.elapsed_time(end) / 1e3,
                              cost=(0.0, float(nbytes), 0),
                              clock="cuda_event", meta=meta)
     with _lock:
-        _free_events.extend((s, e) for _k, _n, s, e in done)
+        for _k, _n, start, end, index in done:
+            _free_events.setdefault(index, []).append((start, end))
     return len(done)
 
 

@@ -64,14 +64,31 @@ succeeds.  Every stage lands on the tracer
 (``pipeline.pack``/``dispatch``/``complete`` spans) and the in-flight
 depth on a perf histogram.
 
-Multi-card: ``jax_rs_mesh_devices`` >= 2 with that many cards present
-raises ``NotImplementedError`` at construction (the mesh steps are not
-ported yet); with fewer cards the option is ignored, as in the JAX
-package.  ``mesh_dispatches`` stays, at 0.
+Multi-card: with ``jax_rs_mesh_devices`` >= 2 and that many cards
+present (or a :class:`~ceph_tpu_torch.parallel.mesh.Mesh` set as the
+``mesh`` attribute), encode and decode batches go through the mesh steps
+of ``parallel/mesh.py``, as the JAX package's do (``ceph_tpu/ops/
+pipeline.py:466-565``): ``sharded_batch_encode_step`` on the batch's
+stripes [S, k, chunk], zero stripes padding S to a multiple of dp, and
+``sharded_decode_step`` on the survivors [k', S*chunk], the decode
+matrix's column blocks the codec's copies on each shard's card.  With
+fewer cards the option is ignored.  A mesh that fails to build raises:
+the pipeline never serves from one card in its place.  The reference's
+shape rules pick the path: an encode batch whose bytes are not whole
+chunks, or whose chunk does not split over sp, and a decode whose
+survivors are not the decode matrix's, take the single-card path.  A
+mesh dispatch is asynchronous like a single one: the steps run with the
+pipeline's stream current on every card, ``mesh.shard`` moves each
+shard's block there (gathered into pinned memory first, so the move is
+asynchronous), ``Sharded.host`` brings the result blocks back into one
+pinned buffer, and an event on every card's stream closes the batch;
+the batch waits on all of them (:class:`_Dispatched`), then puts the
+blocks in place.  ``mesh_dispatches`` counts the batches.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
 import weakref
 
@@ -93,25 +110,31 @@ _MISSING = object()
 
 
 class _Dispatched:
-    """One dispatched batch on the card: the pinned host output its copy
-    lands in, the event recorded after that copy, and the tensors that
-    must stay alive until the event completes."""
+    """One dispatched batch on the card (or the cards of a mesh): the
+    pinned host output its copies land in, the events recorded after
+    them (one a card), the tensors that must stay alive until the events
+    complete, and, for a mesh batch, ``finish``: the host array from the
+    landed output (its blocks put in place, the padding dropped)."""
 
-    __slots__ = ("out", "event", "keep")
+    __slots__ = ("out", "events", "keep", "finish")
 
-    def __init__(self, out: torch.Tensor, event, keep: tuple):
+    def __init__(self, out, events: tuple, keep: tuple, finish=None):
         self.out = out
-        self.event = event
+        self.events = events
         self.keep = keep
+        self.finish = finish
 
     @property
     def nbytes(self) -> int:
         return int(self.out.nbytes)
 
     def wait(self) -> np.ndarray:
-        """Wait for the batch's event; the pinned output as numpy."""
-        self.event.synchronize()
+        """Wait for the batch's events; the pinned output as numpy."""
+        for event in self.events:
+            event.synchronize()
         self.keep = None
+        if self.finish is not None:
+            return self.finish(self.out)
         return self.out.numpy()
 
 
@@ -151,7 +174,7 @@ def launch(dev: torch.device, host: np.ndarray, run, keep: tuple = (),
         out.copy_(card_out, non_blocking=True)
         event = torch.cuda.Event()
         event.record(stream)
-    return _Dispatched(out, event, (src, card_in, card_out, *keep))
+    return _Dispatched(out, (event,), (src, card_in, card_out, *keep))
 
 
 def apply_rows(mat: np.ndarray, block: np.ndarray, k: int,
@@ -283,8 +306,9 @@ def _build_perf(name: str):
                                        "unpack, or were refused by the "
                                        "open breaker")
             .add_u64_counter("mesh_dispatches",
-                             "batches split across a device mesh (not "
-                             "ported: stays 0)")
+                             "batches split across the device mesh's "
+                             "shards (jax_rs_mesh_devices engaged, or a "
+                             "mesh set on the pipeline)")
             .add_u64("breaker_state",
                      "circuit breaker state (0 closed, 1 half-open "
                      "probe in flight, 2 open: submits fail fast)")
@@ -318,7 +342,15 @@ class CodecPipeline:
                          if depth is None else depth)
         self.mesh_devices = int(conf.get("jax_rs_mesh_devices")
                                 if mesh_devices is None else mesh_devices)
-        self._mesh_ctx()                # raises where a mesh would engage
+        # the device mesh, built from mesh_devices when that many cards
+        # are present (a mesh that fails to build raises here); a caller
+        # may set the attribute to a mesh of its own
+        self.mesh = self._mesh_ctx()
+        # the mesh steps: the encode's a codec (each holds the parity
+        # matrix on every card of its mesh), the decode's one
+        self._enc_steps: weakref.WeakKeyDictionary = \
+            weakref.WeakKeyDictionary()
+        self._dec_step = None
         self.perf = _build_perf(name)
         self.cct.perf.add(self.perf)
         self._lock = threading.Lock()
@@ -528,15 +560,23 @@ class CodecPipeline:
     # -- device dispatch helpers ---------------------------------------------
 
     def _mesh_ctx(self):
-        """None: the single-card path.  ``jax_rs_mesh_devices`` >= 2 with
-        that many cards present would engage a mesh, which the port does
-        not have yet, so it raises rather than quietly run on one card."""
+        """A device mesh over the first ``jax_rs_mesh_devices`` cards when
+        >= 2 are asked for and present; None for the single-card path.
+        ``make_mesh`` failing raises: no batch is served from one card in
+        the mesh's place."""
         if self.mesh_devices < 2 or \
                 torch.cuda.device_count() < self.mesh_devices:
             return None
-        raise NotImplementedError(
-            f"jax_rs_mesh_devices={self.mesh_devices}: the multi-card "
-            f"codec pipeline is not ported yet")
+        from ..parallel import mesh as meshmod
+        return meshmod.make_mesh(self.mesh_devices)
+
+    def _mesh_for(self, codec):
+        """The mesh when it engages for ``codec``: its devices are of the
+        codec's type (a cpu codec never runs on a card)."""
+        mesh = self.mesh
+        if mesh is None or mesh.device_type != codec.torch_device.type:
+            return None
+        return mesh
 
     def _stream(self, dev: torch.device) -> torch.cuda.Stream | None:
         """The pipeline's stream on card ``dev``; None for the CPU."""
@@ -567,23 +607,133 @@ class CodecPipeline:
 
     def dispatch_encode(self, codec, data_shards, chunk_size: int):
         """``data_shards`` [k, S*chunk] host uint8 (logical row order) ->
-        parity [m, S*chunk], dispatched async on the pipeline's stream;
-        ``chunk_size`` is the JAX package's mesh split unit, unused on one
-        card."""
+        parity [m, S*chunk], dispatched async on the pipeline's stream,
+        or over the mesh's shards when it engages and the shapes divide
+        (``chunk_size`` is the unit the stripes split by)."""
+        mesh = self._mesh_for(codec)
+        if mesh is not None:
+            out = self._mesh_encode(codec, data_shards, int(chunk_size),
+                                    mesh)
+            if out is not None:
+                return out
         mat = codec.parity_matrix_device()
         return self._launch(codec.torch_device, data_shards,
                             codec.encode_device, keep=(mat,))
+
+    def _mesh_encode(self, codec, data_shards, c: int, mesh):
+        """The encode through ``sharded_batch_encode_step`` (None: the
+        shapes take the single-card path).  [k, S*c] is the stripes'
+        [S, k, c] with the axes swapped, zero stripes pad S to a multiple
+        of dp (a zero stripe encodes to zero parity), and the parity comes
+        back into [m, S*c]."""
+        k, total = data_shards.shape
+        dp, sp = mesh.shape["dp"], mesh.shape["sp"]
+        if c <= 0 or total % c or c % sp:
+            return None
+        from ..parallel import mesh as meshmod
+        stripes = total // c
+        step = self._mesh_step(mesh, codec)
+        data = torch.from_numpy(np.ascontiguousarray(
+            data_shards, dtype=np.uint8)).view(k, stripes, c)
+        out = np.empty((codec.m, total), dtype=np.uint8)
+
+        def finish(parity):
+            parity.full(out=torch.from_numpy(out).view(
+                codec.m, stripes, c).transpose(0, 1))
+            return out
+        return self._mesh_run(
+            mesh, lambda: step(meshmod.shard(
+                mesh, data.transpose(0, 1), ("dp", None, "sp"),
+                (stripes + (-stripes) % dp, k, c))), finish)
 
     def dispatch_decode(self, codec, stack, erasures, available):
         """``stack`` [k', S*chunk] host uint8 survivors in the sorted-src
         order ``codec.decode_matrix(erasures, available)`` returns ->
         recovered rows [len(erasures), S*chunk], async.  The decode matrix
         is the codec's card-resident LRU copy."""
+        mesh = self._mesh_for(codec)
+        if mesh is not None:
+            out = self._mesh_decode(codec, stack, erasures, available, mesh)
+            if out is not None:
+                return out
         mat, _src = codec.decode_matrix_device(erasures, available)
         return self._launch(
             codec.torch_device, stack,
             lambda card: codec.decode_device(card, erasures, available),
             keep=(mat,))
+
+    def _mesh_decode(self, codec, stack, erasures, available, mesh):
+        """The decode through ``sharded_decode_step`` (None: the survivors
+        are not the decode matrix's).  Each shard's columns of the decode
+        matrix are the codec's copy on its card; zero survivors pad the
+        count to a multiple of dp and zero columns the bytes to one of
+        sp."""
+        from ..parallel import mesh as meshmod
+        erasures = sorted(int(e) for e in erasures)
+        kk, total = stack.shape
+        _D, src = codec.decode_matrix(erasures, available)
+        if kk != len(src):
+            return None
+        dp, sp = mesh.shape["dp"], mesh.shape["sp"]
+        per = -(-kk // dp)
+        step = self._mesh_step(mesh)
+        out = np.empty((len(erasures), total), dtype=np.uint8)
+
+        def run():
+            D = meshmod.Sharded(mesh, (len(erasures), per * dp), (None, "dp"),
+                                {(i, j): codec.decode_matrix_device(
+                                    erasures, available, mesh.device(i, j),
+                                    (i * per, (i + 1) * per))[0]
+                                 for i, j in mesh.shards()})
+            return step(D, meshmod.shard(mesh, stack, ("dp", "sp"),
+                                         (per * dp, total + (-total) % sp)))
+
+        def finish(rec):
+            rec.full(out=torch.from_numpy(out))
+            return out
+        return self._mesh_run(mesh, run, finish)
+
+    def _mesh_step(self, mesh, codec=None):
+        """The mesh's encode step for ``codec`` (it holds the parity matrix
+        on every card of the mesh) or, with None, its decode step: built
+        once a mesh, under the lock."""
+        from ..parallel import mesh as meshmod
+        with self._lock:
+            if codec is None:
+                if self._dec_step is None or self._dec_step[0] is not mesh:
+                    self._dec_step = (mesh, meshmod.sharded_decode_step(mesh))
+                return self._dec_step[1]
+            got = self._enc_steps.get(codec)
+            if got is None or got[0] is not mesh:
+                got = self._enc_steps[codec] = (
+                    mesh, meshmod.sharded_batch_encode_step(
+                        mesh, codec.parity_mat))
+            return got[1]
+
+    def _mesh_run(self, mesh, run, finish) -> _Dispatched | np.ndarray:
+        """One mesh dispatch: ``run()`` -> the step's
+        :class:`Sharded` result, made with the pipeline's stream current
+        on every card of the mesh (the step's moves and launches, and the
+        uploads of matrices it is the first to need, are ordered on it);
+        its blocks move back into one pinned buffer, an event a card
+        closes the batch, and ``finish(landed)`` gives the host array once
+        every event is done.  On CPU devices all of it runs now."""
+        cuda = mesh.device_type == "cuda"
+        with contextlib.ExitStack() as current:
+            if cuda:
+                for dev in mesh.devices:
+                    current.enter_context(
+                        torch.cuda.stream(self._stream(dev)))
+            result = run()
+            landed = result.host()
+            self.perf.inc("mesh_dispatches")
+            if not cuda:
+                return finish(landed)
+            events = []
+            for dev in mesh.devices:
+                events.append(torch.cuda.Event())
+                events[-1].record(self._stream(dev))
+        return _Dispatched(landed, tuple(events), (result,), finish)
 
     def dispatch_apply(self, mat: np.ndarray, block: np.ndarray, k: int,
                        dev: torch.device):

@@ -168,7 +168,12 @@ drives the port end to end:
                 depth 0 (synchronous) against depth 4; (c) 4 KiB ops,
                 k=4 m=2, batched against unbatched (bench.py's serving
                 comparison), 8192 ops an arm, three times, every 16th op
-                checked;
+                checked; serving.rados_bench: the serving load generator
+                (ceph_tpu_torch.tools.rados_bench) in process, --compare
+                at 256 ops of 4 MiB (k=8 m=4, 4 KiB chunk) and
+                concurrency 16, and --mode mux at 512 sessions x 2 RPCs
+                over 8 connections: ops/s and p50/p99 of each arm, every
+                op completed, no JAX loaded;
 7. headline  -- rs_kernels.gf_apply_stripes over 64 x 1 MiB stripes
                 (Cauchy RS(8,4), erasures {0, 9}) in the vertical layout,
                 timed with CUDA events;
@@ -234,6 +239,28 @@ drives the port end to end:
                 map_pool against the scalar chain) and at 2^20 PGs
                 (every PG against the plain version, 256 against the
                 interpreter).  Sub-phases print placement.<name> lines;
+12b. mesh    -- the device mesh of ceph_tpu_torch/parallel/mesh.py over
+                the distinct cards (two or more), else 4 shards (dp 2,
+                sp 2) on the one card, `cards` and `shards` on every
+                line: (a) sharded_encode_step and
+                sharded_batch_encode_step on RS(8,4) Cauchy,
+                [64, 8, 1 Mi], parity bitwise against one
+                gf_apply_stripes, checksum (int64) and rotated against
+                their plain recomputation; (b) sharded_decode_step of
+                erasures {0, 9} of that batch, [2, 8] x [8, 64 Mi],
+                against the lost rows; (c) sharded_placement_step on
+                phase placement's ec84 pool at 2^20 x's, out against one
+                map_rule and hist against the bincount of the valid
+                entries; (d) a ServingEngine whose codec pipeline carries
+                the mesh: 64 encodes of 4 MiB and 64 degraded reads
+                ({1, 9} lost) at concurrency 16, every op against the
+                single-card encode_many and the objects' bytes, every
+                device batch a mesh dispatch through the same steps
+                (encode: gf_apply_stripes, decode: gf_apply, once a
+                shard a batch).  Each step's gf_apply /
+                gf_apply_stripes / crush_straw2 launches per shard
+                (equal to the launch ledger's) and CUDA-event ms beside
+                the single card's.  mesh.<name> lines;
 13. lint     -- ceph-lint over the checkout's ceph_tpu_torch/
                 (ceph_tpu_torch.tools.ceph_lint.lint_summary with the
                 package's baseline): new, baselined and stale findings
@@ -1548,19 +1575,22 @@ def _perf_delta(before: dict, after: dict, keys) -> dict:
     return out
 
 
-PIPE_KEYS = ("submitted", "completed", "errors", "pack_time",
-             "dispatch_time", "complete_time", "inflight_depth")
+PIPE_KEYS = ("submitted", "completed", "errors", "mesh_dispatches",
+             "pack_time", "dispatch_time", "complete_time", "inflight_depth")
 ENGINE_KEYS = ("batches", "ops_coalesced", "ops_failed", "queue_wait_time")
 
 
 def serve_run(K, workload, eng, kind: str, n_ops: int, concurrency: int,
-              payloads: list, check) -> dict:
+              payloads: list, check, per_batch: int = 1,
+              kernel: str = "gf_apply") -> dict:
     """One closed loop of ``n_ops`` through ``eng`` with the launch counts
     zeroed just before and read just after; every op's result goes
     through ``check(payload_index, op_number, result)`` on the finisher
     thread as it completes (nothing is kept, as a server sends chunks on
     and drops them).  Fails on a wrong result, a failed op, a pipeline
-    error or a launch count that is not the device batches."""
+    error or a count of ``kernel`` launches that is not ``per_batch`` a
+    device batch (a mesh pipeline launches once a shard, its encode
+    gf_apply_stripes)."""
     index = {id(p): i for i, p in enumerate(payloads)}
     submit = eng.submit_encode if kind == "encode" else eng.submit_decode
     lock = threading.Lock()
@@ -1601,11 +1631,11 @@ def serve_run(K, workload, eng, kind: str, n_ops: int, concurrency: int,
         del eng.__dict__[f"submit_{kind}"]
     eng.flush()
     torch.cuda.synchronize()
-    launches = K.launches["gf_apply"]
+    launches = K.launches[kernel]
     report = {**res, "MiBps": n_ops * res["op_bytes"] / MIB
               / res["elapsed_s"],
               "engine": _perf_delta(eng0, eng.perf.dump(), ENGINE_KEYS),
-              "gf_apply_launches": launches, "checked": state["checked"],
+              f"{kernel}_launches": launches, "checked": state["checked"],
               "check_s_on_finisher": state["check_s"]}
     pipe = _perf_delta(pipe0, eng.pipeline.perf.dump(), PIPE_KEYS)
     report["pipeline"] = pipe
@@ -1616,10 +1646,10 @@ def serve_run(K, workload, eng, kind: str, n_ops: int, concurrency: int,
             or report["engine"]["ops_failed"]:
         raise AssertionError(f"serving {kind}: {state['checked']} of "
                              f"{n_ops} checked, {state['bad'][:3]}")
-    if launches != device_batches:
-        raise AssertionError(f"serving {kind}: {launches} gf_apply "
+    if launches != per_batch * device_batches:
+        raise AssertionError(f"serving {kind}: {launches} {kernel} "
                              f"launches for {device_batches} device "
-                             f"batches")
+                             f"batches, {per_batch} a batch")
     return report
 
 
@@ -1731,42 +1761,32 @@ def small_op_serving(K, ecutil, registry, engine_cls, context_cls,
                       for label, v in ops_s.items()}}
 
 
-def phase_serving(K, ecutil, registry_cls, ops: int = 256,
-                  concurrency: int = 16, obj_bytes: int = 4 * MIB
-                  ) -> tuple[dict, int]:
-    """The serving path at RBD-on-EC size: torch_rs k=8 m=4 reed_sol_van
-    with no device key (the card), 4 KiB stripe unit, 4 MiB objects, a
-    ServingEngine with the option defaults under closed_loop at
-    concurrency 16; (a) 256 encodes and 256 degraded reads ({0, 9} lost)
-    at pipeline depth 4, (b) depth 0 (the synchronous pipeline) against
-    depth 4, (c) bench.py's
-    small-op serving comparison on the card.  Returns the report and the
-    gf_apply launches of (a)."""
-    from ceph_tpu_torch.common import Context
-    from ceph_tpu_torch.exec import ServingEngine, workload
-    # the pipeline's completion boundary waits in Event.synchronize; the
-    # coalescer packs meanwhile only if that wait releases the GIL
-    gil = event_wait_releases_gil()
-    if not gil["releases_gil"]:
-        raise AssertionError(f"Event.synchronize holds the GIL: {gil}")
+def rbd_workload(ecutil, registry, workload, obj_bytes: int, lost: set,
+                 n_payloads: int = 8) -> tuple:
+    """The RBD-on-EC serving workload: torch_rs k=8 m=4 reed_sol_van with
+    no device key (the card), 4 KiB stripe unit, ``n_payloads`` objects
+    of ``obj_bytes``, their chunks by the single-card ``encode_many``
+    (checked against the numpy codec), the degraded reads with ``lost``
+    down, and the checks ``serve_run`` calls on each op's result: an
+    encode against ``encode_many`` (every 16th also against the numpy
+    codec), a decode against the object's bytes.  Returns (ec, sinfo,
+    payloads, reads, check_encode, check_decode)."""
     k, m, unit = 8, 4, 4096
     profile = {"k": str(k), "m": str(m), "technique": "reed_sol_van"}
-    registry = registry_cls.instance()
     ec = registry.factory("torch_rs", "", dict(profile))
     if ec.get_profile()["device"] != "cuda":
         raise AssertionError(f"default device {ec.get_profile()['device']}")
     host = registry.factory("torch_rs", "", profile | {"device": "numpy"})
     sinfo = ecutil.StripeInfo(k, ec.get_chunk_size(k * unit))
     assert sinfo.chunk_size == unit, sinfo.chunk_size
-    pays = workload.make_payloads(obj_bytes, 8, seed=0)
+    pays = workload.make_payloads(obj_bytes, n_payloads, seed=0)
     want = ecutil.encode_many(sinfo, ec, pays)
     host_want = ecutil.encode_many(sinfo, host, pays)
     for w, h in zip(want, host_want):
         if any(not np.array_equal(w[c], h[c]) for c in range(k + m)):
             raise AssertionError("encode_many on the card != numpy codec")
-    lost = {0, 9}
     src = sorted(ec.minimum_to_decode(set(range(k)),
-                                      set(range(k + m)) - lost))
+                                      set(range(k + m)) - set(lost)))
     assert len(src) == k, src
     reads = [{c: w[c] for c in src} for w in want]
     logical = [p.tobytes() for p in pays]
@@ -1785,6 +1805,32 @@ def phase_serving(K, ecutil, registry_cls, ops: int = 256,
     def check_decode(i, n, data):
         if data != logical[i]:
             raise AssertionError("decoded bytes differ")
+
+    return ec, sinfo, pays, reads, check_encode, check_decode
+
+
+def phase_serving(K, ecutil, registry_cls, ops: int = 256,
+                  concurrency: int = 16, obj_bytes: int = 4 * MIB
+                  ) -> tuple[dict, int]:
+    """The serving path at RBD-on-EC size: torch_rs k=8 m=4 reed_sol_van
+    with no device key (the card), 4 KiB stripe unit, 4 MiB objects, a
+    ServingEngine with the option defaults under closed_loop at
+    concurrency 16; (a) 256 encodes and 256 degraded reads ({0, 9} lost)
+    at pipeline depth 4, (b) depth 0 (the synchronous pipeline) against
+    depth 4, (c) bench.py's
+    small-op serving comparison on the card.  Returns the report and the
+    gf_apply launches of (a)."""
+    from ceph_tpu_torch.common import Context
+    from ceph_tpu_torch.exec import ServingEngine, workload
+    # the pipeline's completion boundary waits in Event.synchronize; the
+    # coalescer packs meanwhile only if that wait releases the GIL
+    gil = event_wait_releases_gil()
+    if not gil["releases_gil"]:
+        raise AssertionError(f"Event.synchronize holds the GIL: {gil}")
+    registry = registry_cls.instance()
+    ec, sinfo, pays, reads, check_encode, check_decode = rbd_workload(
+        ecutil, registry, workload, obj_bytes, lost={0, 9})
+    k, m, unit = 8, 4, sinfo.chunk_size
 
     def run_pair(depth: int, tag: str) -> dict:
         eng = ServingEngine(cct=Context(), ec_impl=ec, sinfo=sinfo,
@@ -4760,6 +4806,265 @@ def phase_placement(PS, cuda_build, dev, sample: int = 4096
     return lines, launches, rows + lines["type0"]["rows"]
 
 
+def mesh_ms(fn, iters: int, devices: list, warmup: int = 1) -> float:
+    """Mean milliseconds of ``fn`` over ``iters`` calls, CUDA events on
+    every card of the mesh (the slowest card's span), launch ledger
+    paused."""
+    from ceph_tpu_torch.ops import launch_ledger
+    with launch_ledger.paused():
+        for _ in range(warmup):
+            fn()
+        for d in devices:
+            torch.cuda.synchronize(d)
+        pairs = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)) for _ in devices]
+        for d, (start, _end) in zip(devices, pairs):
+            start.record(torch.cuda.current_stream(d))
+        for _ in range(iters):
+            fn()
+        for d, (_start, end) in zip(devices, pairs):
+            end.record(torch.cuda.current_stream(d))
+        for _start, end in pairs:
+            end.synchronize()
+    return max(start.elapsed_time(end) for start, end in pairs) / iters
+
+
+def _mesh_counted(K, CK, LL, mesh, fn, label: str) -> tuple:
+    """``fn()`` once with the wrappers' counts zeroed just before and read
+    just after, and the launch ledger recording: (its result, the
+    launches line).  The ledger's count must equal the wrapper's."""
+    for d in mesh.devices:
+        torch.cuda.synchronize(d)
+    K.reset_launches()
+    CK.reset_launches()
+    with LL.recording(route="cuda") as seen:
+        out = fn()
+        for d in mesh.devices:
+            torch.cuda.synchronize(d)
+    n = (CK.launches if label == "crush_straw2" else K.launches)[label]
+    ledger = sum(v for key, v in seen.items()
+                 if key[0] == label or (label == "crush_straw2"
+                                        and key[0].startswith("crush.")))
+    if ledger != n:
+        raise AssertionError(f"mesh: {label} ledger {ledger} != wrapper {n}")
+    shards = mesh.shape["dp"] * mesh.shape["sp"]
+    return out, {"kernel": label, "launches": n, "ledger": ledger,
+                 "per_shard": n / shards}
+
+
+def phase_mesh(K, CK, LL, PS, ecutil, registry_cls, devices=None,
+               batch: int = 64, n: int = MIB, n_xs: int | None = None,
+               obj_bytes: int = 4 * MIB, ops: int = 64
+               ) -> tuple[dict, dict]:
+    """The device mesh (ceph_tpu_torch/parallel/mesh.py) at full width:
+    the distinct cards when there are two or more, else a 4-shard mesh
+    (dp 2, sp 2) on the one card.  (a) sharded_encode_step and
+    sharded_batch_encode_step on RS(8,4) Cauchy, [64, 8, 1 Mi]: parity
+    bitwise against one gf_apply_stripes, checksum and rotated against
+    their plain recomputation; (b) sharded_decode_step of erasures {0, 9}
+    of that batch, [2, 8] x [8, 64 Mi] survivors, against the lost rows;
+    (c) sharded_placement_step on phase placement's ec84 rule at 2^20
+    x's against one map_rule, hist against the bincount of the valid
+    entries; (d) a ServingEngine whose pipeline carries the mesh: 64
+    encodes of 4 MiB and 64 degraded reads ({1, 9} lost) at concurrency
+    16, every op against the single-card encode_many and the objects'
+    bytes, mesh_dispatches > 0.  Each step's launches per shard (=
+    the ledger's) and CUDA-event ms.  Returns (the lines, launches by
+    kernel).  ``devices`` and the sizes default to the above."""
+    from ceph_tpu_torch.common import Context
+    from ceph_tpu_torch.crush.torch_mapper import BulkMapper
+    from ceph_tpu_torch.exec import ServingEngine, workload
+    from ceph_tpu_torch.gf import matrix as gfm
+    from ceph_tpu_torch.parallel import mesh as MM
+    cards = torch.cuda.device_count()
+    if devices is None and cards >= 2:
+        devices = [torch.device("cuda", i)
+                   for i in range(1 << (cards.bit_length() - 1))]
+    elif devices is None:
+        devices = [torch.device("cuda", 0)] * 4
+    mesh = MM.make_mesh(len(devices), devices=devices)
+    cards_used = mesh.devices
+    dp, sp = mesh.shape["dp"], mesh.shape["sp"]
+    head = {"cards": len(cards_used), "shards": dp * sp, "dp": dp, "sp": sp,
+            "devices": [str(d) for d in cards_used]}
+    home = cards_used[0]
+    lines, launches = {}, collections.Counter()
+
+    # (a) the encode steps
+    k, m = 8, 4
+    n_xs = n_xs or PS.PLACEMENT_PGS
+    pm = gfm.cauchy1(k, m)
+    gen = torch.Generator(device=home).manual_seed(17)
+    data = rand_u8(gen, (batch, k, n), home)
+    pmat = torch.from_numpy(pm).to(home)
+    want = K.gf_apply_stripes(pmat, data.view(batch * k, n),
+                              batch).view(batch, m, n)
+    step = MM.sharded_encode_step(mesh, pm)
+    (parity, checksum, rotated), enc = _mesh_counted(
+        K, CK, LL, mesh, lambda: step(data), "gf_apply_stripes")
+    if not torch.equal(parity.full(home), want):
+        raise AssertionError("mesh: sharded parity != gf_apply_stripes")
+    if not torch.equal(checksum.full(home),
+                       want.sum(dim=(1, 2), dtype=torch.int64)):
+        raise AssertionError("mesh: checksum != its plain recomputation")
+    if not torch.equal(rotated.full(home),
+                       torch.roll(want, batch // dp, dims=0)):
+        raise AssertionError("mesh: rotated != the dp-ring roll")
+    bstep = MM.sharded_batch_encode_step(mesh, pm)
+    bparity, benc = _mesh_counted(K, CK, LL, mesh, lambda: bstep(data),
+                                  "gf_apply_stripes")
+    if not torch.equal(bparity.full(home), want):
+        raise AssertionError("mesh: batch parity != gf_apply_stripes")
+    launches["gf_apply_stripes"] += enc["launches"] + benc["launches"]
+    enc_bytes = batch * (k + m) * n
+    lines["encode"] = {**head, "shape": [batch, k, n], "step": enc,
+                       "batch_step": benc,
+                       "ms": mesh_ms(lambda: step(data), 10, cards_used),
+                       "batch_ms": mesh_ms(lambda: bstep(data), 10,
+                                           cards_used),
+                       "single_card_ms": cuda_ms(
+                           lambda: K.gf_apply_stripes(
+                               pmat, data.view(batch * k, n), batch), 10),
+                       "bound_ms": bytes_bound_ms(enc_bytes)}
+    del parity, checksum, rotated, bparity
+
+    # (b) the decode step: the batch's chunks as [n, 64 Mi] streams
+    erasures = [0, 9]
+    D, src = gfm.decode_matrix(pm, erasures)
+    full = torch.cat([data, want], dim=1)                 # [64, 12, 1 Mi]
+    survivors = full[:, src, :].transpose(0, 1).reshape(k, batch * n)
+    lost = full[:, erasures, :].transpose(0, 1).reshape(2, batch * n)
+    del full, want
+    dstep = MM.sharded_decode_step(mesh)
+    Dt = torch.from_numpy(D).to(home)
+    rec, dec = _mesh_counted(K, CK, LL, mesh,
+                             lambda: dstep(Dt, survivors), "gf_apply")
+    if not torch.equal(rec.full(home), lost):
+        raise AssertionError("mesh: decode step did not recover {0, 9}")
+    launches["gf_apply"] += dec["launches"]
+    lines["decode"] = {**head,
+                       "shape": [list(D.shape), list(survivors.shape)],
+                       "erasures": erasures, "step": dec,
+                       "ms": mesh_ms(lambda: dstep(Dt, survivors), 10,
+                                     cards_used),
+                       "single_card_ms": cuda_ms(
+                           lambda: K.gf_apply(Dt, survivors), 10),
+                       "bound_ms": bytes_bound_ms((k + 2) * batch * n)}
+    del rec, survivors, lost, data
+
+    # (c) the placement step on phase placement's ec84 pool
+    pkg = PS.load_package(HERE)
+    omap = PS.placement_cluster(pkg, n_xs)
+    pool = omap.pools[2]
+    bulk = BulkMapper(omap.crush, device=str(home))
+    rw = np.asarray(omap.osd_weight, dtype=np.int64)
+    xs = torch.from_numpy(np.random.default_rng(23).integers(
+        0, 1 << 32, size=n_xs, dtype=np.int64))
+    pstep = MM.sharded_placement_step(mesh, bulk, pool.crush_rule,
+                                      omap.max_osd, reweights=rw,
+                                      result_max=pool.size)
+    ref, _placed = bulk.map_rule(pool.crush_rule, xs.to(home),
+                                 reweights=rw, result_max=pool.size,
+                                 device=home)
+    (out, hist), plc = _mesh_counted(K, CK, LL, mesh, lambda: pstep(xs),
+                                     "crush_straw2")
+    if not torch.equal(out.full(home), ref):
+        raise AssertionError("mesh: sharded placement != map_rule")
+    valid = ref[(ref >= 0) & (ref != 0x7FFFFFFF)].to(torch.int64)
+    if not torch.equal(hist.full(home).to(torch.int64),
+                       torch.bincount(valid, minlength=omap.max_osd)):
+        raise AssertionError("mesh: hist != bincount of the placements")
+    launches["crush_straw2"] += plc["launches"]
+    lines["placement"] = {**head, "pool": pool.name, "xs": n_xs,
+                          "n_osds": omap.max_osd, "step": plc,
+                          "ms": mesh_ms(lambda: pstep(xs), 3, cards_used),
+                          "single_card_ms": cuda_ms(
+                              lambda: bulk.map_rule(
+                                  pool.crush_rule, xs.to(home),
+                                  reweights=rw, result_max=pool.size,
+                                  device=home), 3)}
+
+    # (d) the serving engine with the mesh in its pipeline
+    registry = registry_cls.instance()
+    ec, sinfo, pays, reads, check_encode, check_decode = rbd_workload(
+        ecutil, registry, workload, obj_bytes, lost={1, 9})
+    eng = ServingEngine(cct=Context(), ec_impl=ec, sinfo=sinfo,
+                        name="rbd.mesh", pipeline_depth=4)
+    eng.pipeline.mesh = mesh
+    eng.start()
+    try:
+        for kind, payloads in (("encode", pays), ("decode", reads)):
+            workload.closed_loop(eng, 32, 16, payloads, kind=kind)
+        serve = {kind: serve_run(K, workload, eng, kind, ops, 16, payloads,
+                                 check, per_batch=dp * sp, kernel=kernel)
+                 for kind, payloads, check, kernel in (
+                     ("encode", pays, check_encode, "gf_apply_stripes"),
+                     ("decode", reads, check_decode, "gf_apply"))}
+    finally:
+        eng.stop()
+    for kind, r in serve.items():
+        pipe = r["pipeline"]
+        if pipe["mesh_dispatches"] != pipe["submitted"] or \
+                not pipe["mesh_dispatches"]:
+            raise AssertionError(f"mesh serving {kind}: {pipe}")
+        kernel = "gf_apply_stripes" if kind == "encode" else "gf_apply"
+        launches[kernel] += r[f"{kernel}_launches"]
+    lines["serving"] = {kind: {key: r[key] for key in (
+        "ops", "op_bytes", "ops_s", "MiBps", "p50_ms", "p99_ms",
+        f"{kernel}_launches", "pipeline")} for kind, r, kernel in (
+            ("encode", serve["encode"], "gf_apply_stripes"),
+            ("decode", serve["decode"], "gf_apply"))}
+    lines["serving"].update(head, lost=[1, 9])
+    return lines, launches
+
+
+def serving_rados_bench(kind: str, ops: int = 256, op_size: str = "4M",
+                        clients: int = 512, device: str = "cuda") -> dict:
+    """The serving load generator (ceph_tpu_torch.tools.rados_bench) in
+    process on the card: --compare --json at 256 ops of 4 MiB
+    (torch_rs k=8 m=4, 4 KiB chunk) and concurrency 16, and --mode mux at
+    512 sessions x 2 RPCs over 8 connections; ops/s and p50/p99 of each
+    arm, and no JAX in the process.  ``kind``: the card's name."""
+    import contextlib
+    import io
+    from ceph_tpu_torch.tools import rados_bench
+
+    def run(argv) -> dict:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            if rados_bench.main([*argv, "--device", device, "--json"]) != 0:
+                raise AssertionError(f"rados_bench {argv} failed")
+        return json.loads(buf.getvalue().strip().splitlines()[-1]) | {
+            "wall_s": time.perf_counter() - t0}
+
+    cmp = run(["--compare", "--ops", str(ops), "--concurrency", "16",
+               "--op-size", op_size, "--k", "8", "--m", "4",
+               "--chunk-size", "4K"])
+    mux = run(["--mode", "mux", "--clients", str(clients),
+               "--ops-per-client", "2", "--conns", "8"])
+    for arm in ("batched", "unbatched"):
+        if cmp[arm]["ops"] != ops or cmp[arm]["ops_rejected"]:
+            raise AssertionError(f"rados_bench --compare: {cmp[arm]}")
+    if mux["capacity"]["completed"] != 2 * clients or \
+            mux["capacity"]["failed"] or \
+            mux["overload"]["completed"] != 2 * clients:
+        raise AssertionError(f"rados_bench --mode mux: {mux}")
+    if "jax" in sys.modules:
+        raise AssertionError("rados_bench loaded jax")
+    keep = ("ops_s", "MiBps", "mb_s", "p50_ms", "p99_ms", "mean_batch_size")
+    return {"device": kind, "compare": {
+                "speedup": cmp["speedup"], "wall_s": cmp["wall_s"],
+                **{arm: {key: cmp[arm][key] for key in keep
+                         if key in cmp[arm]}
+                   for arm in ("batched", "unbatched")}},
+            "mux": {"clients": mux["clients"], "wall_s": mux["wall_s"],
+                    "ops_s": mux["ops_s"], "p50_ms": mux["p50_ms"],
+                    "p99_ms": mux["p99_ms"],
+                    "overload": {key: mux["overload"][key] for key in (
+                        "ops_s", "p99_ms", "shed_rate")}}}
+
+
 def phase_lint() -> dict:
     """ceph-lint over the checkout's package, with its baseline."""
     from ceph_tpu_torch.tools import ceph_lint
@@ -4923,6 +5228,7 @@ def main() -> int:
     lap("net")
     serving, n_serving = phase_serving(K, ecutil, ErasureCodePluginRegistry)
     emit("serving", **serving, gpu=smi)
+    emit("serving.rados_bench", **serving_rados_bench(kind), gpu=smi)
     lap("serving")
     head, n_stripes = phase_headline(K, RSCodec, gfref)
     emit("headline", **head, gpu=smi)
@@ -4947,6 +5253,11 @@ def main() -> int:
     for name, line in placement.items():
         emit(f"placement.{name}", **line, gpu=smi)
     lap("placement")
+    mesh, n_mesh = phase_mesh(K, CK, LL, PS, ecutil,
+                              ErasureCodePluginRegistry)
+    for name, line in mesh.items():
+        emit(f"mesh.{name}", **line, gpu=smi)
+    lap("mesh")
     emit("lint", **phase_lint(), gpu=smi)
     lap("lint")
     chaos, wiring, n_chaos, n_chaos_crc = phase_chaos(K, smi)
@@ -4979,12 +5290,14 @@ def main() -> int:
                                 "repair": n_repair, "backend": n_backend,
                                 "cluster": n_cluster,
                                 "durable": n_durable, "net": n_net,
-                                "chaos": n_chaos}},
+                                "chaos": n_chaos,
+                                "mesh": n_mesh["gf_apply"]}},
         kernel_row("gf_apply_stripes", "gf_apply.cu",
                    "ceph_tpu/ops/pallas_kernels.py:80",
                    "headline", n_stripes, on("gf_apply_stripes"))
         | {"launches_by_path": {"headline": n_stripes,
-                                "native": n_native}},
+                                "native": n_native,
+                                "mesh": n_mesh["gf_apply_stripes"]}},
         kernel_row("xor_apply", "xor_apply.cu",
                    "ceph_tpu/ops/pallas_kernels.py:207",
                    "jerasure", n_xor, on("xor_apply")),
@@ -5007,7 +5320,9 @@ def main() -> int:
          "ms": rows_place[0]["ms"], "plain_ms": rows_place[0]["plain_ms"],
          "bound_ms": rows_place[0]["bound_ms"],
          "bound_by": rows_place[0]["bound_by"], "library_ms": None,
-         "library": NO_CRUSH_LIBRARY, "shapes": rows_place}]}))
+         "library": NO_CRUSH_LIBRARY, "shapes": rows_place,
+         "launches_by_path": {"placement": n_place,
+                              "mesh": n_mesh["crush_straw2"]}}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

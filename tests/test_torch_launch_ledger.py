@@ -232,7 +232,7 @@ def fake_card(monkeypatch, fresh):
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: "s")
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
                         lambda: capturing[0])
-    monkeypatch.setattr(LL, "_free_events", [])
+    monkeypatch.setattr(LL, "_free_events", {})
     yield capturing
 
 
@@ -273,6 +273,31 @@ def test_card_backlog_is_bounded_without_a_sync(fake_card, monkeypatch):
     assert snap["keys"][0]["launches"] == 11
     FakeEvent.done[0] = True
     assert LL.resolve() == 3 and LL.snapshot()["pending"] == 0
+
+
+def test_card_event_pairs_stay_on_their_card(fake_card, monkeypatch):
+    """A CUDA event records only on streams of the card it first recorded
+    on (PyTorch raises "Event device ... does not match"): a mesh that
+    launches on cuda:0, then cuda:1, gets a pair of cuda:1's own, and
+    every pair returns to its card's pool."""
+    class CardEvent(FakeEvent):
+        def record(self, stream=None):
+            card = getattr(self, "card", stream[1])
+            if card != stream[1]:
+                raise RuntimeError(f"Event device {card} does not match "
+                                   f"recording stream's device {stream[1]}")
+            self.card = card
+            super().record(stream)
+    monkeypatch.setattr(torch.cuda, "Event", CardEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: ("s", d.index))
+    key = LL.launch_key("gf_apply", 8, 64, (4, 8))
+    for index in (0, 0, 1, 1, 0, 1):
+        with LL.launch("gf_apply", key, 10, torch.device("cuda", index)):
+            pass
+    assert LL.resolve() == 5 and LL.snapshot()["keys"][0]["launches"] == 6
+    assert {i: {e.card for pair in pool for e in pair}
+            for i, pool in LL._free_events.items()} == {0: {0}, 1: {1}}
 
 
 def test_card_launch_under_graph_capture_records_nothing(fake_card):

@@ -7,8 +7,8 @@ PyTorch apply synchronously and waits on no event.  Encoded chunks and
 decoded bytes must be bitwise equal.  The behaviour cases mirror
 ``tests/test_pipeline.py``: out-of-order completion, faults surfacing on
 the future and on the op (nothing is served on the host), the breaker
-failing fast, depth and backpressure, and the mesh option with too few
-devices.
+failing fast, depth and backpressure, the mesh option with too few
+devices, and the mesh path on a CPU mesh against the single device.
 """
 import numpy as np
 import pytest
@@ -26,6 +26,7 @@ from ceph_tpu_torch.failure import (CLOSED, OPEN, BreakerOpen, DeviceFaults,
 from ceph_tpu_torch.ops import pipeline as pipeline_mod
 from ceph_tpu_torch.ops.codec import RSCodec
 from ceph_tpu_torch.ops.pipeline import CodecPipeline, PipelineFuture
+from ceph_tpu_torch.parallel.mesh import make_mesh
 from ceph_tpu_torch.plugins.registry import ErasureCodePluginRegistry
 
 K, M, CHUNK = 4, 2, 1024
@@ -430,14 +431,120 @@ def test_mesh_option_ignored_when_too_few_devices():
         eng.stop()
 
 
-def test_mesh_with_enough_cards_is_not_ported(monkeypatch):
-    """Enough cards for the mesh: construction refuses rather than run
-    quietly on one card."""
+def _meshed_pair(mesh, name):
+    ec, sinfo = _port_ec(), ecutil.StripeInfo(K, CHUNK)
+    plain = ServingEngine(ec_impl=ec, sinfo=sinfo, name=f"{name}.0",
+                          pipeline_depth=4)
+    meshed = ServingEngine(ec_impl=ec, sinfo=sinfo, name=f"{name}.m",
+                           pipeline_depth=4)
+    meshed.pipeline.mesh = mesh
+    return sinfo, plain, meshed
+
+
+def test_mesh_serving_batches_bitwise_identical():
+    """The port of ``tests/test_pipeline.py``'s mesh case: a CPU mesh of 8
+    (dp 2, sp 4) carries encode and degraded-decode batches, bitwise equal
+    to the single-device engine's."""
+    sinfo, plain, meshed = _meshed_pair(
+        make_mesh(8, devices=["cpu"] * 8), "t.mesh8")
+    payloads = _payloads(sinfo, [1, 3, 2, 5, 1, 7, 2, 2], seed=17)
+    try:
+        futs_a = [plain.submit_encode(p) for p in payloads]
+        plain.flush()
+        futs_b = [meshed.submit_encode(p) for p in payloads]
+        meshed.flush()
+        assert meshed.pipeline.perf.get("mesh_dispatches") > 0
+        encs = []
+        for fa, fb in zip(futs_a, futs_b):
+            _assert_chunks_equal([fb.result(10)], [fa.result(10)])
+            encs.append(fb.result(10))
+        before = meshed.pipeline.perf.get("mesh_dispatches")
+        for lost in ((0,), (1, 5), (0, 2)):
+            degraded = [{c: v for c, v in e.items() if c not in lost}
+                        for e in encs]
+            dfuts = [meshed.submit_decode(d) for d in degraded]
+            meshed.flush()
+            assert [f.result(10) for f in dfuts] == \
+                [p.tobytes() for p in payloads]
+        assert meshed.pipeline.perf.get("mesh_dispatches") >= before + 3
+        assert plain.pipeline.perf.get("mesh_dispatches") == 0
+    finally:
+        plain.stop()
+        meshed.stop()
+
+
+def test_mesh_shape_that_does_not_divide_takes_one_device():
+    """A chunk of 1024 bytes does not split over sp = 3 (a mesh of 6): the
+    encode batches take the single-device path, as the reference's shape
+    rule says, and ``mesh_dispatches`` stays 0."""
+    sinfo, plain, meshed = _meshed_pair(
+        make_mesh(6, devices=["cpu"] * 6), "t.mesh6")
+    assert meshed.pipeline.mesh.shape == {"dp": 2, "sp": 3}
+    payloads = _payloads(sinfo, [1, 2, 3], seed=4)
+    try:
+        futs_a = [plain.submit_encode(p) for p in payloads]
+        futs_b = [meshed.submit_encode(p) for p in payloads]
+        plain.flush()
+        meshed.flush()
+        _assert_chunks_equal([f.result(10) for f in futs_b],
+                             [f.result(10) for f in futs_a])
+        assert meshed.pipeline.perf.get("mesh_dispatches") == 0
+    finally:
+        plain.stop()
+        meshed.stop()
+
+
+def test_mesh_decode_pads_survivors_and_bytes():
+    """A mesh of 9 (dp 3, sp 3) divides neither the 4 survivors nor the
+    1024-byte chunks: the degraded reads go through the decode step on
+    zero-padded blocks (the codec's decode-matrix column blocks padded
+    with zero columns) and return the objects' bytes; the encodes take
+    the single-device path (1024 % 3)."""
+    sinfo, plain, meshed = _meshed_pair(
+        make_mesh(9, devices=["cpu"] * 9), "t.mesh9")
+    assert meshed.pipeline.mesh.shape == {"dp": 3, "sp": 3}
+    payloads = _payloads(sinfo, [1, 2, 5], seed=8)
+    try:
+        futs = [meshed.submit_encode(p) for p in payloads]
+        meshed.flush()
+        encs = [f.result(10) for f in futs]
+        assert meshed.pipeline.perf.get("mesh_dispatches") == 0
+        for lost in ((1,), (0, 3)):
+            dfuts = [meshed.submit_decode(
+                {c: v for c, v in e.items() if c not in lost})
+                for e in encs]
+            meshed.flush()
+            assert [f.result(10) for f in dfuts] == \
+                [p.tobytes() for p in payloads]
+        assert meshed.pipeline.perf.get("mesh_dispatches") >= 2
+    finally:
+        plain.stop()
+        meshed.stop()
+
+
+def test_mesh_ctx_builds_a_mesh_over_the_cards(monkeypatch):
+    """Four cards and ``jax_rs_mesh_devices`` 4: a 2 x 2 mesh over
+    cuda:0..3, built at construction; 8 asked of 4 present: none."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        CodecPipeline(depth=1, name="t.mesh4", mesh_devices=2)
+    pl = CodecPipeline(depth=1, name="t.mesh4", mesh_devices=4)
+    assert pl.mesh.shape == {"dp": 2, "sp": 2}
+    assert [str(d) for d in pl.mesh.devices] == \
+        ["cuda:0", "cuda:1", "cuda:2", "cuda:3"]
     assert CodecPipeline(depth=1, name="t.mesh8",
-                         mesh_devices=8)._mesh_ctx() is None
+                         mesh_devices=8).mesh is None
+
+
+def test_mesh_that_fails_to_build_raises(monkeypatch):
+    """No quiet latch onto one card: construction raises when the mesh
+    the option asks for cannot be built."""
+    from ceph_tpu_torch.parallel import mesh as meshmod
+
+    def broken(*_a, **_k):
+        raise RuntimeError("peer access refused")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(meshmod, "make_mesh", broken)
+    with pytest.raises(RuntimeError, match="peer access refused"):
+        CodecPipeline(depth=1, name="t.mesh.broken", mesh_devices=2)
 
 
 # -- the completion boundary --------------------------------------------------
