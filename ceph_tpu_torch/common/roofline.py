@@ -18,7 +18,10 @@ does this kernel run, at this shape, on this path?" has an instrument:
 - surfaces: the ``device_efficiency`` PerfCounters collection
   (:func:`refresh`), the ``ceph_tpu_device_efficiency{executable,stat}``
   prometheus family, the ``device roofline`` admin command
-  (:func:`report`) and :func:`flat_series` for the time-series ring.
+  (:func:`report`), :func:`flat_series` for the time-series ring and
+  :func:`bench_block` for a bench line's ``efficiency`` block (what
+  ``ceph_tpu_torch/tools/roofline_report.py`` and ``perf_gate.py``
+  read).
 
 The clock of a row: launches on the card are timed by a pair of CUDA
 events on the launch's stream (the ledger resolves them later, never
@@ -325,6 +328,31 @@ def report(limit: int = 20, cct=None) -> dict:
         "device_busy_s": snap["device_busy_s"],
         "executables": [dict(rec, executable=eid)
                         for eid, rec in rows[:max(0, int(limit))]],
+    }
+
+
+def bench_block(platform: str | None, cct=None, limit: int = 12) -> dict:
+    """A bench line's ``efficiency`` JSON block: the roofline ledger the
+    run populated, device-marked like every other block so
+    ``tools/perf_gate.py`` can refuse cross-platform comparison.  The
+    marker is ``"gpu"`` when ``platform`` is and the ledger holds a row
+    launched on the card (route ``cuda``), else ``"cpu"``."""
+    snap = snapshot(cct)
+    if not snap["executables"]:
+        return {"device": "none", "error": "no executables recorded"}
+    rows = sorted(snap["executables"].items(),
+                  key=lambda kv: kv[1]["seconds"], reverse=True)
+    on_card = platform == "gpu" and \
+        any(rec.get("route") == "cuda" for _eid, rec in rows)
+    return {
+        "device": "gpu" if on_card else "cpu",
+        "peaks": snap["peaks"],
+        "pct_of_peak": snap["totals"]["pct_of_peak"],
+        "achieved_bytes_s": snap["totals"]["achieved_bytes_s"],
+        "achieved_flops_s": snap["totals"]["achieved_flops_s"],
+        "bound": snap["totals"]["bound"],
+        "executables": [dict(rec, executable=eid)
+                        for eid, rec in rows[:limit]],
     }
 
 

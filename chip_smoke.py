@@ -284,6 +284,40 @@ drives the port end to end:
                 sample rate against the campaign Context's
                 osd_op_complaint_time and tracer_sample_rate, after a
                 live conf.set of the first to 5.0;
+14b. soak    -- the seeded soak campaign (ceph_tpu_torch.tools.
+                soak_sweep.soak_campaign, tests/test_soak.py's model) in
+                full: 300 steps at seed 113 on a 12-OSD MiniCluster over
+                wire-mode buses with reorder and duplicate faults, its EC
+                pool torch_rs k=2 m=2 on the card: op vectors with
+                xattrs, pool snaps, shard kills and revivals, scrub with
+                injected bitrot, deletes; the model held after every
+                step, the final scrub clean, HEALTH_OK; steps by action,
+                seconds, ms per step, gf_apply and crc32c_rows launches
+                (> 0, ledger = counters); then seed 7 on a replicated
+                pool, which launches nothing.  Before the EC cluster
+                shuts down it gives phase reports a `flight dump` bundle
+                and its SLO block (soak.ec, soak.rep lines);
+14c. corpus  -- the port's corpus generator (ceph_tpu_torch.tools.
+                gen_ec_corpus, torch_rs, jerasure, cpp_rs, xor, shec,
+                lrc, clay) on the card into a temporary directory: all
+                19 entries' chunk_size and every chunk's SHA-256 against
+                tests/golden/ec_corpus.json (a differing digest fails,
+                naming the entry and chunk); gf_apply and xor_apply
+                launches (> 0, ledger = counters);
+14d. reports -- the four post-hoc reports and the perf gate over this
+                run's artifacts, in process: (a) roofline.bench_block
+                ("gpu") through roofline_report, a row for every key the
+                ledger launched on the card, none over 100% of its peak;
+                (b) the default context's `trace dump` through
+                trace_report, p99 >= p50 on every row, one --trace-id
+                tree; (c) phase soak's bundle through ts_report (--log)
+                and slo_report; (d) a bench-shaped line of numbers the
+                phases hold (headline combined MiB/s, serving's 4 KiB
+                batched arm, cluster's wave repair, (a), soak's SLO
+                block; every block "gpu") through perf_gate: against
+                itself PASS with every present metric compared, against
+                the repo's BENCH history PASS with no comparable
+                reference, --expect-platform tpu FAIL;
 15. instruments -- the port's instrument plane on the card, last: (c) a
                 durable BlueStore MiniCluster at phase cluster's widths
                 (torch_rs k=8 m=4 with no device key, pg_num 32): 64 puts
@@ -305,9 +339,11 @@ drives the port end to end:
                 (instruments.ledger) (a) the launch ledger's launches of
                 every kernel over the whole script against the wrappers'
                 counters, its keys per phase (durable's and net's against
-                path_shapes), (b) every key's bytes against the bound's
-                and the main path's roofline rows (CUDA-event device ms a
-                launch, bytes, share of 3.35 TB/s).
+                path_shapes; soak's, corpus's and reports' launches by
+                kernel against the counters each phase read), (b) every
+                key's bytes against the bound's and the main path's
+                roofline rows (CUDA-event device ms a launch, bytes,
+                share of 3.35 TB/s).
 
 Each phase prints one JSON line, and a ``walls`` line gives every phase's
 wall seconds; any failure raises and the script exits non-zero.  Before
@@ -4344,12 +4380,15 @@ def phase_instruments(K, ecutil, registry_cls, objects: int = 64,
 
 
 def ledger_checks(K, CK, LL, PS, registry_cls, by_phase: dict,
-                  net_batches, rows_place: list) -> dict:
+                  net_batches, rows_place: list, phase_launches: dict
+                  ) -> dict:
     """(a) and (b) of phase ``instruments``: the ledger's launches per
     kernel over the whole script against the wrappers' counters; its
     keys per phase, those of phases durable and net against
-    ``path_shapes`` (net's front-end batches added); every key's bytes
-    against PERF.md's bound bytes, and the roofline's row for each."""
+    ``path_shapes`` (net's front-end batches added) and, for each phase
+    of ``phase_launches``, its launches by kernel against the counters
+    the phase read; every key's bytes against PERF.md's bound bytes, and
+    the roofline's row for each."""
     from ceph_tpu_torch.common import roofline
     totals = LL.totals("cuda")
     counters = K.total_launches()
@@ -4369,6 +4408,13 @@ def ledger_checks(K, CK, LL, PS, registry_cls, by_phase: dict,
         if got != expect:
             raise AssertionError(f"instruments: {phase} ledger keys "
                                  f"{dict(got)} != {dict(expect)}")
+    for phase, counted in phase_launches.items():
+        got = collections.Counter()
+        for key, n in by_phase[phase].items():
+            got[key[0]] += n
+        if +got != +collections.Counter(counted):
+            raise AssertionError(f"instruments: {phase} ledger launches "
+                                 f"{dict(got)} != counters {counted}")
     snap = LL.snapshot()
     if snap["dropped"]:
         raise AssertionError(f"instruments: {snap['dropped']} event pairs "
@@ -5142,6 +5188,274 @@ def phase_chaos(K, smi: str, seed: int = 13, ops: int = 12,
             wiring, n_apply, n_crc)
 
 
+# -- phases soak, corpus and reports ------------------------------------------
+
+SOAK_SEED, SOAK_REP_SEED = 113, 7
+
+
+def _launch_delta(K, LL, route: str, before) -> tuple[dict, dict]:
+    """The wrappers' counters since ``K.reset_launches()`` and the launch
+    ledger's launches by kernel on ``route`` since ``before``."""
+    led = LL.totals(route) - before
+    return dict(K.launches), {k: led.get(k, 0) for k in K.launches}
+
+
+def _check_launches(phase: str, kernels, counters: dict, ledger: dict,
+                    device: str) -> None:
+    """On the card each kernel named launched and the ledger booked
+    every launch; on the CPU (the tests) the ledger booked each kernel's
+    plain version, which the counters do not count."""
+    if device == "cuda":
+        ok = counters == ledger and all(counters[k] > 0 for k in kernels)
+    else:
+        ok = all(ledger[k] > 0 for k in kernels)
+    if not ok:
+        raise AssertionError(f"{phase}: counters {counters} ledger "
+                             f"{ledger}")
+
+
+def phase_soak(K, LL, device: str = "cuda") -> tuple:
+    """The seeded soak campaign (ceph_tpu_torch.tools.soak_sweep) in full:
+    300 steps at seed 113 with its EC pool (torch_rs k=2 m=2) on
+    ``device``, then seed 7 on the replicated pool, which launches
+    nothing.  The EC campaign's cluster hands over, before it shuts down,
+    a ``flight dump`` bundle and its SLO block (phase reports' (c) and
+    (d)).  Returns the line, those artifacts and the launches."""
+    from ceph_tpu_torch.tools import soak_sweep
+    route = "cuda" if device == "cuda" else "cpu"
+    platform = "gpu" if device == "cuda" else "cpu"
+    art: dict = {}
+
+    def settled(c) -> None:
+        c.critpath.refresh()
+        art["slo"] = c.slo.bench_block(platform)
+        c.ts.record(force=True)
+        art["bundle"] = c.cct.admin_socket.call("flight dump",
+                                                reason="soak")
+
+    K.reset_launches()
+    before = LL.totals(route)
+    ec = soak_sweep.soak_campaign(SOAK_SEED, "ec", device=device,
+                                  on_settled=settled)
+    counters, ledger = _launch_delta(K, LL, route, before)
+    _check_launches("soak", ("gf_apply", "crc32c_rows"), counters, ledger,
+                    device)
+    K.reset_launches()
+    before = LL.totals(route)
+    rep = soak_sweep.soak_campaign(SOAK_REP_SEED, "rep", device=device)
+    rep_counters, rep_ledger = _launch_delta(K, LL, route, before)
+    if any(rep_counters.values()) or any(rep_ledger.values()):
+        raise AssertionError(f"soak: the replicated pool launched "
+                             f"{rep_counters} {rep_ledger}")
+    line = {name: {key: r[key] for key in (
+        "seed", "steps", "seconds", "actions", "objects", "snaps",
+        "damaged_restored", "health")} | {
+        "ms_per_step": r["seconds"] / r["steps"] * 1e3,
+        "model_held": True, "final_scrub_clean": r["final_scrub"] == {}}
+        for name, r in (("ec", ec), ("rep", rep))}
+    line["ec"] |= {"device": device, "launches": counters,
+                   "ledger_launches": ledger}
+    return line, art, counters
+
+
+def phase_corpus(K, LL, device: str = "cuda") -> tuple:
+    """The port's corpus generator (ceph_tpu_torch.tools.gen_ec_corpus)
+    on ``device`` into a temporary directory: every entry's chunk_size
+    and chunk digests against tests/golden/ec_corpus.json."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    from ceph_tpu_torch.tools import gen_ec_corpus
+    route = "cuda" if device == "cuda" else "cpu"
+    with open(os.path.join(HERE, "tests", "golden", "ec_corpus.json")) as f:
+        golden = json.load(f)["entries"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_corpus.")
+    try:
+        out = os.path.join(tmp, "ec_corpus.json")
+        K.reset_launches()
+        before = LL.totals(route)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = gen_ec_corpus.main(["--out", out, "--device", device])
+        seconds = time.perf_counter() - t0
+        counters, ledger = _launch_delta(K, LL, route, before)
+        with open(out) as f:
+            got = json.load(f)["entries"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if rc != 0 or sorted(got) != sorted(golden):
+        raise AssertionError(f"corpus: rc {rc}, entries {sorted(got)}")
+    for name, want in sorted(golden.items()):
+        have = got[name]
+        if have["chunk_size"] != want["chunk_size"]:
+            raise AssertionError(f"corpus: {name} chunk_size "
+                                 f"{have['chunk_size']} != "
+                                 f"{want['chunk_size']}")
+        for chunk, digest in sorted(want["chunk_sha256"].items()):
+            if have["chunk_sha256"].get(chunk) != digest:
+                raise AssertionError(f"corpus: {name} chunk {chunk} "
+                                     f"digest differs")
+        if sorted(have["chunk_sha256"]) != sorted(want["chunk_sha256"]):
+            raise AssertionError(f"corpus: {name} chunks "
+                                 f"{sorted(have['chunk_sha256'])}")
+    _check_launches("corpus", ("gf_apply", "xor_apply"), counters, ledger,
+                    device)
+    return ({"entries": len(got), "digests_equal": True,
+             "chunks": sum(len(e["chunk_sha256"]) for e in got.values()),
+             "seconds": seconds, "device": device, "launches": counters,
+             "ledger_launches": ledger}, counters)
+
+
+def _tool(mod, argv: list[str]) -> tuple[int, str]:
+    """One in-process run of a report tool: exit code and stdout."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv)
+    return rc, buf.getvalue()
+
+
+def phase_reports(LL, soak_art: dict, value: float, serving: dict,
+                  recovery: dict, platform: str = "gpu") -> dict:
+    """The four post-hoc reports and the perf gate over this run's own
+    artifacts: (a) roofline.bench_block(platform) through
+    roofline_report, a row for every ledger key launched on the card and
+    no share over 100%; (b) the default context's ``trace dump`` through
+    trace_report (p99 >= p50 on every row, one --trace-id tree); (c)
+    phase soak's flight bundle through ts_report and slo_report; (d) a
+    bench-shaped line of numbers the phases measured (``value``: the
+    headline's combined MiB/s; ``serving`` and ``recovery``: their bench
+    blocks) through perf_gate: against itself PASS with every present
+    metric compared, against the repo's BENCH history PASS with no
+    comparable reference, and with --expect-platform tpu FAIL."""
+    import shutil
+    import tempfile
+    from ceph_tpu_torch.common import default_context, roofline
+    from ceph_tpu_torch.tools import (perf_gate, roofline_report,
+                                      slo_report, trace_report, ts_report)
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_reports.")
+    out: dict = {}
+
+    def save(name: str, doc) -> str:
+        path = os.path.join(tmp, name)
+        with open(path, "w") as f:
+            json.dump(doc, f, default=str)
+        return path
+
+    def run(mod, argv: list[str], want_rc: int = 0) -> str:
+        rc, text = _tool(mod, argv)
+        if rc != want_rc:
+            raise AssertionError(f"reports: {mod.__name__} {argv[1:]} "
+                                 f"rc {rc}: {text[-400:]}")
+        return text
+
+    try:
+        # (a) the roofline
+        eff = roofline.bench_block(platform, limit=1 << 20)
+        eff_doc = json.loads(run(roofline_report, [
+            save("efficiency.json", {"efficiency": eff}), "--json"]))
+        rows = {r["executable"]: r for r in eff_doc["executables"]}
+        route = "cuda" if platform == "gpu" else "cpu"
+        want = {roofline.executable_id(rec["kernel"], LL._roofline_key(
+            (rec["kernel"], tuple(rec["mat"]), rec["rows"], rec["cols"]),
+            route)) for rec in LL.snapshot()["keys"]
+            if rec["route"] == route and rec["booked"]}
+        over = [e for e, r in rows.items() if r["pct_of_peak"] > 100.0]
+        if eff["device"] != platform or want - set(rows) or over:
+            raise AssertionError(f"reports: roofline {eff['device']}, "
+                                 f"missing {sorted(want - set(rows))[:4]}, "
+                                 f"over 100% {over[:4]}")
+        out["roofline"] = {
+            "rows": len(rows), "ledger_keys": len(want),
+            "max_pct_of_peak": max(r["pct_of_peak"] for r in rows.values()),
+            "pct_of_peak": eff["pct_of_peak"],
+            "table_lines": len(run(roofline_report, [
+                save("efficiency.json", {"efficiency": eff}),
+                "--limit", "8"]).splitlines())}
+        # (b) the tracer's dump
+        trace = save("trace.json", json.loads(
+            default_context().admin_socket.call_json("trace dump")))
+        spans = json.loads(run(trace_report, [trace, "--json"]))["spans"]
+        bad = [s["name"] for s in spans if s["p99_ms"] < s["p50_ms"]]
+        listed = run(trace_report, [trace, "--traces"]).splitlines()
+        if not spans or bad or len(listed) < 2:
+            raise AssertionError(f"reports: trace {len(spans)} rows, p99 < "
+                                 f"p50 in {bad[:4]}, {listed[:2]}")
+        trace_id = listed[1].split()[0]
+        tree = run(trace_report, [trace, "--trace-id", trace_id])
+        if not tree.startswith(f"trace {trace_id} ("):
+            raise AssertionError(f"reports: trace tree {tree[:200]!r}")
+        out["trace"] = {"rows": len(spans), "traces": len(listed) - 1,
+                        "top": spans[0]["name"],
+                        "tree_lines": len(tree.splitlines())}
+        # (c) the soak cluster's flight bundle
+        bundle = save("flight-soak.json", soak_art["bundle"])
+        ts = json.loads(run(ts_report, [bundle, "--json"]))
+        log = run(ts_report, [bundle, "--log"])
+        slo = json.loads(run(slo_report, [bundle, "--json"]))
+        if not ts["series"] or "# clusterlog" not in log or \
+                slo["classes"].get("client", {}).get("ops", 0) < 1:
+            raise AssertionError(f"reports: ts {len(ts['series'])} series,"
+                                 f" slo {slo['classes'].keys()}")
+        out["flight"] = {"ts_series": len(ts["series"]),
+                         "ts_points": ts["points"],
+                         "slo_classes": sorted(slo["classes"]),
+                         "client_p99_ms": slo["classes"]["client"]["p99_ms"]}
+        # (d) a bench-shaped line through the gate
+        line = {"metric": "chip_smoke", "value": value, "unit": "MiB/s",
+                "device": platform, "serving": serving,
+                "recovery": recovery, "efficiency": eff,
+                "slo": soak_art["slo"]}
+        path = save("line.json", line)
+        present = perf_gate.extract_metrics(line)
+        if any(m["device"] != platform for m in present.values()):
+            raise AssertionError(f"reports: line devices {present}")
+        self_ = json.loads(run(perf_gate, [path, "--baseline", path,
+                                           "--json"]))
+        hist = json.loads(run(perf_gate, [path, "--repo-dir", HERE,
+                                          "--json"]))
+        loud = run(perf_gate, [path, "--repo-dir", HERE, "--expect-platform",
+                               "tpu", "--check"], want_rc=1)
+        if not (self_["ok"] and len(self_["compared"]) == len(present)) \
+                or not hist["ok"] or hist["compared"] or \
+                "no comparable reference metrics" not in hist["verdict"] \
+                or hist["expected_platform"] is not None or \
+                "platform fallback" not in loud:
+            raise AssertionError(f"reports: gate {self_['verdict']} | "
+                                 f"{hist['verdict']} | {loud.strip()}")
+        out["gate"] = {"metrics": sorted(present),
+                       "self": self_["verdict"],
+                       "history": hist["verdict"],
+                       "history_reference": hist["reference"],
+                       "expect_tpu": loud.strip()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def bench_blocks(serving: dict, clus: dict, platform: str = "gpu"
+                 ) -> tuple[dict, dict]:
+    """Bench-shaped ``serving`` and ``recovery`` blocks from numbers phases
+    serving and cluster measured: the 4 KiB batched arm of the median
+    run, and the cluster's wave repair of osd.3 (rebuilt MiB/s, wire
+    bytes per repaired byte)."""
+    runs = sorted(serving["small_ops"]["runs"],
+                  key=lambda r: r["batched"]["ops_s"])
+    batched = runs[len(runs) // 2]["batched"]
+    wave = clus["repair_wave"]["repair"]
+    return ({"device": platform,
+             "batched": {"ops_s": batched["ops_s"],
+                         "p99_ms": batched["p99_ms"]}},
+            {"device": platform,
+             "batched": {"mib_s": wave["rebuilt_MiBps"]},
+             "wire": {"per_byte_repaired":
+                      wave["wire_bytes_per_repaired_byte"]}})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -5264,6 +5578,17 @@ def main() -> int:
     emit("chaos", **chaos)
     emit("chaos.tracer", **wiring, gpu=smi)
     lap("chaos")
+    soak, soak_art, n_soak = phase_soak(K, LL)
+    for name, line in soak.items():
+        emit(f"soak.{name}", **line, gpu=smi)
+    lap("soak")
+    corpus, n_corpus = phase_corpus(K, LL)
+    emit("corpus", **corpus, gpu=smi)
+    lap("corpus")
+    emit("reports", **phase_reports(
+        LL, soak_art, head["combined_MiBps"], *bench_blocks(serving, clus)),
+        gpu=smi)
+    lap("reports")
     inst = phase_instruments(K, ecutil, ErasureCodePluginRegistry)
     for name, line in inst.items():
         emit(f"instruments.{name}", **line, gpu=smi)
@@ -5275,7 +5600,8 @@ def main() -> int:
          gpu=smi)
     emit("instruments.ledger", **ledger_checks(
         K, CK, LL, PS, ErasureCodePluginRegistry, by_phase, net_batches,
-        rows_place), gpu=smi)
+        rows_place, {"soak": n_soak, "corpus": n_corpus, "reports": {}}),
+        gpu=smi)
     lap("instruments_checks")
     emit("walls", seconds=walls, total=sum(walls.values()), gpu=smi)
 
@@ -5291,7 +5617,9 @@ def main() -> int:
                                 "cluster": n_cluster,
                                 "durable": n_durable, "net": n_net,
                                 "chaos": n_chaos,
-                                "mesh": n_mesh["gf_apply"]}},
+                                "mesh": n_mesh["gf_apply"],
+                                "soak": n_soak["gf_apply"],
+                                "corpus": n_corpus["gf_apply"]}},
         kernel_row("gf_apply_stripes", "gf_apply.cu",
                    "ceph_tpu/ops/pallas_kernels.py:80",
                    "headline", n_stripes, on("gf_apply_stripes"))
@@ -5300,7 +5628,9 @@ def main() -> int:
                                 "mesh": n_mesh["gf_apply_stripes"]}},
         kernel_row("xor_apply", "xor_apply.cu",
                    "ceph_tpu/ops/pallas_kernels.py:207",
-                   "jerasure", n_xor, on("xor_apply")),
+                   "jerasure", n_xor, on("xor_apply"))
+        | {"launches_by_path": {"jerasure": n_xor,
+                                "corpus": n_corpus["xor_apply"]}},
         *rows_sweep,
         kernel_row("crc32c_rows", "crc32c.cu",
                    "ceph_tpu/ops/rs_kernels.py:302", "ecutil", n_crc,
@@ -5309,7 +5639,8 @@ def main() -> int:
                                 "backend": n_backend_crc,
                                 "cluster": n_cluster_crc,
                                 "durable": n_durable_crc,
-                                "net": n_net_crc, "chaos": n_chaos_crc},
+                                "net": n_net_crc, "chaos": n_chaos_crc,
+                                "soak": n_soak["crc32c_rows"]},
            "library": "no PyTorch call computes crc32c"},
         {"name": "crush_straw2", "route": "cuda",
          "source": "ceph_tpu_torch/ops/csrc/crush_straw2.cu",

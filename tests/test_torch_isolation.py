@@ -364,7 +364,10 @@ def test_no_source_imports_jax_or_ceph_tpu():
                 "analysis/rules_guards.py", "analysis/rules_torch.py",
                 "tools/ceph_lint.py", "tools/chaos_run.py",
                 "parallel/__init__.py", "parallel/mesh.py",
-                "tools/rados_bench.py"):
+                "tools/rados_bench.py", "tools/soak_sweep.py",
+                "tools/gen_ec_corpus.py", "tools/trace_report.py",
+                "tools/ts_report.py", "tools/slo_report.py",
+                "tools/roofline_report.py", "tools/perf_gate.py"):
         assert mod in walked, mod
     bad = []
     for path in sources:
@@ -732,6 +735,37 @@ def test_lint_and_chaos_tools_never_load_jax():
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
+_HARNESS_PROBE = """
+import json, sys
+from ceph_tpu_torch.common import roofline
+from ceph_tpu_torch.tools import (gen_ec_corpus, perf_gate, roofline_report,
+                                  slo_report, soak_sweep, trace_report,
+                                  ts_report)
+rep = soak_sweep.soak_campaign(113, "ec", device="cpu", steps=40)
+assert rep["final_scrub"] == {}, rep
+corpus = gen_ec_corpus.generate("cpu")
+assert len(corpus["entries"]) == 19
+assert roofline.bench_block("gpu")["device"] in ("cpu", "none")
+assert perf_gate.scan_history(".")[2] is None
+for mod in (trace_report, ts_report, slo_report, roofline_report):
+    assert mod.main.__module__ == mod.__name__
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib",
+                                               "ceph_tpu"))))
+"""
+
+
+def test_harness_tools_never_load_jax():
+    """The soak campaign, the corpus generator, the four reports and the
+    perf gate run in a fresh interpreter with nothing of JAX or the JAX
+    package loaded."""
+    proc = subprocess.run([sys.executable, "-c", _HARNESS_PROBE],
+                          cwd=ROOT, env=_port_env(), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
 def test_chaos_campaign_without_a_card_raises(no_card, tmp_path):
     from ceph_tpu_torch.tools import chaos_run
     with pytest.raises(RuntimeError, match="cuda"):
@@ -739,3 +773,15 @@ def test_chaos_campaign_without_a_card_raises(no_card, tmp_path):
     assert list(tmp_path.iterdir()) == []
     with pytest.raises(RuntimeError, match="cuda"):
         chaos_run.main(["-q", "--data-dir", str(tmp_path)])
+
+
+def test_soak_and_corpus_on_cuda_without_a_card_raise(no_card, tmp_path):
+    import ceph_tpu_torch.cluster as cluster_mod
+    from ceph_tpu_torch.tools import gen_ec_corpus, soak_sweep
+    bus = cluster_mod.MessageBus
+    with pytest.raises(RuntimeError, match="cuda"):
+        soak_sweep.soak_campaign(113, "ec")
+    assert cluster_mod.MessageBus is bus
+    with pytest.raises(RuntimeError, match="cuda"):
+        gen_ec_corpus.main(["--out", str(tmp_path / "c.json")])
+    assert list(tmp_path.iterdir()) == []
