@@ -79,18 +79,69 @@
 //
 // copy_rows_launch: out[r, N] = data[:r].  It reads every byte of all k
 // rows, as the TPU kernel's BlockSpec((k, tile_n)) does, and writes r rows:
-// the ceiling for the (k + r) * N traffic of a GF apply.  Bound by bytes.
-// The loads of rows r..k-1 are XOR-folded into a value that is stored only
-// through a pointer the host passes as null, so nvcc cannot drop them.
-// 16-byte loads and stores where aligned, a masked byte path otherwise.
+// the ceiling for the (k + r) * N traffic of a GF apply.  Bound by bytes
+// ((k + r) * N at 3.35 TB/s: 0.0300 ms at [8, 8 Mi], r = 4).
+//
+// What held the first design back (a block of 256 threads per tile_n
+// columns, each thread a register-staged 16-byte __ldg per row with the
+// store of each of the first r rows right behind its load, the unused
+// rows' loads kept alive by an XOR fold stored through a null pointer):
+// 1,024 short-lived blocks at [8, 8 Mi], each exposing its own ramp and
+// drain, loads and stores interleaved; 0.03884 ms, 77% of the bound and
+// 1.50x the time of data[:4].clone() (PERF.md).
+//
+// This design, a persistent TMA bulk-copy ring (cp.async.bulk, 1-D, no
+// tensor map), chosen by measurement on the card (PERF.md):
+//   - a persistent grid of one-warp blocks, as many as the shared memory
+//     holds (two an SM); block b takes the spans of tile_n columns b,
+//     b + grid, ...: tile_n is the unit of work of one turn, not the stage
+//     width;
+//   - a stage is a [kb, W] byte tile in dynamic shared memory of about
+//     COPY_STAGE_BYTES: W = 32 KiB / k rounded down to 16 (4 KiB at
+//     k = 8) and kb = k rows, or where that W is under COPY_W_MIN, row
+//     blocks of kb = 16 rows of 2 KiB (k = 64, 128): a bulk copy of
+//     256-512 bytes costs the copy unit about what one of 2 KiB does, and
+//     such rows ran the ring at half the rate; W is at most tile_n;
+//     COPY_STAGES stages form the ring;
+//   - one warp plays both roles in order: lane 0 arms a stage's mbarrier
+//     with expect_tx of kb * w bytes and the lanes issue one bulk load a
+//     row (lane l rows l, l + 32, ...); when the stage's phase completes
+//     they issue one bulk store a row of rows 0..r-1 (bulk_group, one
+//     commit a stage and lane), and refill the stage before it once every
+//     lane's wait_group.read 1 shows that stage's stores have read it, so
+//     the stores of one stage overlap the wait for the next;
+//   - rows r..k-1 land in shared memory and are never stored: a bulk load
+//     is not dropped by the compiler, so they need no sink;
+//   - bulk copies need 16-byte aligned addresses and sizes: an unaligned
+//     data or out, or N % 16 != 0, takes the byte path
+//     (copy_rows_bytes_kernel: a block per tile_n columns, byte loads, the
+//     unused rows XOR-folded into a store through a null pointer so that
+//     nvcc keeps their loads).  A last span shorter than tile_n, still a
+//     multiple of 16, goes as shorter bulk copies;
+//   - the item walk advances by additions: a 64-bit division is a call,
+//     and with one per item the ring ran some 2% slower;
+//   - measured no faster and left out: deeper rings (4-6 stages) at one
+//     block an SM (slower at k = 128), 48-64 KiB stages (6-8 KiB rows at
+//     k = 8), 16 KiB stages at three blocks an SM, and an evict-first L2
+//     policy on the copies.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
-constexpr int THREADS = 256;        // copy_rows_kernel
+constexpr int THREADS = 256;        // copy_rows_bytes_kernel
 constexpr int TC = 256;             // tile_n quantum
+constexpr int COPY_STAGES = 3;      // copy ring: stages
+constexpr int COPY_STAGE_BYTES = 32 * 1024;   // bytes of one [kb, W] stage
+constexpr int COPY_W_MIN = 2048;    // narrowest stage row (but for a
+                                    // narrow tile_n or stage)
+constexpr int COPY_ALIGN = 128;     // stage base alignment in shared memory
+constexpr int COPY_BARS =           // the ring's mbarriers, then its stages
+    (8 * COPY_STAGES + COPY_ALIGN - 1) / COPY_ALIGN * COPY_ALIGN;
+constexpr int COPY_SMEM_MAX = COPY_BARS + COPY_STAGES * COPY_STAGE_BYTES;
 
 constexpr int BP_THREADS = 128;     // 4 warps, each on its own columns
 constexpr int WPB = BP_THREADS / 32;
@@ -460,11 +511,154 @@ cudaError_t dispatch_b(int r, int k, long long n, int G, long long tile_n,
                                                 tile_n, kp, npass, smem, s);
 }
 
-template <bool VEC>
+// -- copy_rows ---------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// true once the phase of parity `parity` has completed
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(dst), "r"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// every committed store group but the newest N has read its shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// the ring's geometry, fixed by the launcher
+struct CopyPlan {
+  long long n, tile_n, spans;
+  int r, k;
+  int w;              // stage row bytes: a multiple of 16, <= tile_n
+  int kb;             // rows a stage holds
+  int stride;          // bytes between stage bases
+};
+
+// A walk over this block's items in order: the spans blockIdx.x,
+// + gridDim.x, ..., each in chunks of w columns, each in row blocks of
+// kb rows.  Advanced by additions only: a 64-bit division costs a call.
+struct CopyCursor {
+  long long span, c0, end;   // span, its chunk's first column, span end
+  int j0;                    // the row block's first row
+
+  __device__ explicit CopyCursor(const CopyPlan& p)
+      : span(blockIdx.x), c0(span * p.tile_n),
+        end(min(p.n, c0 + p.tile_n)), j0(0) {}
+  __device__ bool valid(const CopyPlan& p) const { return span < p.spans; }
+  __device__ int width(const CopyPlan& p) const {
+    return (int)min((long long)p.w, end - c0);
+  }
+  __device__ int rows(const CopyPlan& p) const { return min(p.kb, p.k - j0); }
+  __device__ void next(const CopyPlan& p) {
+    if ((j0 += p.kb) < p.k) return;
+    j0 = 0;
+    if ((c0 += p.w) < end) return;
+    span += gridDim.x;
+    c0 = span * p.tile_n;
+    end = min(p.n, c0 + p.tile_n);
+  }
+};
+
+__global__ void __launch_bounds__(32)
+copy_rows_ring_kernel(const uint8_t* __restrict__ data,
+                      uint8_t* __restrict__ out, const CopyPlan p) {
+  extern __shared__ __align__(COPY_ALIGN) uint8_t ring_smem[];
+  const int lane = threadIdx.x;
+  const uint32_t bars = smem_u32(ring_smem);
+  const uint32_t ring = bars + COPY_BARS;
+  if (lane == 0) {
+    for (int s = 0; s < COPY_STAGES; ++s) mbar_init(bars + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();
+
+  // lane 0 arms stage s; each lane loads rows lane, lane + 32, ... of the
+  // loader's item, which then moves on
+  CopyCursor ld(p), st(p);
+  auto load = [&](int s) {
+    const int w = ld.width(p), rows = ld.rows(p);
+    const uint32_t bar = bars + 8 * s, dst = ring + s * p.stride;
+    if (lane == 0) mbar_expect_tx(bar, (uint32_t)(rows * w));
+    const uint8_t* src = data + (long long)ld.j0 * p.n + ld.c0;
+    for (int j = lane; j < rows; j += 32)
+      bulk_load(dst + j * p.w, src + (long long)j * p.n, w, bar);
+    ld.next(p);
+  };
+
+  for (int s = 0; s < COPY_STAGES && ld.valid(p); ++s) load(s);
+  // item t sits in stage t % stages, in that stage's phase t / stages
+  for (int s = 0, prev = -1, phase = 0; st.valid(p);) {
+    while (!mbar_try_wait(bars + 8 * s, (uint32_t)phase)) {
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    const int w = st.width(p), stored = min(st.rows(p), p.r - st.j0);
+    const uint32_t src = ring + s * p.stride;
+    for (int j = lane; j < stored; j += 32)
+      bulk_store(out + (long long)(st.j0 + j) * p.n + st.c0, src + j * p.w,
+                 w);
+    bulk_commit();
+    st.next(p);
+    // refill the stage before this one once every lane's stores have
+    // read it (a bulk group is the issuing thread's own)
+    if (prev >= 0 && ld.valid(p)) {
+      bulk_wait_read<1>();
+      __syncwarp();
+      load(prev);
+    }
+    prev = s;
+    if (++s == COPY_STAGES) s = 0, phase ^= 1;
+  }
+  bulk_wait_read<0>();
+}
+
 __global__ void __launch_bounds__(THREADS)
-copy_rows_kernel(const uint8_t* __restrict__ data, uint8_t* __restrict__ out,
-                 int r, int k, long long n, long long tile_n,
-                 uint32_t* sink_out) {
+copy_rows_bytes_kernel(const uint8_t* __restrict__ data,
+                       uint8_t* __restrict__ out, int r, int k, long long n,
+                       long long tile_n, uint32_t* sink_out) {
   const long long base = (long long)blockIdx.x * tile_n;
   uint32_t sink = 0;
   for (long long c = (long long)threadIdx.x * 16; c < tile_n; c += THREADS * 16) {
@@ -473,42 +667,102 @@ copy_rows_kernel(const uint8_t* __restrict__ data, uint8_t* __restrict__ out,
 #pragma unroll 4
     for (int j = 0; j < k; ++j) {
       const uint8_t* src = data + (long long)j * n + col;
-      uint4 v;
-      if (VEC) {
-        v = __ldg(reinterpret_cast<const uint4*>(src));
-      } else {
-        uint32_t w[4] = {0, 0, 0, 0};
+      uint32_t w[4] = {0, 0, 0, 0};
 #pragma unroll
-        for (int x = 0; x < 16; ++x)
-          if (col + x < n) w[x / 4] |= (uint32_t)__ldg(src + x) << (8 * (x % 4));
-        v = make_uint4(w[0], w[1], w[2], w[3]);
-      }
+      for (int x = 0; x < 16; ++x)
+        if (col + x < n) w[x / 4] |= (uint32_t)__ldg(src + x) << (8 * (x % 4));
       if (j < r) {
         uint8_t* dst = out + (long long)j * n + col;
-        if (VEC) {
-          *reinterpret_cast<uint4*>(dst) = v;
-        } else {
-          const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-          for (int x = 0; x < 16; ++x)
-            if (col + x < n) dst[x] = (uint8_t)(w[x / 4] >> (8 * (x % 4)));
-        }
+        for (int x = 0; x < 16; ++x)
+          if (col + x < n) dst[x] = (uint8_t)(w[x / 4] >> (8 * (x % 4)));
       } else {
-        sink ^= v.x ^ v.y ^ v.z ^ v.w;
+        sink ^= w[0] ^ w[1] ^ w[2] ^ w[3];
       }
     }
   }
   if (sink_out != nullptr) atomicXor(sink_out, sink);
 }
 
-template <bool VEC>
-cudaError_t launch_copy(const uint8_t* data, uint8_t* out, int r, int k,
-                        long long n, long long tile_n, cudaStream_t stream) {
+// The current device's SM count and how many ring blocks of `smem` bytes
+// an SM holds.  The stage shape, and with it `smem`, follows k and tile_n.
+// The answers are kept per device, so that a launch makes no driver query.
+cudaError_t ring_fit(size_t smem, int* sms, int* fit) {
+  struct Known { int sms = 0; size_t smem = 0; int fit = 0; };
+  static Known known[64];
+  static std::mutex lock;
+  int dev = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> guard(lock);
+  Known& k = known[dev];
+  if (k.sms == 0) {
+    int n = 0;
+    if ((err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaFuncSetAttribute(
+             copy_rows_ring_kernel,
+             cudaFuncAttributeMaxDynamicSharedMemorySize, COPY_SMEM_MAX)) !=
+            cudaSuccess)
+      return err;
+    k.sms = n;
+  }
+  if (k.smem != smem) {
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &k.fit, copy_rows_ring_kernel, 32, smem)) != cudaSuccess)
+      return err;
+    k.smem = smem;
+  }
+  *sms = k.sms;
+  *fit = k.fit;
+  return cudaSuccess;
+}
+
+// a grid of as many ring blocks as the SMs hold, at most one a span; a
+// ring no SM can hold is refused
+cudaError_t launch_copy_ring(const uint8_t* data, uint8_t* out, int r, int k,
+                             long long n, long long tile_n,
+                             cudaStream_t stream) {
+  CopyPlan p;
+  p.n = n;
+  p.tile_n = tile_n;
+  p.spans = (n + tile_n - 1) / tile_n;
+  p.r = r;
+  p.k = k;
+  long long w = (long long)(COPY_STAGE_BYTES / k) / 16 * 16;
+  w = w < COPY_W_MIN ? COPY_W_MIN : w;
+  p.w = (int)(w < tile_n ? w : tile_n);
+  p.kb = COPY_STAGE_BYTES / p.w < k ? COPY_STAGE_BYTES / p.w : k;
+  p.stride = (p.kb * p.w + COPY_ALIGN - 1) / COPY_ALIGN * COPY_ALIGN;
+  const size_t smem = (size_t)COPY_BARS + (size_t)COPY_STAGES * p.stride;
+  int sms = 0, fit = 0;
+  const cudaError_t err = ring_fit(smem, &sms, &fit);
+  if (err != cudaSuccess) return err;
+  if (fit < 1) return cudaErrorInvalidConfiguration;
+  const long long cap = (long long)sms * fit;
+  const int grid = (int)(p.spans < cap ? p.spans : cap);
+  copy_rows_ring_kernel<<<grid, 32, smem, stream>>>(data, out, p);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_copy_bytes(const uint8_t* data, uint8_t* out, int r, int k,
+                              long long n, long long tile_n,
+                              cudaStream_t stream) {
   const long long blocks = (n + tile_n - 1) / tile_n;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  copy_rows_kernel<VEC><<<(unsigned)blocks, THREADS, 0, stream>>>(
+  copy_rows_bytes_kernel<<<(unsigned)blocks, THREADS, 0, stream>>>(
       data, out, r, k, n, tile_n, nullptr);
   return cudaGetLastError();
+}
+
+bool copy_args_ok(int r, int k, long long n, long long tile_n) {
+  return r >= 1 && k >= r && n >= 1 && tile_n >= TC && tile_n % TC == 0;
+}
+
+bool bulk_ok(const void* data, const void* out, long long n) {
+  return (uintptr_t)data % 16 == 0 && (uintptr_t)out % 16 == 0 &&
+         n % 16 == 0;
 }
 
 }  // namespace
@@ -538,19 +792,19 @@ int bitplane_apply_launch(const void* bmat, const void* data, void* out,
                         : dispatch_b<false>(r, k, n, groups, tile_n, b, d, o, s));
 }
 
-// out [r, n] = data [:r] of data [k, n], reading all k rows; a block owns
-// tile_n columns (a positive multiple of 256).  Returns the cudaError_t.
+// out [r, n] = data [:r] of data [k, n], reading all k rows; a block takes
+// tile_n columns (a positive multiple of 256) a turn.  The bulk-copy ring
+// where data, out and n are 16-byte aligned, the byte path otherwise.
+// Returns the cudaError_t.
 int copy_rows_launch(const void* data, void* out, int r, int k, long long n,
                      long long tile_n, void* stream) {
-  if (r < 1 || k < r || n < 1 || tile_n < TC || tile_n % TC != 0)
-    return (int)cudaErrorInvalidValue;
-  const bool vec = ((uintptr_t)data % 16 == 0) && ((uintptr_t)out % 16 == 0) &&
-                   (n % 16 == 0);
+  if (!copy_args_ok(r, k, n, tile_n)) return (int)cudaErrorInvalidValue;
   const auto* d = static_cast<const uint8_t*>(data);
   auto* o = static_cast<uint8_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  return (int)(vec ? launch_copy<true>(d, o, r, k, n, tile_n, s)
-                   : launch_copy<false>(d, o, r, k, n, tile_n, s));
+  return (int)(bulk_ok(data, out, n)
+                   ? launch_copy_ring(d, o, r, k, n, tile_n, s)
+                   : launch_copy_bytes(d, o, r, k, n, tile_n, s));
 }
 
 }  // extern "C"

@@ -9,7 +9,8 @@ bit-plane product on the tensor cores, and a pure-stream copy.
   [G*8r, G*8k] (``torch.block_diag`` of G copies), one product for all
   G tiles;
 - :func:`copy_rows`: out[r, N] = data[:r] while reading all k rows, the
-  bandwidth ceiling for a GF apply's (k + r) * N bytes.
+  bandwidth ceiling for a GF apply's (k + r) * N bytes, as a persistent
+  ring of TMA bulk copies.
 
 On a CUDA tensor each wrapper launches the hand-written kernel of
 ``csrc/sweep_kernels.cu`` (built at first use by :mod:`.cuda_build`) and
@@ -188,8 +189,10 @@ def bitplane_apply_bd(bmat_bd, data, r: int, k: int, groups: int,
 
 def copy_rows(data, r: int, tile_n: int = 8192) -> torch.Tensor:
     """out[r, N] = data[:r] of data [k, N], reading every byte of all k
-    rows, a block owning ``tile_n`` columns.  A CUDA tensor launches the
-    copy kernel; a CPU tensor runs :func:`copy_rows_plain`."""
+    rows; ``tile_n`` (a multiple of 256) is the columns a block takes a
+    turn.  A CUDA tensor launches the copy kernel, the bulk-copy ring where
+    data, out and N are 16-byte aligned and the byte path otherwise; a
+    refused launch raises.  A CPU tensor runs :func:`copy_rows_plain`."""
     data = _as_u8(data)
     r, tile_n = int(r), _check_tile(tile_n)
     if data.dim() != 2:

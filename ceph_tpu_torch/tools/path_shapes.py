@@ -1,6 +1,7 @@
 """Time the hand kernels at every shape the port's paths launch them at.
 
     python ceph_tpu_torch/tools/path_shapes.py [--root DIR] [--only KERNEL]
+    python ceph_tpu_torch/tools/path_shapes.py --root DIR --turns PAIRS
 
 For each launch of ``chip_smoke.py``'s main paths, on ``cuda:0``:
 
@@ -60,6 +61,15 @@ For each launch of ``chip_smoke.py``'s main paths, on ``cuda:0``:
   [8, 8 Mi]: ``bitplane_apply`` int8 and bf16, ``bitplane_apply_bd`` int8
   at G = 4 and 2 and bf16 at G = 4, bound by bytes or tensor-core
   operations, whichever is larger;
+- copy: ``copy_rows``, the copy ceiling, at the sweep's [8, 8 Mi] with
+  r = 4 and both of the sweep's tiles, at k = 4 on [4, 8 Mi] (rows
+  r..k-1 are read only if k = 8 takes longer), and at the shapes it is
+  the yardstick of above: ecutil's [4 and 2 of 8] x 32 Mi, serving's
+  degraded read [1 of 8] x 8 Mi, the chain hop [1 of 1] x 32 Mi and
+  ``xor_apply``'s [16 of 64] x 4 Mi and [64 of 128] x 2 Mi; beside
+  each, ``data[:r].clone()`` (the same result, its own traffic 2 * r * N
+  bytes) and both rates per byte moved, host-paced and as device time
+  (``device_ms``, ``graph_ms``; the clone's as graph replay);
 - placement: ``crush_straw2`` on phase placement's 1024-OSD straw2 map
   at 2^20 x's (the pools' placement seeds), rep3 (chooseleaf firstn 3
   host) and ec84 (chooseleaf indep 12 host), each plain, with reweights
@@ -76,11 +86,12 @@ for ``crush_straw2`` the one call that checks it), the bytes bound at
 3.35 TB/s (and for ``xor_apply`` the XOR bound), the copy ceiling
 (``sweep_kernels.copy_rows`` moving the same bytes, in the same run; none
 where the apply writes more rows than it reads, or for the crc, which
-writes no rows) and the kernel's shares of both.  For the crc and the
-bit-plane kernel the device time apart from the host's launch pace is
-``device_ms`` (``torch.profiler``'s kernel time) and ``graph_ms`` (a CUDA
-graph replay of the 20 launches); for the crc ``ms`` is the launch alone,
-host-paced, and the whole ``crc32c_rows`` call is ``wrapper_ms``.  Where the package has
+writes no rows) and the kernel's shares of both.  For the crc, the
+bit-plane kernel and the copy, the device time apart from the host's
+launch pace is ``device_ms`` (``torch.profiler``'s kernel time) and
+``graph_ms`` (a CUDA graph replay of the 20 launches); for the crc ``ms``
+is the launch alone, host-paced, and the whole ``crc32c_rows`` call is
+``wrapper_ms``.  Where the package has
 ``rs_kernels.xor_apply_form``, both ``xor_apply`` forms are timed too.
 One JSON line per shape.
 
@@ -89,7 +100,9 @@ example an unpacked earlier commit) with this file's shapes and clock, so
 two versions of the kernels can be compared on one card in one run.
 Run it as a file, not with ``-m``, so that the package is imported from
 the root named.  ``--only KERNEL`` (repeatable) times that kernel's
-shapes alone.  Without a CUDA device it exits 2.
+shapes alone.  ``--root DIR --turns PAIRS`` times only ``copy_rows`` of
+DIR's checkout and of this one, in one process, in turns (parent, change,
+change, parent, PAIRS times) at TURN_SHAPES.  Without a CUDA device it exits 2.
 """
 from __future__ import annotations
 
@@ -97,9 +110,11 @@ import argparse
 import collections
 import contextlib
 import importlib
+import importlib.util
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -294,6 +309,12 @@ BITPLANE_VARIANTS = (("bitplane_apply", "int8", 1, 8192),
                      ("bitplane_apply_bd", "int8", 2, 8192),
                      ("bitplane_apply_bd", "bf16", 4, 4096))
 TENSOR_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12}   # dense peaks
+# copy_rows: (r, k, N, tile_n), see the module docstring
+COPY_SHAPES = ((4, 8, SWEEP_ROWS, 8192), (4, 8, SWEEP_ROWS, 32768),
+               (4, 4, SWEEP_ROWS, 8192), (4, 8, 32 * MIB, 8192),
+               (2, 8, 32 * MIB, 8192), (1, 8, SWEEP_ROWS, 8192),
+               (1, 1, 32 * MIB, 8192), (16, 64, 4 * MIB, 8192),
+               (64, 128, 2 * MIB, 8192))
 
 
 def sweep_shapes(pkg) -> list[dict]:
@@ -305,6 +326,14 @@ def sweep_shapes(pkg) -> list[dict]:
                  label=f"{acc} groups={g} tile_n={t}", mat=mat, rows=8,
                  cols=SWEEP_ROWS, stripes=1, acc=acc, groups=g, tile_n=t)
             for kernel, acc, g, t in BITPLANE_VARIANTS]
+
+
+def copy_shapes() -> list[dict]:
+    """``copy_rows`` at COPY_SHAPES."""
+    return [dict(kernel="copy_rows", path="sweep",
+                 label=f"r={r} k={k} tile_n={t}", r=r, rows=k, cols=n,
+                 stripes=1, tile_n=t)
+            for r, k, n, t in COPY_SHAPES]
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 2, rounds: int = 3) -> float:
@@ -637,6 +666,8 @@ def _measure(pkg, shape: dict, dev, seed: int) -> dict:
         return _measure_crc(K, shape, data)
     if shape["kernel"].startswith("bitplane"):
         return _measure_bitplane(K, SK, shape, data, dev)
+    if shape["kernel"] == "copy_rows":
+        return _measure_copy(pkg.sweep_kernels, shape, data)
     mat = torch.from_numpy(shape["mat"]).to(dev)
     r, k = mat.shape
     s = shape["stripes"]
@@ -686,6 +717,135 @@ def _measure(pkg, shape: dict, dev, seed: int) -> dict:
     del data
     torch.cuda.empty_cache()
     return row
+
+
+def _measure_copy(SK, shape: dict, data: torch.Tensor) -> dict:
+    """The copy ceiling: bitwise against its plain version, the time, the
+    bytes bound of its (k + r) * N bytes and its rate per byte, beside
+    ``data[:r].clone()`` and that call's rate on its 2 * r * N bytes."""
+    r, k, n, t = shape["r"], shape["rows"], shape["cols"], shape["tile_n"]
+    want = SK.copy_rows_plain(data, r)
+    run = lambda: SK.copy_rows(data, r, t)                    # noqa: E731
+    clone = lambda: data[:r].clone()                          # noqa: E731
+    err = int((run().to(torch.int16) - want.to(torch.int16)).abs().max())
+    ms, clone_ms = cuda_ms(run), cuda_ms(clone)
+    timing = device_ms(run, "copy_rows")
+    # the clone is a memcpy, whose profiler records are not one a call
+    graph = timing.get("graph_ms")
+    clone_graph = device_ms(clone, "Memcpy").get("graph_ms")
+    nbytes = (k + r) * n
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    row = {"kernel": "copy_rows", "path": shape["path"],
+           "label": shape["label"], "shape": [r, k, n], "tile_n": t,
+           "max_abs_err": err, "ms": ms, "plain_ms": clone_ms,
+           "library_ms": clone_ms, "device_ms": timing.get("profiler_ms"),
+           "graph_ms": graph, "device_timing": timing,
+           "library_graph_ms": clone_graph,
+           "bytes_ms": bytes_ms, "bound_ms": bytes_ms, "bound_by": "bytes",
+           "share_of_bound": bytes_ms / ms,
+           "graph_share_of_bound": bytes_ms / graph if graph else None,
+           "TBps": nbytes / ms / 1e9,
+           "graph_TBps": nbytes / graph / 1e9 if graph else None,
+           "library_TBps": 2 * r * n / clone_ms / 1e9,
+           "library_graph_TBps": (2 * r * n / clone_graph / 1e9
+                                  if clone_graph else None),
+           "copy_ms": None, "share_of_copy": None}
+    del data, want
+    torch.cuda.empty_cache()
+    return row
+
+
+# copy_rows in turns against another checkout's: the sweep's [8, 8 Mi] and
+# ecutil's encode [4 of 8] x 32 Mi, r = 4, tile_n 8192
+TURN_SHAPES = ((4, 8, SWEEP_ROWS, 8192), (4, 8, 32 * MIB, 8192))
+TURN_LAUNCHES = 20
+
+
+def sweep_library(root: str):
+    """The ``sweep_kernels`` library of the ``ceph_tpu_torch`` in ``root``,
+    built by that checkout's own ``cuda_build.py`` into its build
+    directory."""
+    path = os.path.join(os.path.abspath(root), "ceph_tpu_torch", "ops",
+                        "cuda_build.py")
+    spec = importlib.util.spec_from_file_location(
+        "_cuda_build" + re.sub(r"\W", "_", path), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.load("sweep_kernels")
+
+
+def copy_turns(parent_root: str, pairs: int, seed: int = 0) -> list[dict]:
+    """``copy_rows`` of the checkout in ``parent_root`` and of this one at
+    TURN_SHAPES, in turns parent, change, change, parent, ``pairs`` times.
+    A turn reads the device time of one CUDA graph of TURN_LAUNCHES
+    launches (the best of 3 replays, over TURN_LAUNCHES), after a bitwise
+    check against ``data[:r]``.  One row a shape: every reading, each
+    side's median, spread (max - min) and interquartile range, the pairs
+    the change won (its two readings of a pair against the parent's),
+    and ``verdict``: "faster" or "slower" where one side won at least
+    nine pairs in ten and the medians differ by more than either side's
+    spread, else "unresolved"."""
+    here = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    libs = {"parent": sweep_library(parent_root),
+            "change": sweep_library(here)}
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = []
+    for r, k, n, t in TURN_SHAPES:
+        data = torch.randint(0, 256, (k, n), dtype=torch.uint8, device=dev,
+                             generator=gen)
+        out = torch.empty((r, n), dtype=torch.uint8, device=dev)
+        graphs = {}
+        for name, lib in libs.items():
+            def launch(lib=lib):
+                err = lib.copy_rows_launch(
+                    data.data_ptr(), out.data_ptr(), r, k, n, t,
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"copy_rows_launch: cudaError_t {err}")
+            out.zero_()
+            launch()
+            if not torch.equal(out, data[:r]):
+                raise AssertionError(f"{name}'s copy_rows disagrees at "
+                                     f"[{r} of {k}] x {n}")
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(TURN_LAUNCHES):
+                    launch()
+            graphs[name] = graph
+        ms = {"parent": [], "change": []}
+        for _ in range(pairs):
+            for name in ("parent", "change", "change", "parent"):
+                ms[name].append(cuda_ms(graphs[name].replay, iters=1,
+                                        warmup=1) / TURN_LAUNCHES)
+        med = {name: statistics.median(v) for name, v in ms.items()}
+        spread = {name: max(v) - min(v) for name, v in ms.items()}
+        iqr = {name: (lambda q: q[2] - q[0])(statistics.quantiles(v, n=4))
+               for name, v in ms.items()}
+        wins = sum(sum(ms["change"][2 * i:2 * i + 2])
+                   < sum(ms["parent"][2 * i:2 * i + 2]) for i in range(pairs))
+        diff = med["change"] - med["parent"]
+        verdict = "unresolved"
+        if abs(diff) > max(spread.values()):
+            if diff < 0 and wins >= 0.9 * pairs:
+                verdict = "faster"
+            elif diff > 0 and pairs - wins >= 0.9 * pairs:
+                verdict = "slower"
+        bytes_ms = (k + r) * n / HBM_BYTES_PER_S * 1e3
+        rows.append({
+            "kernel": "copy_rows", "turns": "parent change change parent",
+            "pairs": pairs, "shape": [r, k, n], "tile_n": t, "ms": ms,
+            "median_ms": med, "spread_ms": spread, "iqr_ms": iqr,
+            "change_wins": wins, "change_minus_parent_ms": diff,
+            "change_over_parent": med["change"] / med["parent"],
+            "verdict": verdict, "bound_ms": bytes_ms, "share_of_bound": {
+                name: bytes_ms / v for name, v in med.items()},
+            "TBps": {name: (k + r) * n / v / 1e9 for name, v in med.items()},
+            "max_abs_err": 0})
+        del graphs, data, out
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _measure_crc(K, shape: dict, rows: torch.Tensor) -> dict:
@@ -1071,15 +1231,25 @@ def main(argv=None) -> int:
                     metavar="KERNEL",
                     help="time only the shapes of this kernel (repeatable; "
                          "e.g. crc32c_rows, bitplane_apply)")
+    ap.add_argument("--turns", type=int, default=0, metavar="PAIRS",
+                    help="with --root, time only copy_rows of that "
+                         "checkout and of this one in turns, PAIRS times "
+                         "parent, change, change, parent")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("path_shapes: torch.cuda.is_available() is False; the kernels "
               "run only on a CUDA card", file=sys.stderr)
         return 2
+    if args.turns:
+        if not args.root:
+            ap.error("--turns needs --root")
+        for row in copy_turns(args.root, args.turns):
+            print(json.dumps(row), flush=True)
+        return 0
     pkg = load_package(args.root)
     dev = torch.device("cuda", 0)
     bad = []
-    shapes = launch_shapes(pkg) + sweep_shapes(pkg)
+    shapes = launch_shapes(pkg) + sweep_shapes(pkg) + copy_shapes()
     if not args.only or "crush_straw2" in args.only:
         shapes += straw2_shapes(pkg)
     for shape in shapes:

@@ -1382,6 +1382,8 @@ def phase_native(K, LL, ecutil, gfref, registry_cls, native,
 
 _SWEEP_LINE = re.compile(r"^(\S.{33}) +(\d+) MiB/s$")
 SWEEP_SOURCE = "ceph_tpu_torch/ops/csrc/sweep_kernels.cu"
+# copy_rows at [8, 8 Mi] over [4, 8 Mi], r = 4: the bytes ratio is 1.5
+COPY_K_RATIO_MIN = 1.25
 
 
 def sweep_quick_subprocess() -> dict:
@@ -1435,12 +1437,11 @@ def sweep_stripes_subprocess() -> dict:
     return rows
 
 
-def copy_rows_sass_loads(cuda_build) -> dict | None:
-    """Global loads in the SASS of each copy_rows_kernel instantiation, or
-    None where the toolkit has no cuobjdump."""
+def copy_rows_sass(cuda_build) -> dict:
+    """Global loads (LDG) and bulk copies (UBLKCP: cp.async.bulk) in the
+    SASS of each copy_rows kernel (the toolkit's cuobjdump).  The ring
+    must show bulk copies."""
     tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
-    if not os.path.exists(tool):
-        return None
     sass = subprocess.run([tool, "-sass",
                            cuda_build.library_path("sweep_kernels")],
                           capture_output=True, text=True, timeout=120).stdout
@@ -1448,15 +1449,51 @@ def copy_rows_sass_loads(cuda_build) -> dict | None:
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-        elif name and "copy_rows_kernel" in name and "LDG" in line:
-            counts[name] = counts.get(name, 0) + 1
+        elif name and "copy_rows" in name:
+            row = counts.setdefault(name, {"LDG": 0, "UBLKCP": 0})
+            for op in row:
+                row[op] += op in line
+    ring = [v for n, v in counts.items() if "copy_rows_ring" in n]
+    if not ring or min(v["UBLKCP"] for v in ring) < 1:
+        raise AssertionError(f"no bulk copies in the copy ring's SASS: "
+                             f"{counts}")
     return counts
 
 
-def phase_sweep(K, SK, KS, cuda_build, dev) -> tuple[dict, list]:
+# copy_rows against its plain version, bitwise: (r, k, N, tile_n)
+COPY_GRID = (
+    (16, 64, 1 << 20, 8192), (64, 128, 1 << 20, 8192),  # xor yardsticks
+    (16, 64, (1 << 20) + 4096, 256), (64, 128, (1 << 20) + 4096, 32768),
+    (8, 8, 1 << 20, 8192), (1, 8, 1 << 20, 8192),       # r = k, r = 1
+    (4, 8, (8 << 20) + 48, 8192),       # ragged, a multiple of 16
+    (4, 8, 1000003, 8192),              # not a multiple of 16: byte path
+    (3, 5, 40000, 256), (2500, 3000, 4096, 256),       # row blocks
+)
+
+
+def copy_rows_grid(SK, dev, gen) -> dict:
+    """copy_rows at COPY_GRID and on an offset view: max abs error."""
+    worst, cases = 0, 0
+    for r, k, n, tile in COPY_GRID:
+        data = rand_u8(gen, (k, n), dev)
+        worst = max(worst, max_abs_err(SK.copy_rows(data, r, tile),
+                                       SK.copy_rows_plain(data, r)))
+        cases += 1
+    base = rand_u8(gen, (8 * 65536 + 3,), dev)
+    view = base[3:].view(8, 65536)          # contiguous, not 16-aligned
+    worst = max(worst, max_abs_err(SK.copy_rows(view, 4, 8192),
+                                   SK.copy_rows_plain(view, 4)))
+    if worst:
+        raise AssertionError(f"copy_rows disagrees on the grid: {worst}")
+    return {"cases": cases + 1, "max_abs_err": worst}
+
+
+def phase_sweep(K, SK, KS, PS, cuda_build, dev) -> tuple[dict, list]:
     """The kernel sweep at full size with the counts zeroed before and read
     after, the --quick CLI once, then the three sweep kernels timed at the
-    sweep's shape against their plain versions and bounds."""
+    sweep's shape against their plain versions and bounds; the copy also
+    as device time beside the clone's, its k = 8 / k = 4 device-time
+    ratio, its grid of shapes bitwise and the bulk copies in its SASS."""
     SK.reset_launches()
     K.reset_launches()
     lines = []
@@ -1527,26 +1564,52 @@ def phase_sweep(K, SK, KS, cuda_build, dev) -> tuple[dict, list]:
                           (4, "bf16", 4096))], plain_bd)
     del want
 
+    # the plain version is data[:r].clone(), the library call: one timing
     row_copy = row("copy_rows", "tools/kernel_sweep.py:164", [
         variant(lambda: SK.copy_rows(data, r, t), data[:r], tile_n=t)
         for t in (8192, 32768)],
         cuda_ms(lambda: SK.copy_rows_plain(data, r), 20))
-    # the loads of rows r..k-1 stay: the time grows with k at fixed r
-    k4_ms = cuda_ms(lambda: SK.copy_rows(data[:r], r, 8192), 20)
-    row_copy["library_ms"] = cuda_ms(lambda: data[:r].clone(), 20)
+    row_copy["library_ms"] = row_copy["plain_ms"]
     row_copy["library"] = (f"data[:{r}].clone(): the same result, its "
                            f"own traffic 2*r*N bytes")
     ceiling_ms = row_copy["ms"]
+    # the kernel's own time (the profiler's; graph replay where it has
+    # none), apart from the wrapper's host pace, which is about as long;
+    # the clone, a memcpy, by graph replay
+    device = {name: PS.device_ms(fn, kernel) for name, fn, kernel in (
+        ("k8", lambda: SK.copy_rows(data, r, 8192), "copy_rows"),
+        ("k4", lambda: SK.copy_rows(data[:r], r, 8192), "copy_rows"),
+        ("clone", lambda: data[:r].clone(), "Memcpy"))}
+    dev_ms = {name: t.get("profiler_ms") or t.get("graph_ms")
+              for name, t in device.items()}
+    dev_ms["clone"] = device["clone"].get("graph_ms")
+    if not dev_ms["k8"] or not dev_ms["k4"]:
+        raise AssertionError(f"no device time for copy_rows: {device}")
+    row_copy |= {"device_ms": dev_ms["k8"], "device_timing": device["k8"],
+                 "library_graph_ms": dev_ms["clone"]}
+    # the loads of rows r..k-1 stay: the time grows with k at fixed r
+    scaling = {"k8_device_ms": dev_ms["k8"], "k4_device_ms": dev_ms["k4"],
+               "ratio": dev_ms["k8"] / dev_ms["k4"],
+               "bytes_ratio": (k + r) / (r + r)}
+    if scaling["ratio"] < COPY_K_RATIO_MIN:
+        raise AssertionError(f"copy_rows at k = {k} is not "
+                             f"{COPY_K_RATIO_MIN}x its time at k = {r}: "
+                             f"rows {r}..{k - 1} are not read: {scaling}")
+    gen = torch.Generator(device=dev).manual_seed(19)
     gf_ms = cuda_ms(lambda: K.gf_apply(mat, data), 20)
     report = {
         "shape": [r, k, n], "rows": rates, "lines": lines,
         "launches": launches, "quick_rows": quick,
         "sweep_stripes_quick_MiBps": stripes_quick,
-        "copy_k_scaling": {"k8_ms": ceiling_ms, "k4_ms": k4_ms,
-                           "ratio": ceiling_ms / k4_ms,
-                           "bytes_ratio": (k + r) / (r + r)},
-        "copy_rows_sass_ldg": copy_rows_sass_loads(cuda_build),
+        "copy_k_scaling": scaling,
+        "copy_rows_grid": copy_rows_grid(SK, dev, gen),
+        "copy_rows_sass": copy_rows_sass(cuda_build),
         "copy_ceiling_TBps": (k + r) * n / (ceiling_ms / 1e3) / 1e12,
+        "clone_TBps": 2 * r * n / (row_copy["library_ms"] / 1e3) / 1e12,
+        "copy_ceiling_device_TBps": (k + r) * n / dev_ms["k8"] / 1e9,
+        "clone_graph_TBps": (2 * r * n / dev_ms["clone"] / 1e9
+                             if dev_ms["clone"] else None),
+        "copy_ceiling_device_share_of_datasheet": bytes_ms / dev_ms["k8"],
         "copy_ceiling_share_of_datasheet": bytes_ms / ceiling_ms,
         "gf_apply_ms": gf_ms,
         "gf_apply_share_of_datasheet": bytes_ms / gf_ms,
@@ -5560,7 +5623,7 @@ def main() -> int:
     for name, line in nat.items():
         emit(f"native.{name}", **line, gpu=smi)
     lap("native")
-    sweep, rows_sweep = phase_sweep(K, SK, KS, cuda_build, dev)
+    sweep, rows_sweep = phase_sweep(K, SK, KS, PS, cuda_build, dev)
     emit("sweep", **sweep, gpu=smi)
     lap("sweep")
     placement, n_place, rows_place = phase_placement(PS, cuda_build, dev)

@@ -152,12 +152,20 @@ def test_bitplane_apply_bd_matches_kernel_bd_interpret(acc):
         assert np.array_equal(got[:, cols], outs[t % groups][:, cols])
 
 
-def test_copy_rows_matches_copy_kernel_interpret():
-    data = _rand(np.random.default_rng(7), (8, 1024))
-    want = _copy_interpret(data, 4, 256)
+@pytest.mark.parametrize("r,k,n,tile", [
+    (4, 8, 1024, 256),
+    (8, 8, 512, 256),           # r = k
+    (1, 8, 512, 256),           # r = 1
+    (16, 64, 512, 256),         # the xor_apply yardsticks' k, narrow n
+    (64, 128, 256, 256),
+    (4, 8, 32768, 32768),       # the sweep's wide tile
+])
+def test_copy_rows_matches_copy_kernel_interpret(r, k, n, tile):
+    data = _rand(np.random.default_rng(7 + k + r), (k, n))
+    want = _copy_interpret(data, r, tile)
     d = torch.from_numpy(data)
-    assert np.array_equal(sk.copy_rows_plain(d, 4).numpy(), want)
-    assert np.array_equal(sk.copy_rows(d, 4, 256).numpy(), want)
+    assert np.array_equal(sk.copy_rows_plain(d, r).numpy(), want)
+    assert np.array_equal(sk.copy_rows(d, r, tile).numpy(), want)
 
 
 # -- against the host codec, every column ----------------------------------------
@@ -252,6 +260,16 @@ def test_wrappers_reject_bad_inputs(case):
     sk.reset_launches()
     exc, fn = calls[case]
     _raises(exc, fn)
+    assert sum(sk.launches.values()) == 0
+
+
+@pytest.mark.parametrize("tile", [32768, 8192])
+def test_copy_rows_accepts_a_tile_wider_than_n(tile):
+    """tile_n is a block's columns a turn, not a stage: 32768 on 256
+    columns is taken, and nothing is launched for a CPU tensor."""
+    sk.reset_launches()
+    data = torch.from_numpy(_rand(np.random.default_rng(tile), (8, 256)))
+    assert torch.equal(sk.copy_rows(data, 4, tile), data[:4])
     assert sum(sk.launches.values()) == 0
 
 
