@@ -106,7 +106,8 @@ class _DecodeTables:
     """One signature's cached decode state: the host matrix, the source
     chunk order, and — uploaded lazily, then pinned for the LRU entry's
     lifetime — the device-resident copies, one a device (and a column
-    block, for a mesh shard's survivor rows).  The device copy is what
+    block, for a mesh shard's survivor rows, or a caller's row order,
+    for :meth:`RSCodec.decode_batch_device`).  The device copy is what
     keeps an LRU *hit* from paying a host->device matrix transfer per
     call."""
 
@@ -146,6 +147,8 @@ class RSCodec:
         # uploads (no decode matrix is re-uploaded per call)
         self.parity_uploads = 0
         self.decode_table_uploads = 0
+        # decode_batch_device calls that had to copy their survivors
+        self.decode_relayouts = 0
 
     # -- device placement ----------------------------------------------------
 
@@ -289,13 +292,19 @@ class RSCodec:
         return self._entry_device(entry, device, cols), entry.src
 
     def _entry_device(self, entry: _DecodeTables, device=None,
-                      cols: tuple[int, int] | None = None) -> torch.Tensor:
-        """Pin (lazily uploading) an already-fetched entry's device copy."""
+                      cols: tuple[int, int] | None = None,
+                      order: tuple[int, ...] | None = None) -> torch.Tensor:
+        """Pin (lazily uploading) an already-fetched entry's device copy.
+        ``order`` (chunk ids, a superset of ``entry.src``) lays the
+        columns out in that order: column c holds D's column for chunk
+        ``order[c]``, zero for a chunk D does not read."""
         dev = self.torch_device if device is None else torch_device(device)
-        key = (dev, cols)
+        key = (dev, cols, order)
         got = entry.dev.get(key)
         if got is None:
             D = np.ascontiguousarray(entry.D, dtype=np.uint8)
+            if order is not None:
+                D = _reorder_columns(D, entry.src, order)
             if cols is not None:
                 D = np.pad(D[:, cols[0]:cols[1]], ((0, 0), (0, max(
                     0, cols[1] - max(cols[0], D.shape[1])))))
@@ -396,19 +405,38 @@ class RSCodec:
     def decode_batch_device(self, stack: torch.Tensor, src: list[int],
                             erasures: list[int]) -> torch.Tensor:
         """Device-to-device batched decode: ``stack`` [B, k', N] survivors
-        in ``src`` order -> [B, len(erasures), N] on device.  The row
-        permutation, fold and unfold all run on the device."""
+        in ``src`` order -> [B, len(erasures), N] on device, contiguous.
+
+        The survivors go to the kernel as they lie, the vertical layout
+        [B*k', N] of :func:`rs_kernels.gf_apply_stripes`: the caller's
+        order goes into the decode matrix's columns (a survivor the
+        matrix does not read gets a zero column), one device copy per
+        (signature, order, device) in the LRU entry.  A stack that is not
+        contiguous is copied once; ``decode_relayouts`` counts those
+        calls."""
         src = [int(s) for s in src]
         erasures = sorted(int(e) for e in erasures)
-        D_dev, src_expected = self.decode_matrix_device(erasures,
-                                                        available=src)
-        idx = self._src_index_map(src, src_expected)
-        if idx is not None:
-            stack = torch.index_select(
-                stack, 1, torch.tensor(idx, device=stack.device))
-        elif len(src_expected) != int(stack.shape[1]):
-            stack = stack[:, :len(src_expected), :]
         b, k, n = (int(s) for s in stack.shape)
-        folded = stack.transpose(0, 1).reshape(k, b * n).contiguous()
-        rec = rs_kernels.gf_apply(D_dev, folded)
-        return rec.reshape(len(erasures), b, n).transpose(0, 1)
+        if k != len(src):
+            raise ValueError(f"stack has {k} rows for {len(src)} sources")
+        entry = self._decode_entry(erasures, available=src)
+        order = None if src == entry.src else tuple(src)
+        D_dev = self._entry_device(entry, order=order)
+        if not stack.is_contiguous():
+            stack = stack.contiguous()
+            with self._lock:
+                self.decode_relayouts += 1
+        rec = rs_kernels.gf_apply_stripes(D_dev, stack.view(b * k, n), b)
+        return rec.view(b, len(erasures), n)
+
+
+def _reorder_columns(D: np.ndarray, src: list[int],
+                     order: tuple[int, ...]) -> np.ndarray:
+    """D [r, len(src)], columns in ``src`` order -> [r, len(order)] in
+    ``order``: each chunk of ``src`` takes its column at its last place in
+    ``order`` and every other column is zero, so the product over rows in
+    ``order`` equals D's over rows in ``src`` order."""
+    pos = {s: c for c, s in enumerate(order)}
+    out = np.zeros((D.shape[0], len(order)), dtype=np.uint8)
+    out[:, [pos[s] for s in src]] = D
+    return out

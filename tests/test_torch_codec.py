@@ -82,6 +82,60 @@ def test_decode_batch_unsorted_src_matches_jax(technique):
         assert np.array_equal(got_dev.numpy(), want_dev)
 
 
+# caller orders for decode_batch_device: (erasures, src, strided stack)
+LAYOUTS = {
+    "identity": ([1, 4], [0, 2, 3, 5], False),
+    "permuted": ([1, 4], [5, 0, 3, 2], False),
+    "extras": ([1], [0, 2, 3, 4, 5], False),
+    "permuted_extras": ([1], [5, 3, 0, 4, 2], False),
+    "strided": ([1, 4], [5, 0, 3, 2], True),
+}
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("technique", TECHNIQUES)
+def test_decode_batch_device_takes_the_callers_layout(technique, layout):
+    """The survivors go to the kernel in the caller's order: the order is
+    in the decode matrix's columns (one upload per order), and only a
+    stack that is not contiguous is copied."""
+    erasures, src, strided = LAYOUTS[layout]
+    jc, tc = _pair(technique)
+    rng = np.random.default_rng(31)
+    B, n = 5, 192
+    data = rng.integers(0, 256, size=(B, 4, n), dtype=np.uint8)
+    full = np.concatenate([data, np.asarray(jc.encode(data))], axis=1)
+    stack = np.ascontiguousarray(full[:, src, :])
+    if strided:     # the same values, the batch axis not outermost
+        t = torch.from_numpy(np.ascontiguousarray(
+            stack.transpose(1, 0, 2))).transpose(0, 1)
+        assert not t.is_contiguous()
+    else:
+        t = torch.from_numpy(stack)
+    got = tc.decode_batch_device(t, src, erasures)
+    assert got.shape == (B, len(erasures), n) and got.is_contiguous()
+    want = np.asarray(jc.decode_batch_device(stack, src, erasures))
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(got.numpy(), full[:, erasures, :])
+    assert tc.decode_table_uploads == 1
+    assert tc.decode_relayouts == int(strided)
+    again = tc.decode_batch_device(t, src, erasures)        # an LRU hit
+    assert torch.equal(again, got)
+    assert tc.decode_table_uploads == 1
+    assert tc.decode_relayouts == 2 * int(strided)
+    # the matrix in its own order: the same copy where the caller's order
+    # is the matrix's, else a second upload
+    _, src_expected = tc.decode_matrix_device(erasures, src)
+    assert tc.decode_table_uploads == 1 + int(src != src_expected)
+    assert (layout == "identity") == (src == src_expected)
+
+
+def test_decode_batch_device_rejects_a_stack_of_other_rows():
+    tc = RSCodec(4, 2, device="cpu")
+    with pytest.raises(ValueError):
+        tc.decode_batch_device(torch.zeros((2, 3, 16), dtype=torch.uint8),
+                               [0, 2, 3, 5], [1, 4])
+
+
 @pytest.mark.parametrize("technique", TECHNIQUES)
 def test_device_entry_points_match_jax(technique):
     jc, tc = _pair(technique)
