@@ -34,9 +34,22 @@ with no ``device`` key).  ``attach_serving`` takes the port's
 ``exec.ServingEngine`` and ``recovery_pipeline`` its
 ``ops.pipeline.CodecPipeline``; on either, a failure on the card fails
 the op.
+
+With an engine attached, a write's encode is a pipeline stage of its own,
+as Ceph's ``ECBackend`` keeps a write waiting in one stage while the next
+proceeds: the write hands its encode to the engine as a future and parks
+at the head of ``waiting_reads`` (``waiting_encode`` lists the parked
+writes, in order); the writes behind it in the PG hand theirs over too,
+and so do the other PGs' writes, so one burst becomes one device batch.
+When the bus has nothing left to deliver, its idle hook
+(:meth:`ECBackend._resume_encoded`) flushes the engine and the writes
+resume on the delivering thread: the scatter into shard transactions,
+the HashInfo crcs, the sub-writes.
 """
 from __future__ import annotations
 
+import time
+from collections import deque
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -54,7 +67,7 @@ from .pg_backend import (Op, OSDShard, PG_META, PGBackend, RecoveryOp,
                          RecoveryState, RepairState, ShardRepairOp,
                          _slice_subchunks)
 from .transaction import get_write_plan
-from ..common.tracer import trace_span
+from ..common.tracer import default_tracer, trace_span
 from ..osd.pg_log import OP_DELETE, OP_MODIFY
 
 __all__ = ["ECBackend", "OSDShard", "RecoveryState", "RecoveryOp",
@@ -136,24 +149,115 @@ class ECBackend(PGBackend):
         # decode dispatches route through its admission+coalescing queue
         # so CONCURRENT ops across PGs fuse into one device batch
         self.serving = None
+        # the encode stage: writes whose encodes the engine holds, in
+        # pipeline order (each is also in waiting_reads)
+        self.waiting_encode: deque[Op] = deque()
+        self._encodes_taken = 0
+        # the pool's allow_ec_overwrites flag (PrimaryLogPG.ec_overwrites)
+        self.ec_overwrites = True
 
     def attach_serving(self, engine) -> None:
         """Route this backend's codec dispatches through a
         :class:`~ceph_tpu_torch.exec.ServingEngine` (throttled admission,
-        deadline-driven cross-op coalescing, QoS-ordered batching)."""
+        deadline-driven cross-op coalescing, QoS-ordered batching), with
+        writes encoding in the encode stage (module docstring).  ``None``
+        detaches it, once the writes parked on it have moved on."""
+        hooks = self.bus.idle_hooks
+        if self._resume_encoded in hooks:
+            hooks.remove(self._resume_encoded)
+        if self.serving is not None and self.waiting_encode:
+            self.serving.flush()
+            self.check_ops()
         self.serving = engine
-
-    def _serving_encode(self, logical) -> dict[int, np.ndarray]:
-        if self.serving is not None:
-            return self.serving.encode(logical, sinfo=self.sinfo,
-                                       ec_impl=self.ec_impl)
-        return ecutil.encode(self.sinfo, self.ec_impl, logical)
+        if engine is not None:
+            hooks.append(self._resume_encoded)
 
     def _serving_decode(self, by_chunk) -> bytes:
         if self.serving is not None:
             return self.serving.decode(by_chunk, sinfo=self.sinfo,
                                        ec_impl=self.ec_impl)
         return ecutil.decode(self.sinfo, self.ec_impl, by_chunk)
+
+    # -- the encode stage ----------------------------------------------------
+
+    def _encode_pending(self, op: Op) -> bool:
+        """The stage's gate (``try_reads_to_commit``): every write at the
+        front of ``waiting_reads`` whose reads are in hands its encodes to
+        the engine, in order; the head waits here until its results are
+        back.  A write behind a write with reads outstanding keeps its
+        place and hands its encode over later."""
+        if self.serving is None:
+            return False
+        for w in self.waiting_reads:
+            if w.pending_read_shards:
+                break
+            if w.encodes is None:
+                self._stage_encodes(w)
+        return any(not fut.done() for _p, _l, fut in op.encodes.values())
+
+    def _stage_encodes(self, op: Op) -> None:
+        """Submit the op's encodes (one an object it writes) to the engine
+        and park the op in ``waiting_encode``.  Objects with nothing to
+        encode, and chunks ``put_many`` computed beforehand, stay with
+        :meth:`_generate_transactions`."""
+        op.encodes = {}
+        for oid, will_write in op.plan.will_write.items():
+            objop = op.plan.t.ops[oid]
+            if not will_write or objop.rollback_from is not None \
+                    or objop.omap_ops:
+                continue
+            pieces, logical = self._logical_extents(op, oid, objop,
+                                                    will_write)
+            if self._precomputed(objop, pieces, logical) is not None:
+                continue
+            fut = self.serving.submit_encode(logical, sinfo=self.sinfo,
+                                             ec_impl=self.ec_impl)
+            op.encodes[oid] = (pieces, logical, fut)
+        if op.encodes:
+            op.trace = default_tracer().current_ctx()
+            self.waiting_encode.append(op)
+            self.perf.inc("encodes_staged", len(op.encodes))
+            self.perf.set("encode_parked", len(self.waiting_encode))
+
+    def _take_encode(self, op: Op, oid: str, staged) -> dict:
+        """The staged encode's chunks (its error, raised); books the
+        op's stay in the stage, from the engine's submit stamps, on
+        ``ec.encode_wait`` and ``encode_wait_time``."""
+        _pieces, logical, fut = staged
+        encoded = fut.result(0)
+        wait = time.monotonic() - fut.t_submit
+        default_tracer().complete("ec.encode_wait", fut.t_submit_wall, wait,
+                                  ctx=op.trace, oid=oid,
+                                  bytes=int(logical.nbytes),
+                                  backend=self.instance_name)
+        self.perf.tinc("encode_wait_time", wait)
+        self._encodes_taken += 1
+        return encoded
+
+    def _unstage(self, op: Op) -> None:
+        """Take the op out of the stage (by identity: ops are dataclasses,
+        and ``==`` would compare their transactions)."""
+        if op.encodes is not None:
+            for i, w in enumerate(self.waiting_encode):
+                if w is op:
+                    del self.waiting_encode[i]
+                    self.perf.set("encode_parked", len(self.waiting_encode))
+                    break
+        op.encodes = None
+
+    def _resume_encoded(self) -> bool:
+        """The bus's idle hook: with writes parked in the encode stage,
+        flush the engine (an engine without threads runs its batches
+        here, a threaded one is waited for) and move the writes on, on
+        this thread.  Returns whether one moved."""
+        if not self.waiting_encode:
+            return False
+        head = self.waiting_encode[0]
+        if any(not fut.done() for _p, _l, fut in head.encodes.values()):
+            self.serving.flush()
+        taken = self._encodes_taken
+        self.check_ops()
+        return self._encodes_taken != taken
 
     # -- EC metadata ---------------------------------------------------------
 
@@ -392,7 +496,13 @@ class ECBackend(PGBackend):
                 if t_chunk < hinfo.total_chunk_size:
                     for chunk, shard in enumerate(self.acting):
                         shard_txns[shard].truncate(GObject(oid, shard), t_chunk)
-                    hinfo.set_total_chunk_size_clear_hash(t_chunk)
+                    if t_chunk == 0 and not self.ec_overwrites:
+                        # a pool without overwrites keeps its hashes: an
+                        # empty chunk's crc is the seed, so the chain
+                        # restarts (a write_full's truncate to 0)
+                        hinfo.clear()
+                    else:
+                        hinfo.set_total_chunk_size_clear_hash(t_chunk)
             if objop.omap_ops:
                 # EC pools do not support omap, exactly like the reference
                 # (PrimaryLogPG rejects with -EOPNOTSUPP before it gets
@@ -419,30 +529,23 @@ class ECBackend(PGBackend):
                 if not objop.delete_first:
                     self._persist_hinfo(oid, hinfo, shard_txns)
                 continue
-            # assemble the logical bytes for every will_write extent
-            pieces: list[tuple[int, bytes]] = []
-            for off, length in will_write:
-                pieces.append((off, self._assemble_extent(op, oid, objop, off, length)))
-            # ONE batched encode over all extents' stripes — or adopt the
-            # chunks a cross-op batch encoder (ecutil.encode_many via
-            # put_many) precomputed, IF the plan really is the single
-            # full-extent write they were computed for
-            logical = np.concatenate(
-                [np.frombuffer(b, dtype=np.uint8) for _, b in pieces])
-            pre = objop.precomputed_chunks
-            if (pre is not None and len(pieces) == 1 and
-                    pieces[0][0] == 0 and
-                    logical.tobytes() == getattr(objop, "precomputed_for",
-                                                 None)):
-                encoded = {c: np.asarray(pre[c], dtype=np.uint8)
-                           for c in range(n)}
+            staged = op.encodes.pop(oid, None) if op.encodes else None
+            if staged is not None:
+                # the encode stage's result (_encode_pending)
+                pieces, logical = staged[0], staged[1]
+                encoded = self._take_encode(op, oid, staged)
             else:
+                pieces, logical = self._logical_extents(op, oid, objop,
+                                                        will_write)
+                encoded = self._precomputed(objop, pieces, logical)
+            if encoded is None:
+                # ONE batched encode over all extents' stripes
                 with trace_span("ec.encode", oid=oid,
                                 bytes=int(logical.nbytes),
-                                backend=self.instance_name,
-                                served=self.serving is not None), \
+                                backend=self.instance_name), \
                         self.perf.time("encode_time"):
-                    encoded = self._serving_encode(logical)
+                    encoded = ecutil.encode(self.sinfo, self.ec_impl,
+                                            logical)
             self.perf.inc("stripe_bytes_encoded", int(logical.nbytes))
             if op.tracked:
                 op.tracked.mark_event("encoded")
@@ -498,7 +601,30 @@ class ECBackend(PGBackend):
             elif not pure_append:
                 hinfo.set_total_chunk_size_clear_hash(total)
             self._persist_hinfo(oid, hinfo, shard_txns)
+        self._unstage(op)
         return shard_txns, log_entries
+
+    def _logical_extents(self, op: Op, oid: str, objop, will_write):
+        """The logical bytes of every will_write extent: ``(pieces,
+        logical)``, the extents as ``(offset, bytes)`` and their
+        concatenation, what one batched encode takes."""
+        pieces = [(off, self._assemble_extent(op, oid, objop, off, length))
+                  for off, length in will_write]
+        logical = np.concatenate(
+            [np.frombuffer(b, dtype=np.uint8) for _, b in pieces])
+        return pieces, logical
+
+    def _precomputed(self, objop, pieces, logical) -> dict | None:
+        """The chunks a cross-op batch encoder (ecutil.encode_many via
+        put_many) computed for this write, IF the plan really is the
+        single full-extent write they were computed for; else None."""
+        pre = objop.precomputed_chunks
+        if (pre is not None and len(pieces) == 1 and pieces[0][0] == 0 and
+                logical.tobytes() == getattr(objop, "precomputed_for",
+                                             None)):
+            return {c: np.asarray(pre[c], dtype=np.uint8)
+                    for c in range(self.ec_impl.get_chunk_count())}
+        return None
 
     def _assemble_extent(self, op: Op, oid: str, objop, off: int,
                          length: int) -> bytes:
@@ -512,7 +638,10 @@ class ECBackend(PGBackend):
             s = max(r_off, off)
             e = min(r_off + len(data), off + length)
             buf[s - off:e - off] = data[s - r_off:e - r_off]
-        if objop.truncate is not None:
+        if objop.truncate is not None and reads:
+            # only read-in bytes can lie past the truncation point: the
+            # buffer starts zeroed (a write_full's truncate to 0 reads
+            # nothing)
             t0 = objop.truncate[0]
             if off <= t0 < off + length:
                 buf[t0 - off:] = b"\0" * (off + length - t0)
@@ -530,6 +659,7 @@ class ECBackend(PGBackend):
                                       hinfo.to_dict())
 
     def _op_reset_extra(self, op: Op) -> None:
+        self._unstage(op)
         for oid, tid in op.cache_claims:
             self.extent_cache.release(oid, tid)
         op.cache_claims.clear()

@@ -416,11 +416,12 @@ class PGChannel:
     """A PG's view of the shared cluster bus.
 
     Exposes the MessageBus surface the PG backends use (send/register/
-    handlers/down/mark_*/deliver_*/listeners/fault injection) while the
-    actual queues, down-set, and delivery loop live on ONE cluster-wide
-    MessageBus with one OSDEndpoint per OSD — the reference's topology
-    (one messenger per OSD, many PGs behind it).  Down/up are OSD-wide:
-    killing an OSD affects every PG it serves, exactly like a real death.
+    handlers/down/mark_*/deliver_*/listeners/idle hooks/fault injection)
+    while the actual queues, down-set, and delivery loop live on ONE
+    cluster-wide MessageBus with one OSDEndpoint per OSD — the
+    reference's topology (one messenger per OSD, many PGs behind it).
+    Down/up are OSD-wide: killing an OSD affects every PG it serves,
+    exactly like a real death.
     """
 
     def __init__(self, bus: MessageBus, pgid):
@@ -483,6 +484,10 @@ class PGChannel:
         return self.bus.up_listeners
 
     @property
+    def idle_hooks(self) -> list:
+        return self.bus.idle_hooks
+
+    @property
     def queues(self):
         return self.bus.queues
 
@@ -539,6 +544,11 @@ class MessageBus:
         # ops parked on live daemons (e.g. queued while their OSD was
         # down), matching the pre-shared-bus progress guarantees
         self.pre_deliver_hooks: list = []
+        # called when a round delivers nothing: work parked off the bus
+        # (an EC backend's writes waiting on the serving engine's encode)
+        # resumes here; a hook returns True when it moved something, and
+        # the loop goes on delivering what that sent
+        self.idle_hooks: list = []
         self._faults: FaultConfig | None = None
         self._fault_rng = None
         # optional event sink: fn(plane, kind, target=..., **detail) —
@@ -671,6 +681,7 @@ class MessageBus:
                 while self.deliver_one(shard):
                     progressed = True
                     n += 1
-            if not progressed:
+            if not progressed and \
+                    not any([hook() for hook in self.idle_hooks]):
                 return n
         raise RuntimeError("message storm: bus did not quiesce")

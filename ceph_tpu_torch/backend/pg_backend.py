@@ -24,6 +24,7 @@ the JAX package's ``ReplicatedBackend`` is the other, still to port):
 =====================  ====================================================
 ``_admit_op(op)``       plan the op at pipeline admission; issue any reads
 ``_op_blocked(op)``     ordering block against in-flight overlapping writes
+``_encode_pending(op)``  the head write waits on an encode in flight
 ``_generate_transactions(op)``  per-shard transactions + pg_log entries
 ``_recovery_issue_reads(rop)``  start the READING phase (may raise IOError)
 ``_recovery_push_payloads(rop)``  chunk -> (bytes, attrs, omap|None,
@@ -44,6 +45,7 @@ card fails the leg: nothing is served on the host instead.
 """
 from __future__ import annotations
 
+import contextlib
 import pickle
 from collections import deque
 from dataclasses import dataclass, field
@@ -59,7 +61,7 @@ from .messages import (ECPartialSum, ECPartialSumAbort, ECPartialSumApplied,
                        PGScan, PGScanReply, PushOp, PushReply,
                        RollForward, Rollback)
 from .transaction import PGTransaction
-from ..common.tracer import trace_span
+from ..common.tracer import default_tracer, trace_span
 from ..osd.pg_log import OP_DELETE, OP_MODIFY, PGLog, dedup_latest
 
 
@@ -97,10 +99,13 @@ class OSDShard:
     same way — so a durable store (FileStore) survives restart with log
     and rollback state intact and boots via ``_load_pg_state``."""
 
-    def __init__(self, shard: int, bus: MessageBus, store=None):
+    def __init__(self, shard: int, bus: MessageBus, store=None, perf=None):
         self.shard = shard
         self.store = store if store is not None else MemStore()
         self.bus = bus
+        # the PG's counters (its primary backend's), where this shard
+        # books the time it spends applying sub-writes (sub_write_time)
+        self.perf = perf
         self.pg_log = PGLog()
         self.peered_epoch = 0     # last PGActivate epoch (ReplicaActive)
         self.peered_head = 0      # authority log head at that activation
@@ -220,6 +225,40 @@ class OSDShard:
         self._persist_vi(t)
         self.store.queue_transaction(t)
 
+    def _apply_sub_write(self, msg: ECSubWrite) -> None:
+        """Apply one sub-write to this shard's store: its transaction, the
+        rollback info and log entries it carries, and the roll-forward
+        and trim points it piggybacks, as one store transaction."""
+        t = msg.t
+        if msg.log_entries:
+            # capture rollback info FIRST — before roll-forward/meta
+            # ops are appended to t — so the inverse covers only the
+            # data objects; log keys are unwound explicitly by
+            # _rollback
+            inv = self._capture_rollback(t)
+            self.pending_rollbacks[msg.at_version] = inv
+            kvs = {_rb_key(msg.at_version):
+                   pickle.dumps(inv.ops,
+                                protocol=pickle.HIGHEST_PROTOCOL)}
+            for e in msg.log_entries:
+                if e.version > self.pg_log.head:
+                    self.pg_log.record(e)
+                kvs[_log_key(e.version)] = pickle.dumps(
+                    e, protocol=pickle.HIGHEST_PROTOCOL)
+            t.omap_setkeys(self._meta(), kvs)
+        if msg.roll_forward_to:
+            self._roll_forward(msg.roll_forward_to, txn=t)
+        if msg.trim_to:
+            old_tail = self.pg_log.tail
+            if self.pg_log.trim(msg.trim_to):
+                t.omap_rmkeys(self._meta(), [
+                    _log_key(v)
+                    for v in range(old_tail + 1, msg.trim_to + 1)])
+            self._roll_forward(msg.trim_to, txn=t)
+        if msg.log_entries or msg.trim_to:
+            self._persist_vi(t)
+        self.store.queue_transaction(t)
+
     def handle_message(self, msg) -> None:
         if isinstance(msg, ECSubWrite):
             if msg.log_entries and msg.at_version <= self.pg_log.head:
@@ -229,35 +268,11 @@ class OSDShard:
                               ECSubWriteReply(self.shard, msg.tid,
                                               gen=msg.gen))
                 return
-            t = msg.t
-            if msg.log_entries:
-                # capture rollback info FIRST — before roll-forward/meta
-                # ops are appended to t — so the inverse covers only the
-                # data objects; log keys are unwound explicitly by
-                # _rollback
-                inv = self._capture_rollback(t)
-                self.pending_rollbacks[msg.at_version] = inv
-                kvs = {_rb_key(msg.at_version):
-                       pickle.dumps(inv.ops,
-                                    protocol=pickle.HIGHEST_PROTOCOL)}
-                for e in msg.log_entries:
-                    if e.version > self.pg_log.head:
-                        self.pg_log.record(e)
-                    kvs[_log_key(e.version)] = pickle.dumps(
-                        e, protocol=pickle.HIGHEST_PROTOCOL)
-                t.omap_setkeys(self._meta(), kvs)
-            if msg.roll_forward_to:
-                self._roll_forward(msg.roll_forward_to, txn=t)
-            if msg.trim_to:
-                old_tail = self.pg_log.tail
-                if self.pg_log.trim(msg.trim_to):
-                    t.omap_rmkeys(self._meta(), [
-                        _log_key(v)
-                        for v in range(old_tail + 1, msg.trim_to + 1)])
-                self._roll_forward(msg.trim_to, txn=t)
-            if msg.log_entries or msg.trim_to:
-                self._persist_vi(t)
-            self.store.queue_transaction(t)
+            timer = self.perf.time("sub_write_time") \
+                if self.perf is not None else contextlib.nullcontext()
+            with trace_span("ec.sub_write", tid=msg.tid,
+                            shard=self.shard), timer:
+                self._apply_sub_write(msg)
             self.bus.send(msg.from_shard,
                           ECSubWriteReply(self.shard, msg.tid, gen=msg.gen))
         elif isinstance(msg, RollForward):
@@ -765,6 +780,13 @@ class Op:
     # reads unrecoverable with current up set; re-driven by on_shard_up
     _rmw_stalled: bool = False
     tracked: object = None      # OpTracker request (mark_event timeline)
+    # the encode stage (ECBackend with a serving engine): oid -> (pieces,
+    # logical bytes, the engine's future) of each encode handed over;
+    # None until the op reaches the stage
+    encodes: dict | None = None
+    # the trace context the op was staged under: it resumes from the
+    # stage on another call stack, and its fan-out rejoins its trace
+    trace: object = None
 
 
 class PGBackend:
@@ -891,10 +913,23 @@ class PGBackend:
             .add_u64_counter("slow_ops",
                              "ops exceeding osd_op_complaint_time")
             .add_time_avg("encode_time", "batched encode wall time")
+            .add_time_avg("encode_wait_time",
+                          "a write parked in the encode stage, from "
+                          "handing its encode to the serving engine to "
+                          "taking the result")
+            .add_u64_counter("encodes_staged",
+                             "encodes handed to the serving engine by "
+                             "the encode stage")
+            .add_u64("encode_parked",
+                     "writes parked in the encode stage")
+            .add_time_avg("sub_write_time",
+                          "a shard applying one of the PG's sub-writes "
+                          "to its store")
             .add_time_avg("decode_time", "batched decode wall time")
             .add_u64("pipeline_depth", "ops across the three wait lists")
             .create_perf_counters())
         self.cct.perf.add(self.perf)
+        self.local_shard.perf = self.perf
         self.op_tracker = OpTracker(conf=self.cct.conf, perf=self.perf)
         for cmd, fn in ((f"dump_ops_in_flight.{self.instance_name}",
                          lambda **kw: self.op_tracker.dump_ops_in_flight()),
@@ -913,6 +948,10 @@ class PGBackend:
         op.plan = op.plan or True
 
     def _op_blocked(self, op: Op) -> bool:
+        return False
+
+    def _encode_pending(self, op: Op) -> bool:
+        """Does the head write still wait on an encode in flight?"""
         return False
 
     def _generate_transactions(self, op: Op):
@@ -1014,7 +1053,8 @@ class PGBackend:
             f"dump_ops_in_flight.{self.instance_name}")
         self.cct.admin_socket.unregister(
             f"dump_historic_ops.{self.instance_name}")
-        for lst in (self.bus.down_listeners, self.bus.up_listeners):
+        for lst in (self.bus.down_listeners, self.bus.up_listeners,
+                    self.bus.idle_hooks):
             for cb in list(lst):
                 if getattr(cb, "__self__", None) is self:
                     lst.remove(cb)
@@ -1188,11 +1228,18 @@ class PGBackend:
         subclass hook encodes/replicates) and fan them out to every current
         shard with the piggybacked roll-forward point."""
         op = self.waiting_reads[0]
-        if op.pending_read_shards:
+        if op.pending_read_shards or self._encode_pending(op):
             return False
         self.waiting_reads.popleft()
         self.waiting_commit.append(op)
         op.first_version = self.pg_log.head + 1
+        with default_tracer().activate(
+                op.trace, track=f"osd.{self.whoami}" if op.trace else None):
+            self._fan_out(op)
+        return True
+
+    def _fan_out(self, op: Op) -> None:
+        """Generate the op's shard transactions and send its sub-writes."""
         with trace_span("pg.generate_transactions", tid=op.tid,
                         backend=self.instance_name):
             shard_txns, log_entries = self._generate_transactions(op)
@@ -1215,7 +1262,6 @@ class PGBackend:
         self._rolled_forward_to = max(self._rolled_forward_to,
                                       self.committed_to)
         self.pg_log.maybe_trim()
-        return True
 
     def handle_sub_write_reply(self, reply: ECSubWriteReply) -> None:
         """(ECBackend.cc:1120-1152) -> try_finish_rmw (:2089)."""

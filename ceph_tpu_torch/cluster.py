@@ -34,6 +34,8 @@ from .common import Context, default_context
 from .crush import (CRUSH_BUCKET_STRAW2, CRUSH_RULE_CHOOSELEAF_FIRSTN,
                     CRUSH_RULE_CHOOSELEAF_INDEP,
                     CRUSH_RULE_EMIT, CRUSH_RULE_TAKE, CrushMap)
+from .crush.map import (CRUSH_RULE_SET_CHOOSE_TRIES,
+                        CRUSH_RULE_SET_CHOOSELEAF_TRIES)
 from .osdmap import (OSDMap, PG, Pool, POOL_TYPE_ERASURE,
                      POOL_TYPE_REPLICATED, ceph_stable_mod)
 from .osdmap.str_hash import ceph_str_hash_rjenkins
@@ -45,6 +47,11 @@ import itertools
 NONE_ID = 0x7FFFFFFF          # CRUSH_ITEM_NONE
 
 _cluster_ids = itertools.count(1)
+
+
+def _flag_on(value) -> bool:
+    """A pool flag's value as ``osd pool set`` takes it ("false"/"0" off)."""
+    return str(value).lower() not in ("false", "0")
 
 
 class BlockedWriteError(IOError):
@@ -93,7 +100,8 @@ class PGGroup:
                 store=mk(primary))
         for osd in acting:
             if osd != primary:
-                OSDShard(osd, self.bus, store=mk(osd))
+                OSDShard(osd, self.bus, store=mk(osd),
+                         perf=self.backend.perf)
         # the primary's object-op engine (PrimaryLogPG analog): executes
         # client op vectors atomically on top of the backend pipeline
         from .osd.primary_log_pg import PrimaryLogPG
@@ -535,10 +543,12 @@ class MiniCluster:
         dispatches then flow through throttled admission and the op
         coalescer.  ``start=True`` runs it threaded (deadline batching
         across concurrent submitters); the default single-thread mode
-        keeps the cluster deterministic — ops coalesce when submitted in
-        bursts and flush inline otherwise."""
+        keeps the cluster deterministic — the writes' encodes coalesce
+        until the delivery loop goes idle and flushes the engine, or an
+        admission that would wait flushes it first."""
         from .exec import ServingEngine
         kw.setdefault("name", f"serving.c{self.cluster_id}")
+        kw.setdefault("flush_to_admit", True)
         self.serving = ServingEngine(cct=self.cct, **kw)
         if start:
             self.serving.start()
@@ -654,6 +664,9 @@ class MiniCluster:
                 else:
                     g.engine.hit_set = None
                     g.engine.hit_set_params = None
+        if key == "allow_ec_overwrites":
+            for g in self.pools[pool_id]["pgs"].values():
+                self._bind_overwrites(g, pool)
         self.clusterlog.info(
             f"pool '{pool.name}' set {key} = {value}", channel="mon")
         self._save_meta()
@@ -732,8 +745,17 @@ class MiniCluster:
     # -- pool creation (the mon's osd pool create path) --------------------
 
     def create_ec_pool(self, name: str, profile: dict | None = None,
-                      pg_num: int = 8) -> int:
+                      pg_num: int = 8,
+                      allow_ec_overwrites: bool = True) -> int:
+        """An EC pool over ``profile``.  ``allow_ec_overwrites`` False is
+        the pool of ``ceph osd pool create <name> erasure`` as Ceph makes
+        it: whole-object writes and stripe-aligned appends only, with the
+        HashInfo crcs kept (``PrimaryLogPG.ec_overwrites``)."""
         profile = dict(profile or {})
+        # a reopened pool passes its params back as the profile
+        flag = profile.pop("allow_ec_overwrites", None)
+        if flag is not None:
+            allow_ec_overwrites = _flag_on(flag)
         profile.setdefault("plugin", "torch_rs")
         profile.setdefault("k", "4")
         profile.setdefault("m", "2")
@@ -742,18 +764,40 @@ class MiniCluster:
             plugin, "", dict(profile))
         n = ec.get_chunk_count()
         # ErasureCode::create_rule semantics: chooseleaf indep over hosts
-        # when enough hosts exist, else osds (ErasureCode.cc:64-83); a
+        # when enough hosts exist, else osds (ErasureCode.cc:64-83), or
+        # over the profile's crush-failure-domain where it names one; a
         # crush-device-class profile key routes the take through the
         # per-class shadow tree (ErasureCode.cc:44-62 parses it)
         root = self.osdmap.crush.take_with_class(
             "default", profile.get("crush-device-class", ""))
-        n_hosts = sum(1 for bid, b in self.osdmap.crush.buckets.items()
-                      if b.type == 1 and not self.osdmap.crush.is_shadow(bid))
-        ftype = 1 if n_hosts >= n else 0
-        ruleno = self.osdmap.crush.add_rule(
-            [(CRUSH_RULE_TAKE, root, 0),
-             (CRUSH_RULE_CHOOSELEAF_INDEP, n, ftype),
-             (CRUSH_RULE_EMIT, 0, 0)])
+        domain = profile.get("crush-failure-domain")
+        if domain is not None:
+            # a profile that names its failure domain gets the rule Ceph
+            # makes of it (ErasureCode::create_rule -> CrushWrapper::
+            # add_simple_rule, mode indep): the tries an indep rule sets
+            # first, then one chunk a bucket of that type
+            ruleno = self.osdmap.crush.add_rule(
+                [(CRUSH_RULE_SET_CHOOSELEAF_TRIES, 5, 0),
+                 (CRUSH_RULE_SET_CHOOSE_TRIES, 100, 0),
+                 (CRUSH_RULE_TAKE, root, 0),
+                 (CRUSH_RULE_CHOOSELEAF_INDEP, n,
+                  self.osdmap.crush.type_id(domain)),
+                 (CRUSH_RULE_EMIT, 0, 0)])
+        else:
+            n_hosts = sum(
+                1 for bid, b in self.osdmap.crush.buckets.items()
+                if b.type == 1 and not self.osdmap.crush.is_shadow(bid))
+            ftype = 1 if n_hosts >= n else 0
+            if not ftype:
+                # a too-small cluster: chunks share hosts, and one host's
+                # loss can take more than m of them
+                self.clusterlog.warn(
+                    f"pool '{name}': {n} chunks over {n_hosts} hosts, "
+                    f"failure domain host falls back to osd")
+            ruleno = self.osdmap.crush.add_rule(
+                [(CRUSH_RULE_TAKE, root, 0),
+                 (CRUSH_RULE_CHOOSELEAF_INDEP, n, ftype),
+                 (CRUSH_RULE_EMIT, 0, 0)])
         pool_id = self._next_pool
         self._next_pool += 1
         pool = Pool(pool_id=pool_id, type=POOL_TYPE_ERASURE, size=n,
@@ -762,6 +806,8 @@ class MiniCluster:
                     erasure_code_profile=" ".join(
                         f"{k}={v}" for k, v in sorted(profile.items())),
                     params=dict(profile))
+        if not allow_ec_overwrites:
+            pool.params["allow_ec_overwrites"] = "false"
         return self._instantiate_pool(pool, name, ec)
 
     def create_replicated_pool(self, name: str, size: int = 3,
@@ -807,6 +853,7 @@ class MiniCluster:
                               bus=self.bus)
             self.osds[acting[0]].register_pg(pgid, pgs[ps])
             self._arm_hit_sets(pgs[ps], pool)
+            self._bind_overwrites(pgs[ps], pool)
             if self.serving is not None and ec is not None:
                 pgs[ps].backend.attach_serving(self.serving)
             if self.recovery is not None:
@@ -826,6 +873,13 @@ class MiniCluster:
                 f"{pool.pg_num} pgs)", channel="mon")
         self._save_meta()
         return pool.pool_id
+
+    @staticmethod
+    def _bind_overwrites(g: PGGroup, pool: Pool) -> None:
+        """The pool's allow_ec_overwrites flag, on the PG's op engine and
+        backend (pool creation, a remap's rebuilt PGGroup, pool_set)."""
+        on = _flag_on(pool.params.get("allow_ec_overwrites", "true"))
+        g.engine.ec_overwrites = g.backend.ec_overwrites = on
 
     @staticmethod
     def _arm_hit_sets(g: PGGroup, pool: Pool) -> None:
@@ -1656,6 +1710,7 @@ class MiniCluster:
             self.recovery.cancel_pg(old.backend, reason="backfill remap")
             self._attach_recovery(new, self.pools[pool_id]["pool"])
         self._arm_hit_sets(new, self.pools[pool_id]["pool"])
+        self._bind_overwrites(new, self.pools[pool_id]["pool"])
         self.pools[pool_id]["pgs"][ps] = new
         # re-home the PG on its (possibly new) primary's daemon
         if old.backend.whoami != new.backend.whoami:

@@ -104,7 +104,8 @@ class ServingEngine:
                  batch_max_delay_ms: float | None = None,
                  batch_max_ops: int | None = None,
                  class_info: dict | None = None,
-                 pipeline_depth: int | None = None):
+                 pipeline_depth: int | None = None,
+                 flush_to_admit: bool = False):
         self.cct = cct if cct is not None else default_context()
         conf = self.cct.conf
         self.name = name
@@ -112,6 +113,11 @@ class ServingEngine:
         self.sinfo = sinfo
         self.fail_fast = bool(conf.get("osd_serving_fail_fast")
                               if fail_fast is None else fail_fast)
+        # an engine its submitters step (no threads, flushed by the same
+        # loop that submits, as the cluster's delivery loop does): an
+        # admission that would wait flushes what the engine holds first,
+        # since no other thread would free the throttles
+        self.flush_to_admit = bool(flush_to_admit)
         self.batch_max_delay_ms = float(
             conf.get("osd_batch_max_delay_ms")
             if batch_max_delay_ms is None else batch_max_delay_ms)
@@ -273,6 +279,12 @@ class ServingEngine:
                 raise ThrottleFull(self.byte_throttle.name, cost_bytes,
                                    self.byte_throttle.count,
                                    self.byte_throttle.max)
+        elif self.flush_to_admit and self._thread is None:
+            for thr, c in ((self.op_throttle, 1),
+                           (self.byte_throttle, cost_bytes)):
+                if not thr.get_or_fail(c):
+                    self.flush()
+                    thr.get(c)
         else:
             self.op_throttle.get(1)
             self.byte_throttle.get(cost_bytes)

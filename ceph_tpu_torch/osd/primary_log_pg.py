@@ -293,6 +293,12 @@ class PrimaryLogPG:
     def __init__(self, backend, pool_type: str = "ec"):
         self.backend = backend
         self.pool_type = pool_type
+        # the pool's allow_ec_overwrites flag (MiniCluster binds it from
+        # the pool's params).  Without it an EC pool takes whole-object
+        # writes and stripe-aligned appends only, and a write_full
+        # truncates the object to 0 first (pg_pool_t::
+        # requires_aligned_append, PrimaryLogPG::do_osd_ops)
+        self.ec_overwrites = True
         self.version = 0            # pg op version (eversion_t analog)
         self.user_version = 0
         self._busy: set[str] = set()
@@ -626,6 +632,11 @@ class PrimaryLogPG:
         if not ctx.exists:
             raise OpError(ENOENT)
 
+    def _stripe_aligned(self, offset: int) -> bool:
+        """On the backend's stripe boundary (pg_pool_t::
+        required_alignment, the stripe width)."""
+        return offset % self.backend.sinfo.stripe_width == 0
+
     def _do_one(self, ctx: _ExecCtx, op: OSDOp, oi, readdata) -> int:
         p = op.params
         kind = op.op
@@ -710,15 +721,27 @@ class PrimaryLogPG:
                 ctx.stage_write(0, b"")     # touch
                 ctx.size = 0
             return 0
+        aligned_append = self.pool_type == "ec" and not self.ec_overwrites
         if kind == OP_WRITE:
+            if aligned_append and (p["offset"] != ctx.size or
+                                   not self._stripe_aligned(p["offset"])):
+                raise OpError(EOPNOTSUPP)
             ctx.stage_write(p["offset"], p["data"])
             return 0
         if kind == OP_WRITEFULL:
-            ctx.stage_write_full(p["data"])
+            if aligned_append:
+                ctx.stage_truncate(0)
+                ctx.stage_write(0, p["data"])
+            else:
+                ctx.stage_write_full(p["data"])
             return 0
         if kind == OP_APPEND:
+            if aligned_append and not self._stripe_aligned(ctx.size):
+                raise OpError(EOPNOTSUPP)
             ctx.stage_write(ctx.size, p["data"])
             return 0
+        if aligned_append and kind in (OP_ZERO, OP_TRUNCATE):
+            raise OpError(EOPNOTSUPP)
         if kind == OP_ZERO:
             self._require(ctx)
             off = p["offset"]

@@ -500,6 +500,28 @@ def test_blocking_submitter_parks_until_capacity(pkg):
     assert submitted[0].result(1)
 
 
+@pytest.mark.parametrize("throttle", ["max_ops", "max_bytes"])
+def test_an_engine_its_submitter_steps_flushes_to_admit(throttle):
+    """``flush_to_admit``: on an engine without threads, a submission
+    that would wait on a full throttle flushes what the engine holds
+    first, on the submitting thread; each result is still exact."""
+    pkg = _load("ceph_tpu_torch")
+    ec, sinfo = pkg.codec()
+    eng = ServingEngine(ec_impl=ec, sinfo=sinfo, name=f"t.fta.{throttle}",
+                        flush_to_admit=True, fail_fast=False,
+                        **{throttle: 2 if throttle == "max_ops"
+                           else 2 * STRIPE})
+    bufs = [payload(STRIPE, seed=i) for i in range(5)]
+    futs = [eng.submit_encode(b) for b in bufs]
+    assert eng.perf.get("batches") == 2        # 2 + 2 flushed, 1 held
+    assert not futs[-1].done()
+    eng.flush()
+    for b, fut in zip(bufs, futs):
+        want = pkg.ecutil.encode(sinfo, ec, b)
+        got = fut.result(1)
+        assert all(np.array_equal(got[c], want[c]) for c in want)
+
+
 # -- copied modules: QoS and futures ------------------------------------------
 
 def test_client_ops_dequeue_ahead_of_scrub(pkg):
