@@ -8,7 +8,9 @@ one call for many buffers.  RS parity is positionwise, so batching across
 stripes is a pure relayout: bit-identical output, large device launches.
 :func:`encode_many_pipelined`/:func:`decode_many_pipelined` submit the
 same relayouts to ``ops.pipeline.CodecPipeline`` (async, on a CUDA
-stream) with bit-identical results.  :func:`hinfo_append` checksums
+stream) with bit-identical results; the decode crosses host memory once
+each way (its slot layout, :func:`_submit_decode_group`).
+:func:`hinfo_append` checksums
 appended shards with the ``crc32c`` kernel when the plugin routes the call
 to the card.
 
@@ -609,47 +611,80 @@ def decode_many_pipelined(sinfo: StripeInfo, ec_impl,
 
 def _submit_decode_group(sinfo, ec_impl, codec, batches, sig, idxs,
                          pipeline, owner: str | None = None):
-    """One signature group's pack/dispatch/unpack trio, submitted."""
+    """One signature group's pack/dispatch/unpack trio, submitted, in the
+    slot layout: the group's block [k + p, total] holds the k logical
+    data rows in order, an erased row's an empty slot, then the p parity
+    rows the decode matrix reads.  The pack copies each op's survivors
+    once into their rows; the survivors go to the card as the block's
+    runs of rows and the recovered rows land in the slots
+    (``dispatch_decode``'s ``rows``, ``land``); each op's bytes come out
+    of its columns in one strided copy (:func:`_stripes_bytes`).  The
+    pipeline's ``decode_one_pass`` counts these batches, and
+    ``decode_repacked`` those whose recovered rows came back apart (a
+    mesh) and were copied into the slots."""
     k = ec_impl.get_data_chunk_count()
 
     def pack():
-        concat, lens = _group_streams([batches[i] for i in idxs], sig)
         # wire ids are PHYSICAL; the codec's rows are LOGICAL
-        avail_l, _ = ec_impl.remap_for_decode(concat, [])
-        erasures_l = [i for i in range(k) if i not in avail_l]
-        stack = None
-        if erasures_l:
-            _D, src = codec.decode_matrix(erasures_l,
-                                          available=list(avail_l))
-            rows = [avail_l[s] for s in src]
-            stack = np.stack(rows, out=pipeline.host_block(
-                codec.torch_device, (len(rows), len(rows[0]))))
-        return avail_l, erasures_l, stack, lens
+        phys, _ = ec_impl.remap_for_decode({c: c for c in sig}, [])
+        erasures = [i for i in range(k) if i not in phys]
+        src = codec.decode_matrix(erasures, available=list(phys))[1] \
+            if erasures else list(range(k))
+        # src is sorted: the surviving data ids lead it, each at its own
+        # row, and its parity ids take the rows after the k data rows
+        kept = k - len(erasures)
+        rows = src[:kept] + [k + j for j in range(len(src) - kept)]
+        ops, lens = [], []
+        for i in idxs:
+            chunks = {c: _as_u8(v) for c, v in batches[i].items()}
+            sizes = {len(v) for v in chunks.values()}
+            if len(sizes) != 1:
+                raise ValueError("uneven shard buffers")
+            ops.append(chunks)
+            lens.append(sizes.pop())
+        block = pipeline.host_block(codec.torch_device,
+                                    (k + len(src) - kept, sum(lens)))
+        off = 0
+        for chunks, ln in zip(ops, lens):
+            for s, r in zip(src, rows):
+                block[r, off:off + ln] = chunks[phys[s]]
+            off += ln
+        return block, erasures, list(phys), rows, lens
 
     def dispatch(packed):
-        avail_l, erasures_l, stack, _lens = packed
-        if not erasures_l:
+        block, erasures, avail, rows, _lens = packed
+        if not erasures:
             return None                  # all data rows survived: host-only
-        return pipeline.dispatch_decode(codec, stack, erasures_l,
-                                        list(avail_l))
+        return pipeline.dispatch_decode(codec, block, erasures, avail,
+                                        rows=rows, land=erasures)
 
     def unpack(packed, rec):
-        avail_l, erasures_l, _stack, lens = packed
-        rows = {e: rec[i] for i, e in enumerate(erasures_l)} \
-            if erasures_l else {}
-        data = np.stack([avail_l[i] if i in avail_l else rows[i]
-                         for i in range(k)])
+        block, erasures, _avail, _rows, lens = packed
+        if rec is None or rec is block:
+            pipeline.perf.inc("decode_one_pass")
+        else:
+            block[erasures] = rec
+            pipeline.perf.inc("decode_repacked")
         out: list[bytes] = []
         off = 0
         for ln in lens:
-            out.append(_from_shard_major(
-                np.ascontiguousarray(data[:, off:off + ln]),
-                sinfo.chunk_size).tobytes())
+            out.append(_stripes_bytes(block[:k, off:off + ln],
+                                      sinfo.chunk_size))
             off += ln
         return out
 
     return pipeline.submit(pack, dispatch, unpack, kind="decode",
                            owner=owner, ops=len(idxs))
+
+
+def _stripes_bytes(shards: np.ndarray, chunk_size: int) -> bytes:
+    """:func:`_from_shard_major` straight into ``bytes``: the [k, S * c]
+    shard columns (a view into a larger block) read as [S, k, c], the
+    stripe axis first, and copied once, ``memoryview.tobytes`` moving c
+    contiguous bytes at a time."""
+    k, ln = shards.shape
+    return memoryview(shards.reshape(k, ln // chunk_size, chunk_size)
+                      .transpose(1, 0, 2)).tobytes()
 
 
 def decode(sinfo: StripeInfo, ec_impl,

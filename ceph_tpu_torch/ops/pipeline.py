@@ -128,31 +128,34 @@ class _Dispatched:
     batch's first copy (one a card), the tensors that must stay alive
     until the events complete, and, for a mesh batch, ``finish``: the
     host array from the landed output (its blocks put in place, the
-    padding dropped).  A cpu codec's batch ran at dispatch: no events,
-    ``host_s`` its run's seconds."""
+    padding dropped).  ``land``: the rows of ``out``, the caller's own
+    host block, that the result landed in (None: ``out`` is the result
+    alone).  A cpu codec's batch ran at dispatch: no events, ``host_s``
+    its run's seconds."""
 
-    __slots__ = ("out", "events", "keep", "finish", "starts", "host_s")
+    __slots__ = ("out", "events", "keep", "finish", "starts", "host_s",
+                 "land")
 
     def __init__(self, out, events: tuple, keep: tuple, finish=None,
-                 starts: tuple = (), host_s: float = 0.0):
+                 starts: tuple = (), host_s: float = 0.0, land=None):
         self.out = out
         self.events = events
         self.keep = keep
         self.finish = finish
         self.starts = starts
         self.host_s = host_s
-
-    @property
-    def nbytes(self) -> int:
-        return int(self.out.nbytes)
+        self.land = land
 
     def wait(self) -> np.ndarray:
-        """Wait for the batch's events; the pinned output as numpy."""
+        """Wait for the batch's events; the pinned output as numpy (the
+        caller's block itself when the result landed in its rows)."""
         for event in self.events:
             event.synchronize()
         self.keep = None
         if self.finish is not None:
             return self.finish(self.out)
+        if self.land is not None:
+            return self.out
         return self.out.numpy()
 
     def seconds(self) -> float:
@@ -183,6 +186,26 @@ def stream_seconds(dev) -> float:
     return dev.seconds() if isinstance(dev, _Dispatched) else 0.0
 
 
+def landed_bytes(dev, host) -> int:
+    """The bytes a settled batch brought back: the rows it landed in its
+    caller's block, else the host array :func:`settle` gave."""
+    if isinstance(dev, _Dispatched) and dev.land is not None:
+        return len(dev.land) * int(dev.out.shape[1])
+    return int(getattr(host, "nbytes", 0) or 0)
+
+
+def _runs(rows) -> list[tuple[int, int, int]]:
+    """``(position, row, count)`` of each run of consecutive ``rows``: the
+    copies that move those rows between a block and a packed tensor."""
+    runs: list[tuple[int, int, int]] = []
+    for pos, row in enumerate(int(r) for r in rows):
+        if runs and runs[-1][1] + runs[-1][2] == row:
+            runs[-1] = (runs[-1][0], runs[-1][1], runs[-1][2] + 1)
+        else:
+            runs.append((pos, row, 1))
+    return runs
+
+
 def _timing_event(stream) -> torch.cuda.Event:
     event = torch.cuda.Event(enable_timing=True)
     event.record(stream)
@@ -190,21 +213,32 @@ def _timing_event(stream) -> torch.cuda.Event:
 
 
 def launch(dev: torch.device, host: np.ndarray, run, keep: tuple = (),
-           stream=None) -> _Dispatched | torch.Tensor:
-    """The dispatch body every batch shares: ``host`` [rows, N] uint8
+           stream=None, rows=None, land=None) -> _Dispatched | torch.Tensor:
+    """The dispatch body every batch shares: ``host`` [R, N] uint8
     (pinned for a card, see :meth:`CodecPipeline.host_block`) to ``dev``
     on ``stream`` (None: the current stream), ``run(card_input)`` (the
     kernel), the result back into a pinned output, between two timing
-    events.  ``keep``: tensors the launch reads, held until the event (a
-    card tensor made on another stream takes ``record_stream``).  On the
-    CPU ``run`` takes the host tensor and runs now, timed on the host.
-    :func:`settle` waits for either."""
+    events.  ``rows``: the rows of ``host`` that make the card's input,
+    in order (None: all of them), one copy a run of consecutive rows.
+    ``land``: the rows of ``host`` (then C-contiguous uint8) the result's
+    rows land in, one copy a run, in place of a new pinned output; the
+    batch then settles to ``host`` itself.  ``keep``: tensors the launch
+    reads, held until the event (a card tensor made on another stream
+    takes ``record_stream``).  On the CPU ``run`` takes the host tensor
+    and runs now, timed on the host.  :func:`settle` waits for either."""
     src = torch.from_numpy(np.ascontiguousarray(host, dtype=np.uint8))
+    runs = None if rows is None else _runs(rows)
     if dev.type == "cpu":
         t0 = device_attribution.dispatch_mark()
-        out = run(src)
-        return _Dispatched(out, (), (), host_s=device_attribution
-                           .seconds_since(t0))
+        out = run(src if runs is None else
+                  torch.cat([src[r:r + n] for _p, r, n in runs]))
+        if land is None:
+            return _Dispatched(out, (), (), host_s=device_attribution
+                               .seconds_since(t0))
+        for p, r, n in _runs(land):
+            src[r:r + n].copy_(out[p:p + n])
+        return _Dispatched(host, (), (), land=land,
+                           host_s=device_attribution.seconds_since(t0))
     with torch.cuda.device(dev), torch.cuda.stream(stream):
         stream = torch.cuda.current_stream(dev)
         for t in keep:
@@ -212,17 +246,27 @@ def launch(dev: torch.device, host: np.ndarray, run, keep: tuple = (),
                 t.record_stream(stream)
         # the card's input is allocated before the start event, so the
         # batch's stream time opens at its copy, not at host set-up
-        card_in = torch.empty(tuple(src.shape), dtype=src.dtype,
-                              device=dev)
+        shape = tuple(src.shape) if rows is None \
+            else (len(rows), int(src.shape[1]))
+        card_in = torch.empty(shape, dtype=src.dtype, device=dev)
         start = _timing_event(stream)
-        card_in.copy_(src, non_blocking=True)
+        if runs is None:
+            card_in.copy_(src, non_blocking=True)
+        else:
+            for p, r, n in runs:
+                card_in[p:p + n].copy_(src[r:r + n], non_blocking=True)
         card_out = run(card_in)
-        out = torch.empty(tuple(card_out.shape), dtype=card_out.dtype,
-                          pin_memory=True)
-        out.copy_(card_out, non_blocking=True)
+        if land is None:
+            out = torch.empty(tuple(card_out.shape), dtype=card_out.dtype,
+                              pin_memory=True)
+            out.copy_(card_out, non_blocking=True)
+        else:
+            out = host
+            for p, r, n in _runs(land):
+                src[r:r + n].copy_(card_out[p:p + n], non_blocking=True)
         event = _timing_event(stream)
     return _Dispatched(out, (event,), (src, card_in, card_out, *keep),
-                       starts=(start,))
+                       starts=(start,), land=land)
 
 
 def apply_rows(mat: np.ndarray, block: np.ndarray, k: int,
@@ -356,6 +400,15 @@ def _build_perf(name: str):
                              "batches split across the device mesh's "
                              "shards (jax_rs_mesh_devices engaged, or a "
                              "mesh set on the pipeline)")
+            .add_u64_counter("decode_one_pass",
+                             "serving decode batches in the slot layout: "
+                             "survivors packed once into their rows of "
+                             "the pinned block, the recovered rows landed "
+                             "in its empty slots (or none to recover)")
+            .add_u64_counter("decode_repacked",
+                             "serving decode batches whose recovered rows "
+                             "came back apart and were copied into the "
+                             "block's slots (a mesh dispatch)")
             .add_u64("breaker_state",
                      "circuit breaker state (0 closed, 1 half-open "
                      "probe in flight, 2 open: submits fail fast)")
@@ -579,7 +632,7 @@ class CodecPipeline:
                 self._device_success()
                 self.perf.tinc("device_time", device_s)
                 device_attribution.record_batch(
-                    fut.owner, device_s, getattr(host, "nbytes", 0) or 0)
+                    fut.owner, device_s, landed_bytes(fut._dev, host))
                 recorded = True
                 with trace_span("pipeline.unpack", kind=fut.kind,
                                 owner=fut.owner), \
@@ -662,9 +715,10 @@ class CodecPipeline:
         return np.empty(tuple(shape), dtype=np.uint8)
 
     def _launch(self, dev: torch.device, host: np.ndarray, run,
-                keep: tuple = ()) -> _Dispatched | torch.Tensor:
+                keep: tuple = (), rows=None, land=None
+                ) -> _Dispatched | torch.Tensor:
         """:func:`launch` on the pipeline's stream for ``dev``."""
-        return launch(dev, host, run, keep, self._stream(dev))
+        return launch(dev, host, run, keep, self._stream(dev), rows, land)
 
     def dispatch_encode(self, codec, data_shards, chunk_size: int):
         """``data_shards`` [k, S*chunk] host uint8 (logical row order) ->
@@ -707,21 +761,31 @@ class CodecPipeline:
                 mesh, data.transpose(0, 1), ("dp", None, "sp"),
                 (stripes + (-stripes) % dp, k, c))), finish)
 
-    def dispatch_decode(self, codec, stack, erasures, available):
+    def dispatch_decode(self, codec, stack, erasures, available,
+                        rows=None, land=None):
         """``stack`` [k', S*chunk] host uint8 survivors in the sorted-src
         order ``codec.decode_matrix(erasures, available)`` returns ->
         recovered rows [len(erasures), S*chunk], async.  The decode matrix
-        is the codec's card-resident LRU copy."""
+        is the codec's card-resident LRU copy.
+
+        With ``rows``, ``stack`` is a larger block and its rows ``rows``
+        are the survivors, in that order; with ``land`` as well, the
+        recovered rows land in the block's rows ``land`` (one pass each
+        way, :func:`launch`) and the batch settles to the block.  A mesh
+        takes the survivors as one stack and returns the recovered rows
+        apart."""
         mesh = self._mesh_for(codec)
         if mesh is not None:
-            out = self._mesh_decode(codec, stack, erasures, available, mesh)
+            out = self._mesh_decode(
+                codec, stack if rows is None else stack[list(rows)],
+                erasures, available, mesh)
             if out is not None:
                 return out
         mat, _src = codec.decode_matrix_device(erasures, available)
         return self._launch(
             codec.torch_device, stack,
             lambda card: codec.decode_device(card, erasures, available),
-            keep=(mat,))
+            keep=(mat,), rows=rows, land=land)
 
     def _mesh_decode(self, codec, stack, erasures, available, mesh):
         """The decode through ``sharded_decode_step`` (None: the survivors
