@@ -8,9 +8,13 @@ one call for many buffers.  RS parity is positionwise, so batching across
 stripes is a pure relayout: bit-identical output, large device launches.
 :func:`encode_many_pipelined`/:func:`decode_many_pipelined` submit the
 same relayouts to ``ops.pipeline.CodecPipeline`` (async, on a CUDA
-stream) with bit-identical results; the decode crosses host memory once
-each way (its slot layout, :func:`_submit_decode_group`).
-:func:`hinfo_append` checksums
+stream) with bit-identical results.  Every pipelined apply packs into one
+pinned block of chunk rows, the data rows [0, k) in logical order and
+then only the parity rows it reads or writes, and the card's result lands
+in that block's rows: the encode's parity in rows [k, n), a decode's
+erased rows in their slots (:func:`_submit_slot_group`, shared by the
+serving reads and recovery), a repair leg's in the rows after its data.
+Each crosses host memory once each way.  :func:`hinfo_append` checksums
 appended shards with the ``crc32c`` kernel when the plugin routes the call
 to the card.
 
@@ -499,7 +503,8 @@ def _crc_rows_on(codec, rows: list[np.ndarray]) -> np.ndarray:
     block = CodecPipeline.host_block(dev, (len(rows), len(rows[0])))
     for i, row in enumerate(rows):
         block[i] = row
-    return settle(launch(dev, block, rs_kernels.crc32c_rows))
+    return settle(launch(dev, block, rs_kernels.crc32c_rows,
+                         range(len(rows)), None))
 
 
 def hinfo_append(hinfo: HashInfo, old_size: int,
@@ -546,8 +551,9 @@ def encode_many_pipelined(sinfo: StripeInfo, ec_impl,
     """Async :func:`encode_many`: returns a ``PipelineFuture`` resolving
     to the identical per-buffer ``{chunk: bytes}`` list, or None when the
     codec has no device path.  The pack (shard-major relayout) goes
-    straight into pinned memory and overlaps in-flight card work; parity
-    lands at the completion boundary."""
+    straight into rows [0, k) of the batch's pinned [n, total] block and
+    overlaps in-flight card work; the parity lands in its rows [k, n),
+    and every chunk handed out is a view of that block."""
     if not bufs:
         return None
     k = ec_impl.get_data_chunk_count()
@@ -560,23 +566,20 @@ def encode_many_pipelined(sinfo: StripeInfo, ec_impl,
                   for b in arrs]
 
     def pack():
-        out = pipeline.host_block(codec.torch_device,
-                                  (k, sum(shard_lens)))
-        return _pack_shard_major(arrs, k, sinfo.chunk_size, out=out)
+        block = pipeline.host_block(codec.torch_device,
+                                    (n, sum(shard_lens)))
+        _pack_shard_major(arrs, k, sinfo.chunk_size, out=block[:k])
+        return block
 
-    def dispatch(data_shards):
-        return pipeline.dispatch_encode(codec, data_shards,
-                                        sinfo.chunk_size)
+    def dispatch(block):
+        return pipeline.dispatch_encode(codec, block, sinfo.chunk_size)
 
-    def unpack(data_shards, parity):
+    def unpack(block, _settled):
         out: list[dict[int, np.ndarray]] = []
         off = 0
         for ln in shard_lens:
-            chunks = {ec_impl.chunk_index(i): data_shards[i, off:off + ln]
-                      for i in range(k)}
-            for j in range(n - k):
-                chunks[ec_impl.chunk_index(k + j)] = parity[j, off:off + ln]
-            out.append(chunks)
+            out.append({ec_impl.chunk_index(i): block[i, off:off + ln]
+                        for i in range(n)})
             off += ln
         return out
 
@@ -584,13 +587,86 @@ def encode_many_pipelined(sinfo: StripeInfo, ec_impl,
                            owner=owner, ops=len(bufs))
 
 
+def _groups(keys) -> list[tuple[object, list[int]]]:
+    """``(key, indices)`` of each distinct key, in order of first
+    appearance: the batches that share a decode signature."""
+    by_sig: dict[object, list[int]] = {}
+    for i, key in enumerate(keys):
+        by_sig.setdefault(key, []).append(i)
+    return list(by_sig.items())
+
+
+def _submit_slot_group(ec_impl, codec, chunk_dicts, sig, recovered: int,
+                       pipeline, take, kind: str, owner: str | None):
+    """One decode group submitted in the slot layout, the batch layout of
+    every pipelined apply (``ops/pipeline.py``).  The group's block
+    [k + p, total] holds the k logical data rows in order, then, in
+    logical id order, the p parity rows the decode reads or recovers.
+    It recovers the missing rows among logical ids [0, ``recovered``): k
+    for a read, n for recovery.  The pack copies each op's survivors once
+    into their rows; the survivors go to the card as the block's runs of
+    rows and the recovered rows land in theirs (``dispatch_decode``'s
+    ``rows`` and ``land``).  ``take(block, slot, off, ln)`` gives each op's result
+    from its columns, ``slot`` mapping a logical id to its row."""
+    k = ec_impl.get_data_chunk_count()
+
+    def pack():
+        # wire ids are PHYSICAL; the codec's rows are LOGICAL
+        phys, _ = ec_impl.remap_for_decode({c: c for c in sig}, [])
+        erasures = [i for i in range(recovered) if i not in phys]
+        src = codec.decode_matrix(erasures, available=list(phys))[1] \
+            if erasures else list(range(k))
+        parity = sorted({i for i in (*src, *erasures) if i >= k})
+        slot = {i: i for i in range(k)}
+        slot.update((p, k + j) for j, p in enumerate(parity))
+        ops, lens = [], []
+        for chunks in chunk_dicts:
+            chunks = {c: _as_u8(v) for c, v in chunks.items()}
+            sizes = {len(v) for v in chunks.values()}
+            if len(sizes) != 1:
+                raise ValueError("uneven shard buffers")
+            ops.append(chunks)
+            lens.append(sizes.pop())
+        block = pipeline.host_block(codec.torch_device,
+                                    (k + len(parity), sum(lens)))
+        off = 0
+        for chunks, ln in zip(ops, lens):
+            for s in src:
+                block[slot[s], off:off + ln] = chunks[phys[s]]
+            off += ln
+        return block, slot, [slot[s] for s in src], erasures, list(phys), lens
+
+    def dispatch(packed):
+        block, slot, rows, erasures, avail, _lens = packed
+        if not erasures:
+            return None                  # all data rows survived: host-only
+        return pipeline.dispatch_decode(codec, block, rows,
+                                        [slot[e] for e in erasures],
+                                        erasures, avail)
+
+    def unpack(packed, _settled):
+        block, slot, _rows, _erasures, _avail, lens = packed
+        out = []
+        off = 0
+        for ln in lens:
+            out.append(take(block, slot, off, ln))
+            off += ln
+        return out
+
+    return pipeline.submit(pack, dispatch, unpack, kind=kind, owner=owner,
+                           ops=len(chunk_dicts))
+
+
 def decode_many_pipelined(sinfo: StripeInfo, ec_impl,
                           batches: list[dict[int, np.ndarray]],
                           pipeline, owner: str | None = None):
     """Async :func:`decode_many`: one pipeline item per distinct
-    available-chunk signature.  Returns ``[(idxs, future), ...]`` where
-    each future resolves to the logical bytes for those batch indices, or
-    None when the codec has no device path."""
+    available-chunk signature, in the slot layout
+    (:func:`_submit_slot_group`); each op's bytes come out of its columns
+    in one strided copy (:func:`_stripes_bytes`).  Returns
+    ``[(idxs, future), ...]`` where each future resolves to the logical
+    bytes for those batch indices, or None when the codec has no device
+    path."""
     if not batches:
         return None
     total_bytes = sum(sum(_as_u8(v).nbytes for v in chunks.values())
@@ -598,83 +674,14 @@ def decode_many_pipelined(sinfo: StripeInfo, ec_impl,
     codec = _device_codec(ec_impl, total_bytes)
     if codec is None:
         return None
-    by_sig: dict[frozenset, list[int]] = {}
-    for i, chunks in enumerate(batches):
-        by_sig.setdefault(frozenset(chunks), []).append(i)
-    pending = []
-    for sig, idxs in sorted(by_sig.items(), key=lambda kv: kv[1][0]):
-        pending.append((list(idxs),
-                        _submit_decode_group(sinfo, ec_impl, codec, batches,
-                                             sig, idxs, pipeline, owner)))
-    return pending
-
-
-def _submit_decode_group(sinfo, ec_impl, codec, batches, sig, idxs,
-                         pipeline, owner: str | None = None):
-    """One signature group's pack/dispatch/unpack trio, submitted, in the
-    slot layout: the group's block [k + p, total] holds the k logical
-    data rows in order, an erased row's an empty slot, then the p parity
-    rows the decode matrix reads.  The pack copies each op's survivors
-    once into their rows; the survivors go to the card as the block's
-    runs of rows and the recovered rows land in the slots
-    (``dispatch_decode``'s ``rows``, ``land``); each op's bytes come out
-    of its columns in one strided copy (:func:`_stripes_bytes`).  The
-    pipeline's ``decode_one_pass`` counts these batches, and
-    ``decode_repacked`` those whose recovered rows came back apart (a
-    mesh) and were copied into the slots."""
     k = ec_impl.get_data_chunk_count()
 
-    def pack():
-        # wire ids are PHYSICAL; the codec's rows are LOGICAL
-        phys, _ = ec_impl.remap_for_decode({c: c for c in sig}, [])
-        erasures = [i for i in range(k) if i not in phys]
-        src = codec.decode_matrix(erasures, available=list(phys))[1] \
-            if erasures else list(range(k))
-        # src is sorted: the surviving data ids lead it, each at its own
-        # row, and its parity ids take the rows after the k data rows
-        kept = k - len(erasures)
-        rows = src[:kept] + [k + j for j in range(len(src) - kept)]
-        ops, lens = [], []
-        for i in idxs:
-            chunks = {c: _as_u8(v) for c, v in batches[i].items()}
-            sizes = {len(v) for v in chunks.values()}
-            if len(sizes) != 1:
-                raise ValueError("uneven shard buffers")
-            ops.append(chunks)
-            lens.append(sizes.pop())
-        block = pipeline.host_block(codec.torch_device,
-                                    (k + len(src) - kept, sum(lens)))
-        off = 0
-        for chunks, ln in zip(ops, lens):
-            for s, r in zip(src, rows):
-                block[r, off:off + ln] = chunks[phys[s]]
-            off += ln
-        return block, erasures, list(phys), rows, lens
-
-    def dispatch(packed):
-        block, erasures, avail, rows, _lens = packed
-        if not erasures:
-            return None                  # all data rows survived: host-only
-        return pipeline.dispatch_decode(codec, block, erasures, avail,
-                                        rows=rows, land=erasures)
-
-    def unpack(packed, rec):
-        block, erasures, _avail, _rows, lens = packed
-        if rec is None or rec is block:
-            pipeline.perf.inc("decode_one_pass")
-        else:
-            block[erasures] = rec
-            pipeline.perf.inc("decode_repacked")
-        out: list[bytes] = []
-        off = 0
-        for ln in lens:
-            out.append(_stripes_bytes(block[:k, off:off + ln],
-                                      sinfo.chunk_size))
-            off += ln
-        return out
-
-    return pipeline.submit(pack, dispatch, unpack, kind="decode",
-                           owner=owner, ops=len(idxs))
+    def take(block, _slot, off, ln):
+        return _stripes_bytes(block[:k, off:off + ln], sinfo.chunk_size)
+    return [(idxs, _submit_slot_group(ec_impl, codec,
+                                      [batches[i] for i in idxs], sig, k,
+                                      pipeline, take, "decode", owner))
+            for sig, idxs in _groups(frozenset(b) for b in batches)]
 
 
 def _stripes_bytes(shards: np.ndarray, chunk_size: int) -> bytes:
@@ -702,13 +709,11 @@ def decode(sinfo: StripeInfo, ec_impl,
     return logical.tobytes()
 
 
-def _group_streams(chunk_dicts: list[dict], sig,
-                   pad_chunks=None, quantum: int | None = None
+def _group_streams(chunk_dicts: list[dict], sig
                    ) -> tuple[dict[int, np.ndarray], list[int]]:
     """Assemble one signature group's per-op shard streams into
-    ``({chunk: concatenated [total] bytes}, per-op lens)``.  ``pad_chunks``
-    optionally rounds the group's total chunk count up (zero chunks
-    decode to zero bytes — linear code — and the pad slices off)."""
+    ``({chunk: concatenated [total] bytes}, per-op lens)``: the host
+    paths' input to one plugin call."""
     streams: dict[int, list[np.ndarray]] = {c: [] for c in sig}
     lens: list[int] = []
     for chunks in chunk_dicts:
@@ -719,48 +724,26 @@ def _group_streams(chunk_dicts: list[dict], sig,
         lens.append(sizes.pop())
         for c in sig:
             streams[c].append(chunks[c])
-    total = sum(lens)
-    if pad_chunks is not None and quantum and total % quantum == 0:
-        padded = pad_chunks(total // quantum) * quantum
-        if padded > total:
-            pad = np.zeros(padded - total, dtype=np.uint8)
-            for c in sig:
-                streams[c].append(pad)
     return ({c: (np.concatenate(v) if len(v) > 1 else v[0])
              for c, v in streams.items()}, lens)
 
 
 def decode_many(sinfo: StripeInfo, ec_impl,
-                batches: list[dict[int, np.ndarray]],
-                pad_chunks=None, chunk_size: int | None = None
-                ) -> list[bytes]:
+                batches: list[dict[int, np.ndarray]]) -> list[bytes]:
     """Decode MANY ops' shard chunk-dicts with ONE ``decode_concat`` per
     distinct available-chunk signature — the decode-side sibling of
     :func:`encode_many`.  Results split back per op, bit-identical to
-    calling :func:`decode` per dict.
-
-    ``pad_chunks(stripes) -> padded_stripes`` optionally rounds each
-    group's total stripe count up (zero chunks decode to zero bytes and
-    the pad slices off exactly)."""
-    if not batches:
-        return []
+    calling :func:`decode` per dict."""
     results: list[bytes | None] = [None] * len(batches)
-    by_sig: dict[frozenset, list[int]] = {}
-    for i, chunks in enumerate(batches):
-        by_sig.setdefault(frozenset(chunks), []).append(i)
     k = ec_impl.get_data_chunk_count()
-    for sig, idxs in by_sig.items():
-        concat, lens = _group_streams(
-            [batches[i] for i in idxs], sig, pad_chunks=pad_chunks,
-            quantum=chunk_size if chunk_size else sinfo.chunk_size)
+    for sig, idxs in _groups(frozenset(b) for b in batches):
+        concat, lens = _group_streams([batches[i] for i in idxs], sig)
         decoded = np.frombuffer(
             ec_impl.decode_concat(concat), dtype=np.uint8).reshape(k, -1)
         off = 0
         for i, ln in zip(idxs, lens):
-            logical = _from_shard_major(
-                np.ascontiguousarray(decoded[:, off:off + ln]),
-                sinfo.chunk_size)
-            results[i] = logical.tobytes()
+            results[i] = _stripes_bytes(decoded[:, off:off + ln],
+                                        sinfo.chunk_size)
             off += ln
     return results
 
@@ -769,7 +752,8 @@ def decode_many(sinfo: StripeInfo, ec_impl,
 # Recovery waves (decode_shards_many), the chain-repair hop
 # (partial_sum_accumulate) and the regenerating-repair legs (regen_project,
 # regen_combine).  With a pipeline they dispatch through
-# ops.pipeline.CodecPipeline on its CUDA stream; a failure on the card
+# ops.pipeline.CodecPipeline on its CUDA stream, each in the batch layout
+# (a block of chunk rows the result lands in); a failure on the card
 # fails the future and raises here, and nothing is served on the host
 # instead.  The chain hop and the regen legs run where ``device`` says:
 # "cuda" by default, "cpu" (the plain versions) or "numpy" (the exact host
@@ -793,25 +777,35 @@ def decode_shards_many(sinfo: StripeInfo, ec_impl,
     fractional repair reads are not positionwise across objects.
 
     With a ``pipeline`` and a plugin that routes the call to a tensor
-    codec, each (signature, want) group dispatches through the pipeline:
-    group i+1's host pack overlaps group i's reconstruct on the card, and
+    codec, each (signature, want) group dispatches through the pipeline
+    in the slot layout (:func:`_submit_slot_group`): each object's
+    survivors are packed once into their rows, the erased chunks land in
+    theirs, and each wanted chunk is handed out as a view of its row.
+    Group i+1's host pack overlaps group i's reconstruct on the card, and
     results are fetched after the last dispatch."""
-    if not batches:
-        return []
     results: list[dict[int, np.ndarray] | None] = [None] * len(batches)
-    by_sig: dict[tuple[frozenset, frozenset], list[int]] = {}
-    for i, (available, want) in enumerate(batches):
-        by_sig.setdefault((frozenset(available), frozenset(want)),
-                          []).append(i)
-    if pipeline is not None:
-        pending = _decode_shards_groups_pipelined(sinfo, ec_impl, batches,
-                                                  by_sig, pipeline, owner)
-        if pending is not None:
-            for idxs, fut in pending:
-                for i, rec in zip(idxs, fut.result()):
-                    results[i] = rec
-            return results
-    for (sig, want_sig), idxs in by_sig.items():
+    groups = _groups((frozenset(avail), frozenset(want))
+                     for avail, want in batches)
+    codec = None if pipeline is None or not batches else _device_codec(
+        ec_impl, sum(sum(_as_u8(v).nbytes for v in avail.values())
+                     for avail, _want in batches))
+    if codec is not None:
+        n = ec_impl.get_chunk_count()
+        pending = []
+        for (sig, want_sig), idxs in groups:
+            _, want_l = ec_impl.remap_for_decode({}, sorted(want_sig))
+
+            def take(block, slot, off, ln, want_l=want_l):
+                return {ec_impl.chunk_index(w): block[slot[w], off:off + ln]
+                        for w in want_l}
+            pending.append((idxs, _submit_slot_group(
+                ec_impl, codec, [batches[i][0] for i in idxs], sig, n,
+                pipeline, take, "recover", owner)))
+        for idxs, fut in pending:
+            for i, rec in zip(idxs, fut.result()):
+                results[i] = rec
+        return results
+    for (sig, want_sig), idxs in groups:
         want = set(want_sig)
         concat, lens = _group_streams([batches[i][0] for i in idxs], sig)
         decoded = ec_impl.decode(want, concat, 0)
@@ -821,58 +815,6 @@ def decode_shards_many(sinfo: StripeInfo, ec_impl,
                           [off:off + ln] for c in want}
             off += ln
     return results
-
-
-def _decode_shards_groups_pipelined(sinfo, ec_impl, batches, by_sig,
-                                    pipeline, owner: str | None = "recovery"):
-    """Submit every (signature, want) recovery group through the
-    pipeline; ``[(idxs, future), ...]``, or None when the plugin routes
-    the call to the host."""
-    total_bytes = sum(sum(_as_u8(v).nbytes for v in avail.values())
-                      for avail, _want in batches)
-    codec = _device_codec(ec_impl, total_bytes)
-    if codec is None:
-        return None
-    n = ec_impl.get_chunk_count()
-    pending = []
-    for (sig, want_sig), idxs in sorted(by_sig.items(),
-                                        key=lambda kv: kv[1][0]):
-        want = sorted(want_sig)
-
-        def pack(sig=sig, want=want, idxs=idxs):
-            concat, lens = _group_streams([batches[i][0] for i in idxs],
-                                          sig)
-            # wire ids are PHYSICAL; the codec's rows are LOGICAL
-            avail_l, want_l = ec_impl.remap_for_decode(concat, want)
-            erasures_l = [i for i in range(n) if i not in avail_l]
-            _D, src = codec.decode_matrix(erasures_l,
-                                          available=list(avail_l))
-            rows = [avail_l[s] for s in src]
-            stack = np.stack(rows, out=pipeline.host_block(
-                codec.torch_device, (len(rows), len(rows[0]))))
-            return erasures_l, want_l, list(avail_l), stack, lens
-
-        def dispatch(packed):
-            erasures_l, _want_l, avail_ids, stack, _lens = packed
-            return pipeline.dispatch_decode(codec, stack, erasures_l,
-                                            avail_ids)
-
-        def unpack(packed, rec):
-            erasures_l, want_l, _avail_ids, _stack, lens = packed
-            rows = {e: rec[i] for i, e in enumerate(erasures_l)}
-            out: list[dict[int, np.ndarray]] = []
-            off = 0
-            for ln in lens:
-                out.append({ec_impl.chunk_index(w): rows[w][off:off + ln]
-                            for w in want_l})
-                off += ln
-            return out
-
-        pending.append((list(idxs),
-                        pipeline.submit(pack, dispatch, unpack,
-                                        kind="recover", owner=owner,
-                                        ops=len(idxs))))
-    return pending
 
 
 def decode_shards(sinfo: StripeInfo, ec_impl, available: dict[int, np.ndarray],
@@ -891,11 +833,13 @@ def _gf_apply_routed(mat: np.ndarray, rows, k: int, device: str,
     """``mat`` [r, k] times ``rows[:k]``, XORed into ``rows[k:]`` when
     there are more rows (a hop's running sums) -> uint8 [r, N]: the one
     engine under the repair legs.  ``device`` "cuda" (the default of
-    every leg) or "cpu" stacks the rows into one (pinned) block and runs
-    :func:`ops.pipeline.apply_rows` there: through ``pipeline`` when one
-    is given (its stream, breaker and attribution; a failure fails the
-    future and raises here), synchronously on the current stream
-    otherwise.  "numpy" runs the exact host GF math."""
+    every leg) or "cpu" packs one (pinned) block [k + r, N], the data
+    rows and then the running sums or r empty rows, and runs
+    :func:`ops.pipeline.apply_rows` there, the result landing in the
+    block's last r rows: through ``pipeline`` when one is given (its
+    stream, breaker and attribution; a failure fails the future and
+    raises here), synchronously on the current stream otherwise.
+    "numpy" runs the exact host GF math."""
     from ..ops import codec as _codec
     from ..ops.pipeline import CodecPipeline, apply_rows, settle
     mat = np.ascontiguousarray(mat, dtype=np.uint8)
@@ -904,18 +848,19 @@ def _gf_apply_routed(mat: np.ndarray, rows, k: int, device: str,
         acc = stack[k:] if len(stack) > k else None
         return _codec.scale_accumulate_host(mat, stack[:k], acc)
     dev = _codec.torch_device(device)
+    sums = len(rows) > k
 
     def pack():
-        block = CodecPipeline.host_block(dev, (len(rows), len(rows[0])))
+        block = CodecPipeline.host_block(dev, (k + len(mat), len(rows[0])))
         for i, row in enumerate(rows):
             block[i] = row
         return block
 
     if pipeline is None:
-        return settle(apply_rows(mat, pack(), k, dev))
+        return settle(apply_rows(mat, pack(), k, sums, dev))[k:]
     fut = pipeline.submit(
-        pack, lambda block: pipeline.dispatch_apply(mat, block, k, dev),
-        lambda _block, host: host, kind=kind, owner=owner, ops=1)
+        pack, lambda block: pipeline.dispatch_apply(mat, block, k, sums, dev),
+        lambda block, _settled: block[k:], kind=kind, owner=owner, ops=1)
     return fut.result()
 
 

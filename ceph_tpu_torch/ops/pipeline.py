@@ -9,17 +9,28 @@ pipeline keeps up to ``depth`` dispatched batches in flight and defers the
 wait on the card to an explicit completion boundary:
 
     submit(pack, dispatch, unpack):
-        pack()              host: build the packed uint8 block, straight
+        pack()              host: the batch's block of chunk rows, straight
                             into pinned memory (:meth:`host_block`)
-        dispatch(packed)    on the pipeline's CUDA stream: pinned -> card
-                            (non_blocking), the gf_apply kernel, card ->
-                            pinned output (non_blocking), an event
+        dispatch(block)     on the pipeline's CUDA stream: the block's
+                            input rows -> card (non_blocking), the
+                            gf_apply kernel, the result -> the block's
+                            output rows (non_blocking), an event
         -> PipelineFuture
     completion (oldest-first once depth is exceeded, or flush(), or an
     out-of-order ``result()``):
-        event wait, numpy view of the pinned output   <- the ONLY wait
+        event wait: the batch settles to its block   <- the ONLY wait
         the batch's stream seconds from its timing events
-        unpack(packed, host) -> future's result
+        unpack(packed, block) -> future's result
+
+*The batch layout.*  Every GF(2^8) apply the pipeline dispatches reads
+and writes one block of chunk rows: rows [0, k) are the k data chunks in
+logical order, then, in logical id order, only the parity rows the batch
+reads or writes (a repair leg: its data rows, then its running-sum
+rows).  An encode's block is [n, N], the parity landing in rows [k, n);
+a decode's survivors are packed once into their rows and the erased rows
+land in their own (:func:`launch`'s ``rows`` and ``land``).  The one
+result that is not rows of a block, ``crc32c_rows``' checksums, lands in
+a pinned output of its own.
 
 What JAX gave for free the port builds by hand:
 
@@ -32,14 +43,14 @@ What JAX gave for free the port builds by hand:
   one-time matrix uploads run before the stream context, on the default
   stream, so they never wait on in-flight pipeline work.
 - *The completion boundary.*  ``jax.block_until_ready`` + ``device_get``
-  become one wait on the event recorded after the output copy, then a
-  numpy view of the pinned output.  Nothing else waits on the card: no
+  become one wait on the event recorded after the output copy; the
+  block is then the batch's host result.  Nothing else waits on the card: no
   ``.cpu()``, ``.numpy()`` or ``.item()`` on a CUDA tensor, no
   ``torch.cuda.synchronize()``.  The wait is ``Event.synchronize``, which
   releases the GIL, so the coalescer packs the next batch while a
   completer waits (``chip_smoke.py`` phase ``serving`` checks this).
-- *Lifetimes.*  The pinned input and output, and the card's input and
-  output tensors, belong to the future until its event completes
+- *Lifetimes.*  The pinned block, and the card's input and output
+  tensors, belong to the future until its event completes
   (:class:`_Dispatched` holds them).  A matrix tensor made on another
   stream takes ``record_stream`` before the pipeline's stream reads it.
 - *Buffer donation* (``ceph_tpu/ops/codec.py``'s donated apply) has no
@@ -61,8 +72,9 @@ time of its synchronous run.  Completion books them in
 
 The repair legs have no ``RSCodec``: :meth:`CodecPipeline.dispatch_apply`
 takes the matrix and a pinned block of rows ([data; running sums] for a
-chain hop) with the device named by the caller, and returns the same
-dispatched batch as the codec's directions.
+chain hop, [data; empty rows] for a leg with no sums) with the device
+named by the caller, and returns the same dispatched batch as the
+codec's directions.
 
 A failure on the card (dispatch, event wait or kernel) fails the
 future and so the op: the pipeline has no host fallback, so a kernel
@@ -95,7 +107,8 @@ shard's block there (gathered into pinned memory first, so the move is
 asynchronous), ``Sharded.host`` brings the result blocks back into one
 pinned buffer, and an event on every card's stream closes the batch;
 the batch waits on all of them (:class:`_Dispatched`), then puts the
-blocks in place.  ``mesh_dispatches`` counts the batches.
+blocks in place in its block's output rows and settles to that block
+like any other.  ``mesh_dispatches`` counts the batches.
 """
 from __future__ import annotations
 
@@ -122,41 +135,38 @@ _MISSING = object()
 
 
 class _Dispatched:
-    """One dispatched batch on the card (or the cards of a mesh): the
-    pinned host output its copies land in, the timing events recorded
-    after them (one a card) and ``starts``, those recorded before the
+    """One dispatched batch on the card (or the cards of a mesh): ``out``,
+    the host array it settles to (the caller's block, whose rows the
+    result lands in; the crc checksums' own pinned output), ``nbytes``,
+    the bytes the result brings back, the timing events recorded after
+    the copies (one a card) and ``starts``, those recorded before the
     batch's first copy (one a card), the tensors that must stay alive
-    until the events complete, and, for a mesh batch, ``finish``: the
-    host array from the landed output (its blocks put in place, the
-    padding dropped).  ``land``: the rows of ``out``, the caller's own
-    host block, that the result landed in (None: ``out`` is the result
-    alone).  A cpu codec's batch ran at dispatch: no events, ``host_s``
-    its run's seconds."""
+    until the events complete, and, for a mesh batch, ``finish(out)``:
+    puts the result's blocks, landed in a pinned buffer of their own, in
+    ``out``'s rows (the padding dropped).  A cpu codec's batch ran at
+    dispatch: no events, ``host_s`` its run's seconds."""
 
     __slots__ = ("out", "events", "keep", "finish", "starts", "host_s",
-                 "land")
+                 "nbytes")
 
     def __init__(self, out, events: tuple, keep: tuple, finish=None,
-                 starts: tuple = (), host_s: float = 0.0, land=None):
+                 starts: tuple = (), host_s: float = 0.0, nbytes: int = 0):
         self.out = out
         self.events = events
         self.keep = keep
         self.finish = finish
         self.starts = starts
         self.host_s = host_s
-        self.land = land
+        self.nbytes = nbytes
 
-    def wait(self) -> np.ndarray:
-        """Wait for the batch's events; the pinned output as numpy (the
-        caller's block itself when the result landed in its rows)."""
+    def wait(self):
+        """Wait for the batch's events; ``out`` with the result in it."""
         for event in self.events:
             event.synchronize()
         self.keep = None
         if self.finish is not None:
-            return self.finish(self.out)
-        if self.land is not None:
-            return self.out
-        return self.out.numpy()
+            self.finish(self.out)
+        return self.out
 
     def seconds(self) -> float:
         """After :meth:`wait`: the batch's seconds on its stream, each
@@ -186,14 +196,6 @@ def stream_seconds(dev) -> float:
     return dev.seconds() if isinstance(dev, _Dispatched) else 0.0
 
 
-def landed_bytes(dev, host) -> int:
-    """The bytes a settled batch brought back: the rows it landed in its
-    caller's block, else the host array :func:`settle` gave."""
-    if isinstance(dev, _Dispatched) and dev.land is not None:
-        return len(dev.land) * int(dev.out.shape[1])
-    return int(getattr(host, "nbytes", 0) or 0)
-
-
 def _runs(rows) -> list[tuple[int, int, int]]:
     """``(position, row, count)`` of each run of consecutive ``rows``: the
     copies that move those rows between a block and a packed tensor."""
@@ -212,72 +214,71 @@ def _timing_event(stream) -> torch.cuda.Event:
     return event
 
 
-def launch(dev: torch.device, host: np.ndarray, run, keep: tuple = (),
-           stream=None, rows=None, land=None) -> _Dispatched | torch.Tensor:
-    """The dispatch body every batch shares: ``host`` [R, N] uint8
-    (pinned for a card, see :meth:`CodecPipeline.host_block`) to ``dev``
-    on ``stream`` (None: the current stream), ``run(card_input)`` (the
-    kernel), the result back into a pinned output, between two timing
-    events.  ``rows``: the rows of ``host`` that make the card's input,
-    in order (None: all of them), one copy a run of consecutive rows.
-    ``land``: the rows of ``host`` (then C-contiguous uint8) the result's
-    rows land in, one copy a run, in place of a new pinned output; the
-    batch then settles to ``host`` itself.  ``keep``: tensors the launch
-    reads, held until the event (a card tensor made on another stream
-    takes ``record_stream``).  On the CPU ``run`` takes the host tensor
-    and runs now, timed on the host.  :func:`settle` waits for either."""
-    src = torch.from_numpy(np.ascontiguousarray(host, dtype=np.uint8))
-    runs = None if rows is None else _runs(rows)
+def launch(dev: torch.device, block: np.ndarray, run, rows, land,
+           keep: tuple = (), stream=None) -> _Dispatched:
+    """The dispatch body every batch shares.  ``block`` [R, N] C-contiguous
+    uint8 (pinned for a card, see :meth:`CodecPipeline.host_block`): its
+    rows ``rows``, in order, go to ``dev`` on ``stream`` (None: the
+    current stream), one copy a run of consecutive rows; ``run(card_input)``
+    (the kernel); the result's rows land in the block's rows ``land``, one
+    copy a run, between two timing events, and the batch settles to the
+    block.  ``land`` None: a result that is not rows of the block (the crc
+    checksums) lands in a pinned output of its own and the batch settles
+    to that.  ``keep``: tensors the launch reads, held until the event (a
+    card tensor made on another stream takes ``record_stream``).  On the
+    CPU ``run`` takes the rows and runs now, timed on the host.
+    :func:`settle` waits for either."""
+    src = torch.from_numpy(block)
+    runs = _runs(rows)
     if dev.type == "cpu":
         t0 = device_attribution.dispatch_mark()
-        out = run(src if runs is None else
-                  torch.cat([src[r:r + n] for _p, r, n in runs]))
+        out = run(torch.cat([src[r:r + n] for _p, r, n in runs]))
         if land is None:
-            return _Dispatched(out, (), (), host_s=device_attribution
-                               .seconds_since(t0))
-        for p, r, n in _runs(land):
-            src[r:r + n].copy_(out[p:p + n])
-        return _Dispatched(host, (), (), land=land,
+            block = out.numpy()
+        else:
+            for p, r, n in _runs(land):
+                src[r:r + n].copy_(out[p:p + n])
+        return _Dispatched(block, (), (), nbytes=int(out.nbytes),
                            host_s=device_attribution.seconds_since(t0))
     with torch.cuda.device(dev), torch.cuda.stream(stream):
         stream = torch.cuda.current_stream(dev)
         for t in keep:
             if t.is_cuda:
                 t.record_stream(stream)
-        # the card's input is allocated before the start event, so the
-        # batch's stream time opens at its copy, not at host set-up
-        shape = tuple(src.shape) if rows is None \
-            else (len(rows), int(src.shape[1]))
-        card_in = torch.empty(shape, dtype=src.dtype, device=dev)
+        # the card's input and the copies' views are made before the
+        # start event, so the batch's stream time opens at its first
+        # copy, not at host set-up
+        card_in = torch.empty((len(rows), int(src.shape[1])),
+                              dtype=src.dtype, device=dev)
+        copies = [(card_in[p:p + n], src[r:r + n]) for p, r, n in runs]
         start = _timing_event(stream)
-        if runs is None:
-            card_in.copy_(src, non_blocking=True)
-        else:
-            for p, r, n in runs:
-                card_in[p:p + n].copy_(src[r:r + n], non_blocking=True)
+        for dst, part in copies:
+            dst.copy_(part, non_blocking=True)
         card_out = run(card_in)
         if land is None:
             out = torch.empty(tuple(card_out.shape), dtype=card_out.dtype,
                               pin_memory=True)
             out.copy_(card_out, non_blocking=True)
+            block = out.numpy()
         else:
-            out = host
             for p, r, n in _runs(land):
                 src[r:r + n].copy_(card_out[p:p + n], non_blocking=True)
         event = _timing_event(stream)
-    return _Dispatched(out, (event,), (src, card_in, card_out, *keep),
-                       starts=(start,), land=land)
+    return _Dispatched(block, (event,), (src, card_in, card_out, *keep),
+                       starts=(start,), nbytes=int(card_out.nbytes))
 
 
-def apply_rows(mat: np.ndarray, block: np.ndarray, k: int,
-               dev: torch.device, stream=None) -> _Dispatched | torch.Tensor:
+def apply_rows(mat: np.ndarray, block: np.ndarray, k: int, sums: bool,
+               dev: torch.device, stream=None) -> _Dispatched:
     """A GF(2^8) apply with no ``RSCodec`` behind it: the chain-repair
-    hop and the regenerating-repair legs.  ``block`` [k + a, N] host
+    hop and the regenerating-repair legs.  ``block`` [k + r, N] host
     uint8 (from :meth:`CodecPipeline.host_block` for ``dev``) holds the
-    data rows [0, k) and, for a hop, the running sums [k, k + a) the
-    product XORs into (a = 0: none); ``mat`` [r, k] (a = 0 or r).  The
-    block and the matrix go to the card in one copy each, from pinned
-    memory, on ``stream`` -> ``[r, N]`` through :func:`launch`."""
+    data rows [0, k), then r rows: a hop's running sums the product XORs
+    into (``sums``), else empty rows; ``mat`` [r, k].  The rows the
+    apply reads and the matrix go to the card in one copy each, from
+    pinned memory, on ``stream``, and the [r, N] result lands in the
+    block's last r rows (:func:`launch`)."""
+    r = int(mat.shape[0])
     mat_t = torch.from_numpy(np.array(mat, dtype=np.uint8))
     if dev.type == "cuda":
         mat_t = mat_t.pin_memory()
@@ -286,7 +287,8 @@ def apply_rows(mat: np.ndarray, block: np.ndarray, k: int,
         acc = card[k:] if card.shape[0] > k else None
         return scale_accumulate_device(
             mat_t.to(card.device, non_blocking=True), card[:k], acc)
-    return launch(dev, block, run, keep=(mat_t,), stream=stream)
+    return launch(dev, block, run, range(k + r if sums else k),
+                  range(k, k + r), keep=(mat_t,), stream=stream)
 
 
 class PipelineFuture:
@@ -400,15 +402,6 @@ def _build_perf(name: str):
                              "batches split across the device mesh's "
                              "shards (jax_rs_mesh_devices engaged, or a "
                              "mesh set on the pipeline)")
-            .add_u64_counter("decode_one_pass",
-                             "serving decode batches in the slot layout: "
-                             "survivors packed once into their rows of "
-                             "the pinned block, the recovered rows landed "
-                             "in its empty slots (or none to recover)")
-            .add_u64_counter("decode_repacked",
-                             "serving decode batches whose recovered rows "
-                             "came back apart and were copied into the "
-                             "block's slots (a mesh dispatch)")
             .add_u64("breaker_state",
                      "circuit breaker state (0 closed, 1 half-open "
                      "probe in flight, 2 open: submits fail fast)")
@@ -632,7 +625,7 @@ class CodecPipeline:
                 self._device_success()
                 self.perf.tinc("device_time", device_s)
                 device_attribution.record_batch(
-                    fut.owner, device_s, landed_bytes(fut._dev, host))
+                    fut.owner, device_s, getattr(fut._dev, "nbytes", 0))
                 recorded = True
                 with trace_span("pipeline.unpack", kind=fut.kind,
                                 owner=fut.owner), \
@@ -714,80 +707,71 @@ class CodecPipeline:
                                pin_memory=True).numpy()
         return np.empty(tuple(shape), dtype=np.uint8)
 
-    def _launch(self, dev: torch.device, host: np.ndarray, run,
-                keep: tuple = (), rows=None, land=None
-                ) -> _Dispatched | torch.Tensor:
-        """:func:`launch` on the pipeline's stream for ``dev``."""
-        return launch(dev, host, run, keep, self._stream(dev), rows, land)
-
-    def dispatch_encode(self, codec, data_shards, chunk_size: int):
-        """``data_shards`` [k, S*chunk] host uint8 (logical row order) ->
-        parity [m, S*chunk], dispatched async on the pipeline's stream,
-        or over the mesh's shards when it engages and the shapes divide
+    def dispatch_encode(self, codec, block, chunk_size: int):
+        """``block`` [n, S*chunk] host uint8 (:meth:`host_block`) whose
+        rows [0, k) hold the data in logical order -> the parity lands in
+        its rows [k, n), dispatched async on the pipeline's stream, or
+        over the mesh's shards when it engages and the shapes divide
         (``chunk_size`` is the unit the stripes split by)."""
+        k, n = codec.k, codec.k + codec.m
         mesh = self._mesh_for(codec)
         if mesh is not None:
-            out = self._mesh_encode(codec, data_shards, int(chunk_size),
-                                    mesh)
+            out = self._mesh_encode(codec, block, int(chunk_size), mesh)
             if out is not None:
                 return out
         mat = codec.parity_matrix_device()
-        return self._launch(codec.torch_device, data_shards,
-                            codec.encode_device, keep=(mat,))
+        dev = codec.torch_device
+        return launch(dev, block, codec.encode_device, range(k),
+                      range(k, n), (mat,), self._stream(dev))
 
-    def _mesh_encode(self, codec, data_shards, c: int, mesh):
+    def _mesh_encode(self, codec, block, c: int, mesh):
         """The encode through ``sharded_batch_encode_step`` (None: the
         shapes take the single-card path).  [k, S*c] is the stripes'
         [S, k, c] with the axes swapped, zero stripes pad S to a multiple
         of dp (a zero stripe encodes to zero parity), and the parity comes
-        back into [m, S*c]."""
-        k, total = data_shards.shape
+        back into the block's rows [k, n)."""
+        k, m = codec.k, codec.m
+        total = block.shape[1]
         dp, sp = mesh.shape["dp"], mesh.shape["sp"]
         if c <= 0 or total % c or c % sp:
             return None
         from ..parallel import mesh as meshmod
         stripes = total // c
         step = self._mesh_step(mesh, codec)
-        data = torch.from_numpy(np.ascontiguousarray(
-            data_shards, dtype=np.uint8)).view(k, stripes, c)
-        out = np.empty((codec.m, total), dtype=np.uint8)
+        data = torch.from_numpy(block[:k]).view(k, stripes, c)
 
-        def finish(parity):
-            parity.full(out=torch.from_numpy(out).view(
-                codec.m, stripes, c).transpose(0, 1))
-            return out
+        def finish(parity, out):
+            parity.full(out=torch.from_numpy(out[k:]).view(
+                m, stripes, c).transpose(0, 1))
         return self._mesh_run(
-            mesh, lambda: step(meshmod.shard(
+            mesh, block, m * total, lambda: step(meshmod.shard(
                 mesh, data.transpose(0, 1), ("dp", None, "sp"),
                 (stripes + (-stripes) % dp, k, c))), finish)
 
-    def dispatch_decode(self, codec, stack, erasures, available,
-                        rows=None, land=None):
-        """``stack`` [k', S*chunk] host uint8 survivors in the sorted-src
-        order ``codec.decode_matrix(erasures, available)`` returns ->
-        recovered rows [len(erasures), S*chunk], async.  The decode matrix
-        is the codec's card-resident LRU copy.
-
-        With ``rows``, ``stack`` is a larger block and its rows ``rows``
-        are the survivors, in that order; with ``land`` as well, the
-        recovered rows land in the block's rows ``land`` (one pass each
-        way, :func:`launch`) and the batch settles to the block.  A mesh
-        takes the survivors as one stack and returns the recovered rows
-        apart."""
+    def dispatch_decode(self, codec, block, rows, land, erasures,
+                        available):
+        """``block`` [R, S*chunk] host uint8 whose rows ``rows`` are the
+        survivors, in the sorted-src order ``codec.decode_matrix(erasures,
+        available)`` returns -> the recovered rows land in its rows
+        ``land``, one per erasure in sorted order, async (one pass each
+        way, :func:`launch`).  The decode matrix is the codec's
+        card-resident LRU copy.  A mesh takes the survivors as one
+        stack."""
         mesh = self._mesh_for(codec)
         if mesh is not None:
-            out = self._mesh_decode(
-                codec, stack if rows is None else stack[list(rows)],
-                erasures, available, mesh)
+            out = self._mesh_decode(codec, block, rows, land, erasures,
+                                    available, mesh)
             if out is not None:
                 return out
         mat, _src = codec.decode_matrix_device(erasures, available)
-        return self._launch(
-            codec.torch_device, stack,
+        dev = codec.torch_device
+        return launch(
+            dev, block,
             lambda card: codec.decode_device(card, erasures, available),
-            keep=(mat,), rows=rows, land=land)
+            rows, land, (mat,), self._stream(dev))
 
-    def _mesh_decode(self, codec, stack, erasures, available, mesh):
+    def _mesh_decode(self, codec, block, rows, land, erasures, available,
+                     mesh):
         """The decode through ``sharded_decode_step`` (None: the survivors
         are not the decode matrix's).  Each shard's columns of the decode
         matrix are the codec's copy on its card; zero survivors pad the
@@ -795,6 +779,7 @@ class CodecPipeline:
         sp."""
         from ..parallel import mesh as meshmod
         erasures = sorted(int(e) for e in erasures)
+        stack = block[list(rows)]
         kk, total = stack.shape
         _D, src = codec.decode_matrix(erasures, available)
         if kk != len(src):
@@ -802,7 +787,6 @@ class CodecPipeline:
         dp, sp = mesh.shape["dp"], mesh.shape["sp"]
         per = -(-kk // dp)
         step = self._mesh_step(mesh)
-        out = np.empty((len(erasures), total), dtype=np.uint8)
 
         def run():
             D = meshmod.Sharded(mesh, (len(erasures), per * dp), (None, "dp"),
@@ -813,10 +797,12 @@ class CodecPipeline:
             return step(D, meshmod.shard(mesh, stack, ("dp", "sp"),
                                          (per * dp, total + (-total) % sp)))
 
-        def finish(rec):
-            rec.full(out=torch.from_numpy(out))
-            return out
-        return self._mesh_run(mesh, run, finish)
+        def finish(rec, out):
+            got = np.empty((len(erasures), total), dtype=np.uint8)
+            rec.full(out=torch.from_numpy(got))
+            out[list(land)] = got
+        return self._mesh_run(mesh, block, len(erasures) * total, run,
+                              finish)
 
     def _mesh_step(self, mesh, codec=None):
         """The mesh's encode step for ``codec`` (it holds the parity matrix
@@ -835,15 +821,17 @@ class CodecPipeline:
                         mesh, codec.parity_mat))
             return got[1]
 
-    def _mesh_run(self, mesh, run, finish) -> _Dispatched | np.ndarray:
+    def _mesh_run(self, mesh, block, nbytes: int, run, finish
+                  ) -> _Dispatched:
         """One mesh dispatch: ``run()`` -> the step's
         :class:`Sharded` result, made with the pipeline's stream current
         on every card of the mesh (the step's moves and launches, and the
         uploads of matrices it is the first to need, are ordered on it);
         its blocks move back into one pinned buffer, timing events a card
-        open and close the batch, and ``finish(landed)`` gives the host
-        array once every event is done.  On CPU devices the steps run
-        now, timed on the host."""
+        open and close the batch, and once every event is done
+        ``finish(landed, block)`` puts them in the block's output rows
+        (``nbytes`` of them).  On CPU devices the steps run now, timed on
+        the host."""
         cuda = mesh.device_type == "cuda"
         with contextlib.ExitStack() as current:
             if cuda:
@@ -857,16 +845,18 @@ class CodecPipeline:
             result = run()
             landed = result.host()
             self.perf.inc("mesh_dispatches")
+            land = lambda out: finish(landed, out)      # noqa: E731
             if not cuda:
-                return _Dispatched(landed, (), (), finish,
+                return _Dispatched(block, (), (), land,
                                    host_s=device_attribution
-                                   .seconds_since(t0))
+                                   .seconds_since(t0), nbytes=nbytes)
             events = tuple(_timing_event(self._stream(dev))
                            for dev in mesh.devices)
-        return _Dispatched(landed, events, (result,), finish, starts=starts)
+        return _Dispatched(block, events, (result,), land,
+                           starts=starts, nbytes=nbytes)
 
     def dispatch_apply(self, mat: np.ndarray, block: np.ndarray, k: int,
-                       dev: torch.device):
+                       sums: bool, dev: torch.device):
         """:func:`apply_rows` on the pipeline's stream for ``dev``, as a
         dispatched batch (already run for ``dev`` cpu)."""
-        return apply_rows(mat, block, k, dev, self._stream(dev))
+        return apply_rows(mat, block, k, sums, dev, self._stream(dev))

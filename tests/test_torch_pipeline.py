@@ -143,15 +143,23 @@ def _blocks(n, seed):
     return [rng.integers(0, 256, (K, CHUNK), np.uint8) for _ in range(n)]
 
 
+def _encode_block(data):
+    """``data`` [K, N] in an encode's block [K + M, N]: the parity lands
+    in its rows [K, K + M)."""
+    block = np.zeros((K + M, data.shape[1]), np.uint8)
+    block[:K] = data
+    return block
+
+
 def test_out_of_order_completion():
     pl = CodecPipeline(depth=8, name="t.ooo")
     try:
         codec = RSCodec(K, M, device="cpu")
         blocks = _blocks(3, seed=3)
-        futs = [pl.submit(lambda b=b: b,
+        futs = [pl.submit(lambda b=b: _encode_block(b),
                           lambda packed: pl.dispatch_encode(codec, packed,
                                                             CHUNK),
-                          lambda packed, parity: parity)
+                          lambda packed, block: block[K:])
                 for b in blocks]
         assert pl.in_flight == 3
         # force the LAST future first: it completes alone, the earlier
@@ -190,9 +198,9 @@ def test_injected_failure_surfaces_on_future():
         # the pipeline stays usable after failures
         codec = RSCodec(K, M, device="cpu")
         data = np.arange(K * CHUNK, dtype=np.uint8).reshape(K, CHUNK)
-        f3 = pl.submit(lambda: data,
+        f3 = pl.submit(lambda: _encode_block(data),
                        lambda d: pl.dispatch_encode(codec, d, CHUNK),
-                       lambda p, h: h)
+                       lambda p, h: h[K:])
         np.testing.assert_array_equal(f3.result(10), codec.encode_host(data))
     finally:
         pl.close()
@@ -210,9 +218,9 @@ def test_injected_device_faults_surface_with_errors_count(fault, exc):
     try:
         pl.inject_faults(FaultInjector(FaultPlan(seed=7, device=fault)))
         codec = RSCodec(K, M, device="cpu")
-        fut = pl.submit(lambda: _blocks(1, 0)[0],
+        fut = pl.submit(lambda: _encode_block(_blocks(1, 0)[0]),
                         lambda d: pl.dispatch_encode(codec, d, CHUNK),
-                        lambda p, h: h)
+                        lambda p, h: h[K:])
         with pytest.raises(exc):
             fut.result(5)
         assert pl.perf.get("errors") == 1
@@ -220,9 +228,9 @@ def test_injected_device_faults_surface_with_errors_count(fault, exc):
         assert pl.perf.get("completed") == int(fault.completion_fail_prob > 0)
         pl.inject_faults(None)
         data = _blocks(1, 1)[0]
-        ok = pl.submit(lambda: data,
+        ok = pl.submit(lambda: _encode_block(data),
                        lambda d: pl.dispatch_encode(codec, d, CHUNK),
-                       lambda p, h: h)
+                       lambda p, h: h[K:])
         np.testing.assert_array_equal(ok.result(5), codec.encode_host(data))
     finally:
         pl.close()
@@ -260,9 +268,9 @@ def test_breaker_opens_and_fails_fast():
         # the cooldown over, one probe dispatches on the device again
         pl.breaker.cooldown = 0.0
         data = _blocks(1, 4)[0]
-        probe = pl.submit(lambda: data,
+        probe = pl.submit(lambda: _encode_block(data),
                           lambda d: pl.dispatch_encode(codec, d, CHUNK),
-                          lambda p, h: h)
+                          lambda p, h: h[K:])
         np.testing.assert_array_equal(probe.result(5),
                                       codec.encode_host(data))
         assert pl.breaker.state == CLOSED
@@ -354,9 +362,9 @@ def test_depth_counters_and_backpressure():
         futs = []
         for d in _blocks(5, seed=5):
             futs.append(pl.submit(
-                lambda d=d: d,
+                lambda d=d: _encode_block(d),
                 lambda p: pl.dispatch_encode(codec, p, CHUNK),
-                lambda p, h: h))
+                lambda p, h: h[K:]))
             # depth-limited: never more than `depth` in flight
             assert pl.in_flight <= 2
         assert pl.perf.get("submitted") == 5
@@ -562,7 +570,8 @@ def test_settle_and_host_buffers():
                                    (K, 256))
     assert isinstance(buf, np.ndarray) and buf.shape == (K, 256)
     buf[:] = 7
-    out = pipeline_mod.launch(torch.device("cpu"), buf, lambda t: t ^ 1)
+    out = pipeline_mod.launch(torch.device("cpu"), buf, lambda t: t ^ 1,
+                              range(K), None)
     assert np.array_equal(pipeline_mod.settle(out), np.full((K, 256), 6))
 
 
@@ -587,9 +596,9 @@ def test_future_callbacks_and_value():
     try:
         codec = RSCodec(K, M, device="cpu")
         data = _blocks(1, 2)[0]
-        fut = pl.submit(lambda: data,
+        fut = pl.submit(lambda: _encode_block(data),
                         lambda d: pl.dispatch_encode(codec, d, CHUNK),
-                        lambda p, h: h)
+                        lambda p, h: h[K:])
         assert isinstance(fut, PipelineFuture)
         seen = []
         fut.add_done_callback(seen.append)
@@ -619,9 +628,9 @@ def test_concurrent_submit_and_force_completes_each_item_once():
     def worker(seed):
         try:
             for b in _blocks(6, seed):
-                fut = pl.submit(lambda b=b: b,
+                fut = pl.submit(lambda b=b: _encode_block(b),
                                 lambda p: pl.dispatch_encode(codec, p, 64),
-                                lambda p, h: h)
+                                lambda p, h: h[K:])
                 fut.add_done_callback(lambda f: finished.append(f))
                 if seed % 2:
                     got = fut.result(30)

@@ -174,7 +174,8 @@ def test_batch_seconds_are_the_events_elapsed_time():
     assert mesh.seconds() == pytest.approx(7e-3)
     # a cpu run: its host seconds; a dispatch that ran nothing: none
     ran = pipeline_mod.launch(torch.device("cpu"),
-                              np.ones((K, 64), np.uint8), lambda t: t ^ 1)
+                              np.ones((K, 64), np.uint8), lambda t: t ^ 1,
+                              range(K), None)
     assert np.array_equal(pipeline_mod.settle(ran), np.zeros((K, 64)))
     assert ran.seconds() == ran.host_s > 0.0
     assert pipeline_mod.stream_seconds(None) == 0.0
@@ -408,7 +409,9 @@ def test_device_seconds_match_the_profiler_at_the_write_cells_batch(card):
     from torch.profiler import ProfilerActivity, profile
     codec = RSCodec(8, 4, device=card)
     pl = CodecPipeline(depth=1, name="t.stage.card")
-    block = pl.host_block(codec.torch_device, (8, 16 * (4 << 20) // 8))
+    # the encode's block: the data in rows [0, 8), the parity lands in
+    # rows [8, 12)
+    block = pl.host_block(codec.torch_device, (12, 16 * (4 << 20) // 8))
     block[:] = np.random.default_rng(5).integers(0, 256, block.shape,
                                                  dtype=np.uint8)
 
