@@ -16,7 +16,11 @@ client-side :2786, ``_send_op`` :3239, and the resend-on-map-change scan
 - on a reject, and proactively on :meth:`handle_osd_map`, the Objecter
   recomputes every in-flight op's target and RESENDS the ones whose
   target moved — so a write issued against a pre-remap map lands on the
-  new acting set without the caller doing anything.
+  new acting set without the caller doing anything;
+- a PG's mapping depends only on the map, so the Objecter runs the
+  mapping chain once per PG and map (one object at one epoch) and
+  answers the PG's later ops from a memo that empties when the map
+  changes (the per-epoch PG table the reference's OSD and mon keep).
 
 The port's copy of ``ceph_tpu.client.objecter``.
 """
@@ -97,7 +101,17 @@ class Objecter:
             .add_u64_counter("slow_ops", "in-flight ops older than "
                                          "osd_op_complaint_time when "
                                          "check_op_timeouts ran")
+            .add_u64_counter("target_hits", "op targets answered from the "
+                                            "per-PG memo of the map")
+            .add_u64_counter("target_misses", "op targets that ran the "
+                                              "mapping chain (first op of "
+                                              "a PG under a map)")
             .create_perf_counters())
+        # (pool, ps) -> (primary, acting) under the map it was filled
+        # from: that map object at that epoch; emptied when either moves
+        self._targets: dict[tuple[int, int], tuple[int, tuple]] = {}
+        self._targets_map: OSDMap | None = None
+        self._targets_epoch = 0
         cluster.cct.perf.add(self.perf)
         _OBJECTERS.add(self)
 
@@ -127,12 +141,23 @@ class Objecter:
     # -- target computation (Objecter.cc:2786) -----------------------------
 
     def _calc_target(self, pool_id: int, oid: str) -> tuple[int, int, tuple]:
-        pool = self.osdmap.pools[pool_id]
-        ps = ceph_stable_mod(ceph_str_hash_rjenkins(oid), pool.pg_num,
-                             pool.pg_num_mask)
-        _, _, acting, _ = self.osdmap.pg_to_up_acting_osds(PG(pool_id, ps))
-        primary = acting[0] if acting else -1
-        return ps, primary, tuple(acting)
+        with default_tracer().span("objecter.calc_target", cat="client"):
+            m = self.osdmap
+            pool = m.pools[pool_id]
+            ps = ceph_stable_mod(ceph_str_hash_rjenkins(oid), pool.pg_num,
+                                 pool.pg_num_mask)
+            if self._targets_map is not m or self._targets_epoch != m.epoch:
+                self._targets = {}
+                self._targets_map, self._targets_epoch = m, m.epoch
+            hit = self._targets.get((pool_id, ps))
+            if hit is not None:
+                self.perf.inc("target_hits")
+                return ps, *hit
+            self.perf.inc("target_misses")
+            _, _, acting, _ = m.pg_to_up_acting_osds(PG(pool_id, ps))
+            hit = (acting[0] if acting else -1, tuple(acting))
+            self._targets[(pool_id, ps)] = hit
+            return ps, *hit
 
     # -- op lifecycle (Objecter.cc:2257 op_submit) -------------------------
 

@@ -161,6 +161,8 @@ SPAN_PHASES: dict[str, str] = {
     # other: op-engine execution and client-side machinery (the residual
     # a dedicated phase does not yet name)
     "client.op": OTHER,
+    # the client's CRUSH target for an op (Objecter._calc_target)
+    "objecter.calc_target": OTHER,
     "client.rpc": OTHER,
     "osd.op": OTHER,
     "serving.op": OTHER,

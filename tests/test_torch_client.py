@@ -16,8 +16,8 @@ import types
 
 import pytest
 
-from test_torch_cluster import (JAX, PORT, fixed_clock,  # noqa: F401
-                                payload, run_both)
+from test_torch_cluster import (JAX, PORT, Env,  # noqa: F401
+                                fixed_clock, payload, run_both)
 
 GRACE = 20
 
@@ -109,10 +109,130 @@ def scn_objecter_resend(env):
     return out
 
 
+def scn_objecter_resend_warm_memo(env):
+    """The objecter's per-PG targets are warm under the old map when a
+    remap moves ``obj``'s PG: the write is rejected as stale, the newer
+    map empties the memo, and the resend lands on the new acting set."""
+    c = env.cluster({"mon_osd_down_out_interval": 60})
+    pid = env.ec_pool(c)
+    oc = client(env).Objecter(c)
+    names = [f"o{i}" for i in range(24)] + ["obj"]
+    warm = [oc._calc_target(pid, n) for n in names]
+    oc.write(pid, "obj", payload(1024, 1))
+    stale = oc._calc_target(pid, "obj")
+    mon, old, new = _remap(c, pid, "obj")
+    acked = []
+    oc.write(pid, "obj", payload(1024, 2), on_complete=acked.append)
+    moved = oc._calc_target(pid, "obj")
+    g = c.pg_group(pid, "obj")
+    assert stale == warm[-1] and list(stale[2]) == old
+    assert moved != stale
+    assert moved == (g.pgid.ps, g.backend.whoami, tuple(g.acting))
+    assert list(moved[2]) == new
+    out = [warm, stale, moved, acked, oc.stale_rejects, oc.resends,
+           c.get(pid, "obj", 1024) == payload(1024, 2)]
+    if env.S is PORT:
+        # one miss a PG of the warm lap; then obj's first write, `stale`
+        # and the rejected send hit the old map's memo; the newer map's
+        # scan of the in-flight write misses, and the resend and `moved`
+        # hit
+        pgs = len({t[0] for t in warm})
+        assert oc.perf.get("target_misses") == pgs + 1
+        assert oc.perf.get("target_hits") == len(names) - pgs + 3 + 2
+    oc.close()
+    return out
+
+
 @pytest.mark.parametrize("scenario", [scn_objecter_basics,
-                                      scn_objecter_resend])
+                                      scn_objecter_resend,
+                                      scn_objecter_resend_warm_memo])
 def test_objecter(scenario):
     run_both(scenario)
+
+
+#: rados bench's object names (``benchmark_data_<host>_<pid>_object<N>``)
+BENCH_NAMES = [f"benchmark_data_client0_4242_object{n}" for n in range(256)]
+
+
+def _targets_across_epochs(env, hosts: int, per_host: int,
+                           profile: dict | None = None):
+    """The 256 ``rados bench`` names on an EC 8+4 pool of ``pg_num`` 32
+    over ``hosts`` hosts through three maps, each a monitor commit the
+    objecter is subscribed to: the pool's first map, an OSD marked out,
+    then a ``pg_temp`` and an upmap entry.  In each the objecter's
+    targets are the mapping chain's on that map, and the port's memo
+    runs the chain once for each PG touched."""
+    osdmap = importlib.import_module(f"{env.S.pkg}.osdmap")
+    c = env.S.MiniCluster(n_osds=hosts * per_host, osds_per_host=per_host,
+                          chunk_size=128, cct=env.S.Context({}))
+    env.clusters.append(c)
+    pid = c.create_ec_pool("bench", env.profile(k=8, m=4) | (profile or {}),
+                           pg_num=32)
+    mon = c.attach_monitor()
+    oc = client(env).Objecter(c)
+    oc.attach(mon)
+    out = []
+
+    def lap():
+        hits, misses = (oc.perf.get(k) if env.S is PORT else 0
+                        for k in ("target_hits", "target_misses"))
+        got = [oc._calc_target(pid, n) for n in BENCH_NAMES]
+        chain = {}
+        for ps in sorted({t[0] for t in got}):
+            acting = oc.osdmap.pg_to_up_acting_osds(osdmap.PG(pid, ps))[2]
+            chain[ps] = (acting[0] if acting else -1, tuple(acting))
+        assert got == [(t[0], *chain[t[0]]) for t in got]
+        if env.S is PORT:
+            assert oc.perf.get("target_misses") - misses == len(chain)
+            assert oc.perf.get("target_hits") - hits == \
+                len(BENCH_NAMES) - len(chain)
+        out.append((oc.osdmap.epoch, got))
+        return chain
+
+    first = lap()
+    victim = first[min(first)][1][3]
+    mon.pending.new_weight[victim] = 0
+    mon.propose_pending(1.0)
+    second = lap()
+    assert all(victim not in t[1] for t in second.values())
+    temp_ps = min(second)
+    acting = list(second[temp_ps][1])
+    acting[0], acting[1] = acting[1], acting[0]
+    mon.pending.new_pg_temp[osdmap.PG(pid, temp_ps)] = acting
+    # the upmap moves a chunk to another OSD of the same host
+    upmap_ps, src, dst = next(
+        (ps, src, dst) for ps in sorted(second)[1:]
+        for src in second[ps][1]
+        for dst in range(src - src % per_host, src - src % per_host
+                         + per_host)
+        if dst != victim and dst not in second[ps][1])
+    mon.pending.new_pg_upmap_items[osdmap.PG(pid, upmap_ps)] = [(src, dst)]
+    mon.propose_pending(2.0)
+    third = lap()
+    assert third[temp_ps] == (acting[0], tuple(acting))
+    assert dst in third[upmap_ps][1] and src not in third[upmap_ps][1]
+    assert [e for e, _ in out] == [out[0][0] + i for i in range(3)]
+    oc.close()
+    return out
+
+
+def test_objecter_targets_across_epochs():
+    """Both packages over 13 hosts of 2 OSDs: the JAX package's pools
+    take no ``crush-failure-domain`` key, so this pool has the rule both
+    make with hosts enough for 12 chunks, ``chooseleaf indep 12 type
+    host``."""
+    run_both(lambda env: _targets_across_epochs(env, 13, 2))
+
+
+def test_objecter_targets_across_epochs_on_the_cells_pool():
+    """The port alone on the cluster cell's pool: 12 hosts of 4 OSDs,
+    ``crush-failure-domain=host`` (Ceph's indep rule with its tries)."""
+    env = Env(PORT)
+    try:
+        _targets_across_epochs(env, 12, 4, {"crush-failure-domain": "host"})
+    finally:
+        for c in env.clusters:
+            c.shutdown()
 
 
 def test_status_sweeps_objecter_timeouts():
