@@ -93,6 +93,9 @@ class _RecoveryWave:
     fallback: set[str] = field(default_factory=set)
     pending_pushes: dict[str, set[int]] = field(default_factory=dict)
     failed: set[str] = field(default_factory=set)
+    # when the wave was dispatched (perf_counter): its objects'
+    # recovery.object start
+    t0: float = field(default_factory=time.perf_counter)
 
 
 @dataclass
@@ -1438,6 +1441,10 @@ class ECBackend(PGBackend):
         wave.pending_pushes.pop(oid, None)
         ok = oid not in wave.failed
         self.perf.inc("recoveries" if ok else "recovery_failures")
+        if ok:
+            if isinstance(wave, _RecoveryWave):
+                self.perf.inc("decode_wave_objects")
+            self._object_recovered(oid, wave.t0)
         wave.on_each(oid, ok)
 
     # -- chained streaming repair completion (recovery/chain.py) -----------

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import pickle
+import time
 from collections import deque
 from dataclasses import dataclass, field
 from enum import Enum
@@ -119,6 +120,17 @@ class OSDShard:
 
     def _meta(self) -> GObject:
         return GObject(PG_META, self.shard)
+
+    def reload(self) -> None:
+        """Drop the in-RAM PG log, rollback map and activation stamps and
+        rebuild them from the store: after the OSD's collections were
+        destroyed (``MiniCluster.replace_osd``) the shard serves the
+        empty store a recreated OSD boots with."""
+        self.pg_log = PGLog()
+        self.peered_epoch = 0
+        self.peered_head = 0
+        self.pending_rollbacks = {}
+        self._load_pg_state()
 
     def _push_is_stale(self, msg: PushOp, obj: GObject) -> bool:
         """Is this push older than the object state already applied here?
@@ -410,24 +422,27 @@ class OSDShard:
     def _apply_push(self, obj: GObject, data: bytes, attrs: dict,
                     omap, omap_header: bytes) -> None:
         """Replace this shard's copy with pushed recovery state (shared by
-        PushOp and the chain's ECPartialSumApply)."""
-        t = Transaction()
-        # the remove wipes everything, so omap=None ("leave alone")
-        # must re-apply the PRE-push omap to honour its contract
-        if omap is not None:
-            keep_omap, keep_header = dict(omap), omap_header
-        elif self.store.exists(obj):
-            keep_omap = self.store.get_omap(obj)
-            keep_header = self.store.get_omap_header(obj)
-        else:
-            keep_omap, keep_header = {}, b""
-        t.remove(obj).write(obj, 0, data)
-        for name, value in attrs.items():
-            t.setattr(obj, name, value)
-        if keep_omap or keep_header:
-            t.omap_setkeys(obj, keep_omap)
-            t.omap_setheader(obj, keep_header)
-        self.store.queue_transaction(t)
+        PushOp and the chain's ECPartialSumApply), under one
+        ``recovery.push`` span."""
+        with trace_span("recovery.push", oid=obj.oid, shard=self.shard,
+                        nbytes=len(data)):
+            t = Transaction()
+            # the remove wipes everything, so omap=None ("leave alone")
+            # must re-apply the PRE-push omap to honour its contract
+            if omap is not None:
+                keep_omap, keep_header = dict(omap), omap_header
+            elif self.store.exists(obj):
+                keep_omap = self.store.get_omap(obj)
+                keep_header = self.store.get_omap_header(obj)
+            else:
+                keep_omap, keep_header = {}, b""
+            t.remove(obj).write(obj, 0, data)
+            for name, value in attrs.items():
+                t.setattr(obj, name, value)
+            if keep_omap or keep_header:
+                t.omap_setkeys(obj, keep_omap)
+                t.omap_setheader(obj, keep_header)
+            self.store.queue_transaction(t)
 
     def _partial_sum_hop(self, msg: ECPartialSum) -> None:
         """One leg of a chained streaming repair (recovery/chain.py):
@@ -720,6 +735,8 @@ class RecoveryOp:
     # the whole op for any dead push target)
     failed: bool = False
     on_complete: object = None
+    # when the op was dispatched (perf_counter): its recovery.object start
+    t0: float = field(default_factory=time.perf_counter)
 
 
 class RepairState(Enum):
@@ -889,8 +906,17 @@ class PGBackend:
                              "chunk bytes pushed to recovery targets "
                              "(the mgr digest's recovery B/s source)")
             .add_u64_counter("recovery_failures", "recovery ops failed")
+            .add_u64_counter("objects_recovered",
+                             "objects brought back to full redundancy "
+                             "(the reference's num_objects_recovered)")
+            .add_u64_counter("bytes_recovered",
+                             "logical size of each object recovered (the "
+                             "reference's num_bytes_recovered, ceph -s "
+                             "recovery B/s)")
             .add_u64_counter("chain_repairs",
                              "partial-sum chain waves completed")
+            .add_u64_counter("decode_wave_objects",
+                             "objects rebuilt by a fused decode wave")
             .add_u64_counter("chain_objects",
                              "objects repaired via streaming chains")
             .add_u64_counter("chain_fallbacks",
@@ -1496,8 +1522,20 @@ class PGBackend:
         self.recovery_ops.pop(rop.oid, None)
         self._recovery_read_tids.pop(rop.read_tid, None)
         self.perf.inc("recovery_failures" if failed else "recoveries")
+        if not failed:
+            self._object_recovered(rop.oid, rop.t0)
         if rop.on_complete:
             rop.on_complete(rop)
+
+    def _object_recovered(self, oid: str, t0: float) -> None:
+        """One object back to full redundancy, its last push committed:
+        the ``recovery.object`` span from ``t0`` (``time.perf_counter`` at
+        its dispatch in a wave, chain or per-object op), and the reference's
+        ``num_objects_recovered`` / ``num_bytes_recovered``."""
+        size = self.object_size(oid)
+        self.perf.inc("objects_recovered")
+        self.perf.inc("bytes_recovered", size)
+        default_tracer().observe("recovery.object", t0)
 
     # -- shard repair: log catch-up or backfill ----------------------------
     # (the role PGLog::merge_log + log-based recovery + backfill play in the

@@ -42,7 +42,9 @@ from .osdmap.str_hash import ceph_str_hash_rjenkins
 from .plugins.registry import ErasureCodePluginRegistry
 
 
+import contextlib
 import itertools
+import time
 
 NONE_ID = 0x7FFFFFFF          # CRUSH_ITEM_NONE
 
@@ -199,6 +201,14 @@ class MiniCluster:
         # the reference's one-messenger-per-OSD topology
         self.bus = MessageBus()
         self.bus.pre_deliver_hooks.append(self._drain_live_daemons)
+        from .common import PerfCountersBuilder
+        self.perf = (
+            PerfCountersBuilder(f"cluster.c{self.cluster_id}")
+            .add_u64_counter("osd_replacements",
+                             "OSDs destroyed and recreated empty under "
+                             "their own id (replace_osd)")
+            .create_perf_counters())
+        self.cct.perf.add(self.perf)
         # wire accounting (common/wire_accounting.py): every bus send
         # charges byte/op counters per message type and owner op class —
         # the source of recovery.wire_bytes_per_byte_repaired and
@@ -230,6 +240,9 @@ class MiniCluster:
         # optional recovery scheduler (enable_recovery_scheduler):
         # reservation-gated, prioritized, batch-fused background repair
         self.recovery = None
+        # OSDs recreated empty by replace_osd whose boot the map callback
+        # has not handled yet: every PG of theirs is a backfill
+        self._recreated: set[int] = set()
         # optional fault injection campaign (inject_faults): one seeded
         # FaultInjector spanning the bus, store and device planes
         self.fault_injector = None
@@ -1582,6 +1595,7 @@ class MiniCluster:
         self.wire.close()
         self.slo.close()
         self.critpath.close()
+        self.cct.perf.remove(self.perf.name)
         for cmd, fn in self._slo_admin_fns.items():
             if self.cct.admin_socket.get(cmd) is fn:
                 self.cct.admin_socket.unregister(cmd)
@@ -1718,11 +1732,49 @@ class MiniCluster:
             self.osds[old.backend.whoami].write_superblock()
         self.osds[new.backend.whoami].register_pg(new.pgid, new)
 
+    def replace_osd(self, osd: int) -> None:
+        """Replace a failed disk under the same OSD id: the port's ``ceph
+        osd destroy {id}`` followed by ``ceph-volume lvm create --osd-id
+        {id}`` (docs: rados/operations/add-or-rm-osds, "Replacing an
+        OSD").  Through the attached monitor, the OSD is marked down as a
+        committed incremental; every ``pg.<pool>.<ps>`` collection it
+        holds is destroyed, its shards' PG logs and HashInfo with them,
+        and its shards reload the empty store; the id's markdown record
+        is cleared (a new daemon has no history); and it boots.  CRUSH
+        weight and id are unchanged, so no PG remaps: peering finds the
+        empty shards stale and repairs them, through the recovery
+        scheduler when one is attached (``attach_monitor``'s map
+        callback).  Without a monitor it raises."""
+        mon = getattr(self, "monitor", None)
+        if mon is None:
+            raise RuntimeError("replace_osd needs a monitor "
+                               "(attach_monitor)")
+        now = time.monotonic()
+        if mon.mark_osd_down(osd):
+            mon.propose_pending(now)
+        from .backend.collection import Collection
+        for pid, pool in self.pools.items():
+            for ps, g in pool["pgs"].items():
+                if osd not in g.acting:
+                    continue
+                Collection(self.osds[osd].store, f"pg.{pid}.{ps}").destroy()
+                handler = g.bus.handlers[osd]
+                getattr(handler, "local_shard", handler).reload()
+        mon.clear_markdown(osd)
+        self._recreated.add(osd)
+        if not mon.osd_boot(osd, now=now):
+            raise RuntimeError(f"osd.{osd}: boot refused after replacement")
+        mon.propose_pending(now)
+        self.perf.inc("osd_replacements")
+        self.clusterlog.info(f"osd.{osd} replaced", channel="osd")
+
     def attach_monitor(self, n_mons: int = 1):
         """Wire the control plane over this cluster's OSDMap: committed
         epochs propagate to the data path the way daemons react to osdmap
         epoch bumps in the reference — down-marks route around the shard,
-        boot-marks repair it before it serves, and weight changes
+        boot-marks repair it before it serves (an OSD recreated by
+        :meth:`replace_osd`: through peering and the recovery scheduler
+        when one is attached, after the callback), and weight changes
         (auto-out) backfill PGs onto their new acting sets.
 
         ``n_mons > 1`` runs a real Paxos quorum (MonCluster): map commits
@@ -1735,6 +1787,23 @@ class MiniCluster:
             mon = Monitor(self.osdmap, cct=self.cct)
 
         def on_map(new_map, inc):
+            # an OSD recreated empty (replace_osd) needs every PG of its
+            # backfilled: with a recovery scheduler that is background
+            # work, and the jobs that its mark-up and peering queue take
+            # their reservations once the callback is done, so it returns
+            # with the PGs active and leaves the rebuild to later
+            # deliveries.  An OSD that merely rebooted catches up through
+            # the PG log inline, before it serves.
+            fresh = {o for o, st in inc.new_state.items()
+                     if st & OSD_UP and o in self._recreated and
+                     new_map.is_up(o)}
+            self._recreated -= fresh
+            scheduled = fresh if self.recovery is not None else set()
+            with (self.recovery.held() if scheduled
+                  else contextlib.nullcontext()):
+                apply_map(new_map, inc, scheduled)
+
+        def apply_map(new_map, inc, scheduled):
             self.osdmap = new_map
             affected: dict[int, PGGroup] = {}
             for o, st in inc.new_state.items():
@@ -1757,7 +1826,7 @@ class MiniCluster:
                             # the weight/backfill path re-homes it or the
                             # primary itself boots back
                             continue
-                        if not down_now:
+                        if not down_now and o not in scheduled:
                             self._repair_after_boot(pid, g, o)
                         affected[id(g)] = g
             # AdvMap: ONE statechart round per affected PG per committed

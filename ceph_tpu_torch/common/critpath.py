@@ -105,6 +105,9 @@ PHASES = (QUEUE, ADMISSION, BATCH_DELAY, DISPATCH, DEVICE, WIRE, RETRY,
 SPAN_PHASES: dict[str, str] = {
     # queue: emitted by the OSD daemon when a queued op finally runs
     "osd.queue_wait": QUEUE,
+    # a PG recovery job waiting for its local and remote reservations
+    # (RecoveryScheduler, from schedule_backend to the last grant)
+    "recovery.reserve_wait": QUEUE,
     # admission: serving-engine throttle wait (emitted only when the
     # throttle actually blocked the submitter)
     "serving.admission": ADMISSION,
@@ -166,6 +169,11 @@ SPAN_PHASES: dict[str, str] = {
     "client.rpc": OTHER,
     "osd.op": OTHER,
     "serving.op": OTHER,
+    # one object brought back to full redundancy, from its dispatch in a
+    # wave, chain or per-object op to the commit of its last push; and a
+    # target shard applying one pushed or chained chunk to its store
+    "recovery.object": OTHER,
+    "recovery.push": OTHER,
     # the finisher thread running completion callbacks after a wake-up
     "finisher.run": OTHER,
     "backfill.pg": OTHER,

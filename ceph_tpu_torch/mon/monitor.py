@@ -139,6 +139,17 @@ class Monitor:
 
     # -- boots / outs ------------------------------------------------------
 
+    def mark_osd_down(self, osd: int) -> bool:
+        """The operator's ``ceph osd down`` (and the first step of ``ceph
+        osd destroy``): queue the mark-down in the pending incremental,
+        committed by the next propose.  Returns False when the OSD is
+        already down."""
+        if not self.osdmap.is_up(osd):
+            return False
+        self.pending.new_state[osd] = \
+            self.pending.new_state.get(osd, 0) | OSD_UP
+        return True
+
     def osd_boot(self, osd: int, now: float | None = None) -> bool:
         """An OSD (re)announcing itself (OSDMonitor preprocess_boot
         path).  Returns False — the boot is REFUSED — while the OSD is

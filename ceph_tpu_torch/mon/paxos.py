@@ -483,6 +483,12 @@ class MonCluster:
         if ld is not None:
             ld.service.cancel_failure(target, reporter)
 
+    def mark_osd_down(self, osd: int) -> bool:
+        ld = self.leader()
+        if ld is not None:
+            return ld.service.mark_osd_down(osd)
+        return False
+
     def osd_boot(self, osd: int, now: float | None = None) -> bool:
         ld = self.leader()
         if ld is not None:

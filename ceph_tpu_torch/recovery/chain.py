@@ -31,6 +31,7 @@ else ``"numpy"``.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 
 from ..backend import ecutil
@@ -99,6 +100,9 @@ class ChainRepair:
     pending_pushes: dict[str, set[int]] = field(default_factory=dict)
     failed: set[str] = field(default_factory=set)
     device: str = "numpy"
+    # when the plan was launched (perf_counter): its objects'
+    # recovery.object start
+    t0: float = field(default_factory=time.perf_counter)
 
 
 def leg_device(ec_impl, nbytes: int) -> str:

@@ -36,6 +36,7 @@ A copy of ``ceph_tpu.recovery.regen``; each leg runs where
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 
 from ..backend.ecutil import HINFO_KEY
@@ -65,6 +66,9 @@ class RegenRepair:
     pending_pushes: dict[str, set[int]] = field(default_factory=dict)
     failed: set[str] = field(default_factory=set)
     device: str = "numpy"
+    # when the plan was launched (perf_counter): its objects'
+    # recovery.object start
+    t0: float = field(default_factory=time.perf_counter)
     kind: str = "regen"
 
 

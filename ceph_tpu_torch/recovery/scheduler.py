@@ -54,12 +54,14 @@ rebuilt on the host instead.
 """
 from __future__ import annotations
 
+import contextlib
+import time
 import weakref
 from dataclasses import dataclass, field
 from enum import Enum
 
 from .reserver import AsyncReserver
-from ..common.tracer import trace_span
+from ..common.tracer import default_tracer, trace_span
 from ..osd.mclock import BG_RECOVERY
 from ..osd.pg_log import OP_DELETE
 
@@ -152,6 +154,10 @@ class PGRecoveryJob:
     # later preemption of the slot would be silently ignored
     local_gen: int = 0
     cancelled: bool = False
+    # when schedule_backend queued the job (perf_counter), and whether
+    # the job has yet held its local reservation and every remote one
+    t_sched: float = field(default_factory=time.perf_counter)
+    reserved: bool = False
 
     # -- driver interface (ShardRepairOp.driver) ---------------------------
 
@@ -202,6 +208,9 @@ class RecoveryScheduler:
             .add_u64_counter("stalled_requeued",
                              "parked recoveries re-entered via the "
                              "scheduler instead of bypassing it")
+            .add_time_avg("reserve_wait_time",
+                          "a PG job, from schedule_backend to holding its "
+                          "local reservation and every remote one")
             .add_u64("jobs_queued", "jobs waiting for a local reservation")
             .add_u64("jobs_active", "jobs holding a local reservation")
             .create_perf_counters())
@@ -223,6 +232,10 @@ class RecoveryScheduler:
         # optional cluster log (common/clusterlog.py): job start/finish
         # lines land where an operator reads them (`ceph -w`)
         self.clog = None
+        # jobs queued inside held(): their local reservation is requested
+        # when the outermost held() block ends
+        self._holds = 0
+        self._held_jobs: list[PGRecoveryJob] = []
         _SCHEDULERS.add(self)
 
     def close(self) -> None:
@@ -314,6 +327,26 @@ class RecoveryScheduler:
 
     # -- entry points ------------------------------------------------------
 
+    @contextlib.contextmanager
+    def held(self):
+        """Jobs that :meth:`schedule_backend` queues inside this block
+        request their local reservation only when the outermost block
+        ends.  The map callback runs under it: peering takes the PG to
+        Active and hands it its targets, and the rebuild is background
+        work for later deliveries (the reference queues a PG's
+        reservation request as an event after activation, not inside
+        the map handling)."""
+        self._holds += 1
+        try:
+            yield
+        finally:
+            self._holds -= 1
+            if not self._holds:
+                jobs, self._held_jobs = self._held_jobs, []
+                for job in jobs:
+                    if not job.cancelled and self.jobs.get(job.key) is job:
+                        self._request_local(job)
+
     def schedule_backend(self, backend, targets=None,
                          backfill=frozenset(),
                          forced: bool = False,
@@ -382,7 +415,10 @@ class RecoveryScheduler:
                 f"(targets {sorted(job.targets)}, prio {job.priority})",
                 channel="recovery")
         self._update_gauges()
-        self._request_local(job)
+        if self._holds:
+            self._held_jobs.append(job)
+        else:
+            self._request_local(job)
         return job
 
     def _request_local(self, job: PGRecoveryJob) -> None:
@@ -470,6 +506,8 @@ class RecoveryScheduler:
         if job.cancelled:
             return
         if not job.remote_pending:
+            if not job.reserved:
+                self._reserved(job)
             self._run_batch(job)
             return
         shard = job.remote_pending.pop(0)
@@ -492,6 +530,15 @@ class RecoveryScheduler:
         job.remote_waiting = None
         job.remote_held.add(shard)
         self._acquire_next_remote(job)
+
+    def _reserved(self, job: PGRecoveryJob) -> None:
+        """The job holds its local reservation and every remote one of
+        its batch for the first time: book the wait since it was
+        scheduled (span ``recovery.reserve_wait``, counter
+        ``reserve_wait_time``)."""
+        job.reserved = True
+        default_tracer().observe("recovery.reserve_wait", job.t_sched)
+        self.perf.tinc("reserve_wait_time", time.perf_counter() - job.t_sched)
 
     def _run_batch(self, job: PGRecoveryJob) -> None:
         """Every reservation held: start ALL the batch's shard repairs
