@@ -27,7 +27,7 @@ from ceph_tpu_torch.osd.osd_ops import ObjectOperation
 from ceph_tpu_torch.osd.peering import PState
 
 K, M, UNIT = 8, 4, 4096
-OBJECT = 2 * K * UNIT          # two stripes: chunks of 8 KiB
+OBJECT = K * UNIT              # one stripe: chunks of 4 KiB
 PROFILE = {"plugin": "torch_rs", "technique": "reed_sol_van", "k": str(K),
            "m": str(M), "w": "8", "crush-failure-domain": "host",
            "device": "cpu"}
@@ -66,10 +66,16 @@ def recovered(c, pid) -> int:
 def assert_matches_reference(c, pid, data) -> None:
     """Every object reads back, and its 12 chunks and HashInfo hashes on
     its acting set equal the plain reference's."""
-    for oid, d in sorted(data.items()):
+    oids = sorted(data)
+    chunks = {oid: rados_ec.chunks(np.frombuffer(data[oid], dtype=np.uint8),
+                                   K, M, UNIT) for oid in oids}
+    # every object's chunk hashes in one call of the reference
+    crc = rados_ec.crc32c(rados_ec.HINFO_SEED,
+                          np.stack([ch for oid in oids for ch in chunks[oid]]))
+    for i, oid in enumerate(oids):
+        d, want = data[oid], chunks[oid]
+        crcs = crc[i * (K + M):(i + 1) * (K + M)]
         assert c.get(pid, oid, len(d)) == d, oid
-        want = rados_ec.chunks(np.frombuffer(d, dtype=np.uint8), K, M, UNIT)
-        crcs = rados_ec.crc32c(rados_ec.HINFO_SEED, np.stack(want))
         g = c.pg_group(pid, oid)
         for chunk, osd in enumerate(g.acting):
             store = shard_store(g.bus, osd)
