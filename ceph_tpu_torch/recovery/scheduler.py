@@ -344,7 +344,7 @@ class RecoveryScheduler:
             if not self._holds:
                 jobs, self._held_jobs = self._held_jobs, []
                 for job in jobs:
-                    if not job.cancelled and self.jobs.get(job.key) is job:
+                    if not job.cancelled:
                         self._request_local(job)
 
     def schedule_backend(self, backend, targets=None,
